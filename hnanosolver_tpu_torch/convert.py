@@ -1,0 +1,45 @@
+"""Carry topologies and field states between numpy and the port.
+
+The JAX package's arrays convert to numpy with ``np.asarray``; these
+helpers turn such arrays into the port's tensors and back, so that both
+packages can be fed identical inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from hnanosolver_tpu_torch.core.topology import Topology
+from hnanosolver_tpu_torch.fields import FieldState
+
+
+def topology_from_numpy(keys, origins, nbr, n_active, device="cpu") -> Topology:
+    """Topology from numpy ``keys [T]``, ``origins [T,3]``, ``nbr [T,27]``
+    (all int32) and the active row count."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+
+    return Topology(keys=t(keys), origins=t(origins), nbr=t(nbr),
+                    n_active=int(n_active))
+
+
+def state_from_numpy(
+    velocity: np.ndarray, scalars: Dict[str, np.ndarray], device="cpu"
+) -> FieldState:
+    """FieldState from numpy ``velocity [3,T,512]`` and ``{name: [T,512]}``."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return FieldState(velocity=t(velocity),
+                      scalars={k: t(v) for k, v in scalars.items()})
+
+
+def state_to_numpy(state: FieldState) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """(velocity [3,T,512], {name: [T,512]}) as float32 numpy arrays."""
+    def n(x):
+        return x.detach().to("cpu").numpy()
+
+    return n(state.velocity), {k: n(v) for k, v in state.scalars.items()}

@@ -1,0 +1,81 @@
+"""Flat-layout neighbour access on ``[T, 512]`` fields.
+
+A face-shifted view takes the in-tile part by a lane roll of the field and
+the boundary plane by a roll of the face neighbour's row (fetched through
+``topo.nbr``). Absent neighbours point at the all-zero row 0, so reads
+outside the domain are exact zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from hnanosolver_tpu_torch.core.layout import TILE, col_coords
+
+# direction -> (boundary axis, boundary coordinate, in-tile roll, fix roll);
+# torch.roll(p, s, -1)[col] == p[col - s]
+_DIRS: Dict[Tuple[int, int, int], tuple] = {
+    (1, 0, 0): (0, 7, -64, 448),
+    (-1, 0, 0): (0, 0, 64, -448),
+    (0, 1, 0): (1, 7, -8, 56),
+    (0, -1, 0): (1, 0, 8, -56),
+    (0, 0, 1): (2, 7, -1, 7),
+    (0, 0, -1): (2, 0, 1, -7),
+}
+
+FACE_DIRS = tuple(_DIRS)
+
+
+def d_of(off) -> int:
+    """Index of a neighbour offset in the 27-entry ``nbr`` table."""
+    return (off[0] + 1) * 9 + (off[1] + 1) * 3 + (off[2] + 1)
+
+
+def _boundary_mask(off, device) -> torch.Tensor:
+    axis, at, _, _ = _DIRS[tuple(off)]
+    return col_coords(device)[axis] == at
+
+
+def shifted_view(topo, f: torch.Tensor, off) -> torch.Tensor:
+    """One +-1 face-shifted view of ``f [T,512]``."""
+    _, _, s_in, s_fix = _DIRS[tuple(off)]
+    n = f.index_select(0, topo.nbr[:, d_of(off)])
+    return torch.where(_boundary_mask(off, f.device),
+                       torch.roll(n, s_fix, -1), torch.roll(f, s_in, -1))
+
+
+def face_views_multi(topo, fields: torch.Tensor) -> torch.Tensor:
+    """All six face-shifted views of F stacked fields: ``[F,T,512]`` ->
+    ``[6,F,T,512]`` in FACE_DIRS order."""
+    return face_views_nbr(topo.nbr, fields)
+
+
+def face_views_nbr(nbr: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
+    """:func:`face_views_multi` given the ``nbr [T,27]`` table itself."""
+    views = []
+    for off in FACE_DIRS:
+        _, _, s_in, s_fix = _DIRS[off]
+        n = fields.index_select(1, nbr[:, d_of(off)])
+        views.append(torch.where(_boundary_mask(off, fields.device),
+                                 torch.roll(n, s_fix, -1),
+                                 torch.roll(fields, s_in, -1)))
+    return torch.stack(views)
+
+
+def neighbor_sum(topo, f: torch.Tensor) -> torch.Tensor:
+    """Sum of the six face neighbours, added left to right in FACE_DIRS
+    order (the JAX package's order)."""
+    v = face_views_multi(topo, f[None])[:, 0]
+    return v[0] + v[1] + v[2] + v[3] + v[4] + v[5]
+
+
+def table_index(cx, cy, cz):
+    """In-neighbourhood coords (each in [-8, 16)) -> index into the 27-tile
+    neighbourhood table ``d*512 + col``, with d the ``nbr`` column."""
+    ox = (cx + 8) >> 3
+    oy = (cy + 8) >> 3
+    oz = (cz + 8) >> 3
+    d = (ox * 9 + oy * 3 + oz) * TILE
+    return d + (cx & 7) * 64 + (cy & 7) * 8 + (cz & 7)
