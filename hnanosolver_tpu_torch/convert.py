@@ -12,13 +12,16 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from hnanosolver_tpu_torch.core.topology import Topology
+from hnanosolver_tpu_torch.core.topology import Topology, resolve_device
 from hnanosolver_tpu_torch.fields import FieldState
 
 
-def topology_from_numpy(keys, origins, nbr, n_active, device="cpu") -> Topology:
-    """Topology from numpy ``keys [T]``, ``origins [T,3]``, ``nbr [T,27]``
-    (all int32) and the active row count."""
+def topology_from_numpy(keys, origins, nbr, n_active, device=None) -> Topology:
+    """Topology on ``device`` (default: the CUDA card) from numpy ``keys
+    [T]``, ``origins [T,3]``, ``nbr [T,27]`` (all int32) and the active row
+    count."""
+    device = resolve_device(device)
+
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
 
@@ -27,9 +30,12 @@ def topology_from_numpy(keys, origins, nbr, n_active, device="cpu") -> Topology:
 
 
 def state_from_numpy(
-    velocity: np.ndarray, scalars: Dict[str, np.ndarray], device="cpu"
+    velocity: np.ndarray, scalars: Dict[str, np.ndarray], device=None
 ) -> FieldState:
-    """FieldState from numpy ``velocity [3,T,512]`` and ``{name: [T,512]}``."""
+    """FieldState on ``device`` (default: the CUDA card) from numpy
+    ``velocity [3,T,512]`` and ``{name: [T,512]}``."""
+    device = resolve_device(device)
+
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 

@@ -66,13 +66,27 @@ def _round_capacity(n: int) -> int:
     return ((int(need * 1.25) + 2047) // 2048) * 2048
 
 
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    CUDA card. Raises when a CUDA device is asked for and none is present:
+    the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA device is available; pass "
+            "device='cpu' explicitly to run the plain PyTorch versions on the CPU")
+    return dev
+
+
 def build_topology(
     tile_coords: np.ndarray,
     capacity: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Topology:
-    """Build a Topology on ``device`` from an ``[M, 3]`` array of (possibly
-    duplicated) tile coordinates; the tables are computed in host numpy."""
+    """Build a Topology on ``device`` (default: the CUDA card) from an
+    ``[M, 3]`` array of (possibly duplicated) tile coordinates; the tables
+    are computed in host numpy."""
+    device = resolve_device(device)
     tile_coords = np.asarray(tile_coords, dtype=np.int32).reshape(-1, 3)
     if tile_coords.size:
         lo, hi = tile_coords.min(), tile_coords.max()

@@ -68,7 +68,8 @@ def build_plume_envelope(radius_vox=64, height_vox=256, center_x=128, center_z=1
 
 
 def initial_topology(cfg: PlumeConfig, capacity: Optional[int] = None,
-                     device: torch.device | str = "cpu") -> Topology:
+                     device: torch.device | str | None = None) -> Topology:
+    """The emitter's tiles on ``device`` (default: the CUDA card)."""
     return build_topology(emitter_tiles(cfg, pad=1), capacity=capacity, device=device)
 
 
@@ -104,10 +105,11 @@ def run_plume(
     state: Optional[FieldState] = None,
     grow_every: int = 0,
     on_frame=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ):
     """Frame loop on a fixed topology. Returns (topo, state).
-    ``device`` is used only when ``topo`` is not given."""
+    ``device`` (default: the CUDA card) is used only when ``topo`` is not
+    given."""
     if grow_every:
         raise NotImplementedError(
             "topology growth is not ported yet (ROADMAP: modules still to "

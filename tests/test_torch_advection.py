@@ -48,7 +48,7 @@ def dom():
     box = np.array([(x, y, z) for x in range(5) for y in range(5) for z in range(5)])
     jt = jtopo.build_topology(box[rng.random(len(box)) < 0.5])
     tt = convert.topology_from_numpy(np.asarray(jt.keys), np.asarray(jt.origins),
-                                     np.asarray(jt.nbr), int(jt.n_active))
+                                     np.asarray(jt.nbr), int(jt.n_active), device="cpu")
     m = np.asarray(jtopo.active_mask(jt))[:, None]
     T = tt.capacity
     # |u| ~ 8 at sdt 0.5: many traces past the clamp

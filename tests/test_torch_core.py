@@ -50,7 +50,7 @@ def _tile_sets():
 def test_build_topology_bitwise(case):
     tiles, cap = _tile_sets()[case]
     j = jtopo.build_topology(tiles, capacity=cap)
-    t = ttopo.build_topology(tiles, capacity=cap)
+    t = ttopo.build_topology(tiles, capacity=cap, device="cpu")
     # integer tables: exact equality
     np.testing.assert_array_equal(t.keys.numpy(), np.asarray(j.keys))
     np.testing.assert_array_equal(t.origins.numpy(), np.asarray(j.origins))
@@ -63,9 +63,10 @@ def test_build_topology_bitwise(case):
 
 def test_build_topology_rejects_what_jax_rejects():
     with pytest.raises(ValueError):
-        ttopo.build_topology(np.array([[600, 0, 0]]))
+        ttopo.build_topology(np.array([[600, 0, 0]]), device="cpu")
     with pytest.raises(ValueError):
-        ttopo.build_topology(np.zeros((20, 3)) + np.arange(20)[:, None], capacity=8)
+        ttopo.build_topology(np.zeros((20, 3)) + np.arange(20)[:, None], capacity=8,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("pair", ["SolverParams", "CombustionParams"])
@@ -128,7 +129,7 @@ def test_layout_column_coords_equal():
 def test_layout_positions_and_parity_equal():
     tiles, _ = _tile_sets()["sparse_random"]
     j = jtopo.build_topology(tiles)
-    t = ttopo.build_topology(tiles)
+    t = ttopo.build_topology(tiles, device="cpu")
     for a, b in zip(tlayout.positions_flat(t), jlayout.positions_flat(j)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(tlayout.parity_flat(t).numpy(),
@@ -139,7 +140,7 @@ def test_zeros_and_mask_state_equal():
     tiles, _ = _tile_sets()["sparse_random"]
     j = jtopo.build_topology(tiles)
     t = convert.topology_from_numpy(np.asarray(j.keys), np.asarray(j.origins),
-                                    np.asarray(j.nbr), int(j.n_active))
+                                    np.asarray(j.nbr), int(j.n_active), device="cpu")
     rng = np.random.default_rng(5)
     T = t.capacity
     vel = rng.standard_normal((3, T, 512)).astype(np.float32)
@@ -147,7 +148,7 @@ def test_zeros_and_mask_state_equal():
           for n in ("density", "fuel")}
     jm = jfields.mask_state(j, jfields.FieldState(
         velocity=jnp.asarray(vel), scalars={k: jnp.asarray(v) for k, v in sc.items()}))
-    tm = tfields.mask_state(t, convert.state_from_numpy(vel, sc))
+    tm = tfields.mask_state(t, convert.state_from_numpy(vel, sc, device="cpu"))
     tv, ts = convert.state_to_numpy(tm)
     # multiplication by an exact 0/1 mask: bitwise
     np.testing.assert_array_equal(tv, np.asarray(jm.velocity))
@@ -156,3 +157,36 @@ def test_zeros_and_mask_state_equal():
     z = tfields.zeros_state(t)
     assert z.velocity.shape == (3, T, 512) and z.velocity.dtype == torch.float32
     assert sorted(z.scalars) == sorted(jfields.zeros_state(j).scalars)
+
+
+def _entry_points():
+    from hnanosolver_tpu_torch.models import plume as tplume
+
+    tiles = np.array([(0, 0, 0), (1, 0, 0)], np.int32)
+    z = np.zeros((3, 16, 512), np.float32)
+    return {
+        "build_topology": lambda **kw: ttopo.build_topology(tiles, **kw).nbr,
+        "topology_from_numpy": lambda **kw: convert.topology_from_numpy(
+            np.zeros(16, np.int32), np.zeros((16, 3), np.int32),
+            np.zeros((16, 27), np.int32), 0, **kw).nbr,
+        "state_from_numpy": lambda **kw: convert.state_from_numpy(
+            z, {"density": z[0]}, **kw).velocity,
+        "initial_topology": lambda **kw: tplume.initial_topology(
+            tplume.PlumeConfig(radius=4.0), **kw).nbr,
+        "run_plume": lambda **kw: tplume.run_plume(
+            0, cfg=tplume.PlumeConfig(radius=4.0), **kw)[0].nbr,
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device`` an entry point targets CUDA and, where no card is
+    present, raises rather than running on the CPU; ``device="cpu"`` runs
+    there."""
+    fn = _entry_points()[entry]
+    assert fn(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert fn().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()

@@ -36,7 +36,7 @@ def dom():
     box = np.array([(x, y, z) for x in range(4) for y in range(4) for z in range(3)])
     jt = jtopo.build_topology(box[rng.random(len(box)) < 0.6])
     tt = convert.topology_from_numpy(np.asarray(jt.keys), np.asarray(jt.origins),
-                                     np.asarray(jt.nbr), int(jt.n_active))
+                                     np.asarray(jt.nbr), int(jt.n_active), device="cpu")
     m = np.asarray(jtopo.active_mask(jt))[:, None]
     T = tt.capacity
     f = (rng.standard_normal((T, 512)) * m).astype(np.float32)
@@ -132,7 +132,7 @@ def test_emit_matches():
     tiles = tplume.build_plume_envelope(24, 48, 20, 20)
     jt = jtopo.build_topology(tiles)
     tt = convert.topology_from_numpy(np.asarray(jt.keys), np.asarray(jt.origins),
-                                     np.asarray(jt.nbr), int(jt.n_active))
+                                     np.asarray(jt.nbr), int(jt.n_active), device="cpu")
     rng = np.random.default_rng(3)
     m = np.asarray(jtopo.active_mask(jt))[:, None]
     T = tt.capacity
@@ -142,7 +142,8 @@ def test_emit_matches():
     js = jplume.emit(jt, JState(velocity=jnp.asarray(vel),
                                 scalars={k: jnp.asarray(v) for k, v in sc.items()}),
                      jplume.PlumeConfig(**cfg_kw), 1 / 24)
-    ts = tplume.emit(tt, convert.state_from_numpy(vel, sc), tplume.PlumeConfig(**cfg_kw), 1 / 24)
+    ts = tplume.emit(tt, convert.state_from_numpy(vel, sc, device="cpu"),
+                     tplume.PlumeConfig(**cfg_kw), 1 / 24)
     tv, tsc = convert.state_to_numpy(ts)
     np.testing.assert_array_equal(tv, np.asarray(js.velocity))
     for k in sc:

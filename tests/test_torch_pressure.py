@@ -33,7 +33,7 @@ def dom():
              if (x + 2 * y + z) % 7 != 5]
     jt = jtopo.build_topology(np.array(tiles, np.int32), capacity=64)
     tt = convert.topology_from_numpy(np.asarray(jt.keys), np.asarray(jt.origins),
-                                     np.asarray(jt.nbr), int(jt.n_active))
+                                     np.asarray(jt.nbr), int(jt.n_active), device="cpu")
     m = np.asarray(jtopo.active_mask(jt))[:, None]
     div = (rng.standard_normal((tt.capacity, 512)) * m).astype(np.float32)
     return jt, tt, div

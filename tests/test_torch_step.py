@@ -40,7 +40,7 @@ N = 24  # 3x3x3 tiles
 
 def _port_topo(jt):
     return convert.topology_from_numpy(np.asarray(jt.keys), np.asarray(jt.origins),
-                                       np.asarray(jt.nbr), int(jt.n_active))
+                                       np.asarray(jt.nbr), int(jt.n_active), device="cpu")
 
 
 def _jax_state(vel, sc):
@@ -88,7 +88,8 @@ def box():
 
 def test_step_box_matches_jax(box):
     jt, velf, scf, kw, want = box
-    got = tstep(_port_topo(jt), convert.state_from_numpy(velf, scf), tcfg.SolverParams(**kw))
+    got = tstep(_port_topo(jt), convert.state_from_numpy(velf, scf, device="cpu"),
+                tcfg.SolverParams(**kw))
     _assert_state_close(got, want)
 
 
@@ -136,7 +137,7 @@ def test_default_lag_residual_within_textbook(plume):
     cfg = tplume.PlumeConfig(**CFG_KW)
     v, sc = (np.asarray(frames[-1].velocity),
              {k: np.asarray(x) for k, x in frames[-1].scalars.items()})
-    s = tplume.emit(tt, convert.state_from_numpy(v, sc), cfg, params.dt)
+    s = tplume.emit(tt, convert.state_from_numpy(v, sc, device="cpu"), cfg, params.dt)
     inv_dx, c = params.inv_voxel_size, params.combustion
     u = tadv.advect_velocity(tt, s.velocity, params.dt, inv_dx)
     div = tstn.divergence(tt, u, inv_dx)
@@ -152,7 +153,7 @@ def test_default_lag_residual_within_textbook(plume):
     r_text, r_lag = rl2(1), rl2(params.effective_halo_lag)
     assert r_lag <= 1.5 * r_text, (r_lag, r_text)
     # and the whole default-lag step keeps the state finite with zero background
-    out = tplume.plume_step(tt, convert.state_from_numpy(v, sc), params, cfg)
+    out = tplume.plume_step(tt, convert.state_from_numpy(v, sc, device="cpu"), params, cfg)
     for f in [out.velocity] + list(out.scalars.values()):
         assert torch.isfinite(f).all()
         assert not f[..., 0, :].any() and not f[..., tt.n_active + 1:, :].any()
@@ -161,7 +162,7 @@ def test_default_lag_residual_within_textbook(plume):
 def test_step_rejects_unported_branches(box):
     jt, velf, scf, kw, _ = box
     tt = _port_topo(jt)
-    st = convert.state_from_numpy(velf, scf)
+    st = convert.state_from_numpy(velf, scf, device="cpu")
     for bad in ({"has_collision": True}, {"pressure_solver": "mg"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tstep(tt, st, tcfg.SolverParams(**kw, **bad))
