@@ -19,8 +19,16 @@
 // The kernel reads p_in and writes p_out, never in place: blocks run in any
 // order, and in place a block could read face planes a neighbour had
 // already updated, where the lagged semantics gather them before the launch.
-// Every row is updated; the null and padding rows stay 0 because their div
-// is 0 and they only see zero rows.
+//
+// Optional in-domain mask [T, 512] (the multigrid coarse levels, JAX's
+// voxel-granular porg): a voxel whose mask is not > 0 never updates; the
+// caller zeroes those voxels of p once before the first launch, as
+// solve_pressure_lagged does. Without a mask (null) every voxel of every
+// row updates, through the same code as before the mask existed (the
+// template's MASKED = false instance). So the null and padding rows are
+// updated too, and they stay 0 only because they enter at 0, their div is
+// 0 and their nbr entries are all 0: every cross-tile face read of theirs
+// is a read of the null row, which stays 0 for the same reasons.
 //
 // What bounds it on the H100: memory. A launch reads p and div once (8 B per
 // voxel), the six face planes of the neighbours (6*64*4 B per tile, mostly
@@ -30,10 +38,11 @@
 
 namespace hn {
 
+template <bool MASKED>
 __global__ void __launch_bounds__(TILE)
 rbsor_lagged_kernel(const float* __restrict__ p_in, const float* __restrict__ div,
-                    const int* __restrict__ nbr, float* __restrict__ p_out, int K,
-                    float omega, float dx2) {
+                    const int* __restrict__ nbr, const float* __restrict__ mask,
+                    float* __restrict__ p_out, int K, float omega, float dx2) {
   __shared__ float s[TILE];
   const int t = blockIdx.x;
   const int c = threadIdx.x;
@@ -54,11 +63,12 @@ rbsor_lagged_kernel(const float* __restrict__ p_in, const float* __restrict__ di
   const float rhs = mul(div[self], dx2);
   const float sixth = 1.0f / 6.0f;
   const int parity = (cx + cy + cz) & 1;
+  const bool in_dom = !MASKED || mask[self] > 0.0f;
   __syncthreads();
 
   for (int k = 0; k < K; ++k) {
     for (int color = 0; color < 2; ++color) {
-      if (parity == color) {
+      if (parity == color && in_dom) {
         float sum = (cx == 7) ? fpx : s[cx == 7 ? c : c + 64];
         sum = add(sum, (cx == 0) ? fmx : s[cx == 0 ? c : c - 64]);
         sum = add(sum, (cy == 7) ? fpy : s[cy == 7 ? c : c + 8]);
@@ -77,13 +87,21 @@ rbsor_lagged_kernel(const float* __restrict__ p_in, const float* __restrict__ di
 
 }  // namespace hn
 
-// p_in, div, p_out: [T, 512] f32 (p_out must not alias p_in); nbr [T, 27] i32.
+// p_in, div, p_out: [T, 512] f32 (p_out must not alias p_in); nbr [T, 27] i32;
+// mask [T, 512] f32 or null (every voxel in the domain).
 extern "C" int hn_rbsor_lagged(const void* p_in, const void* div, const void* nbr,
-                               void* p_out, int T, int K, float omega, float dx2,
-                               void* stream) {
+                               const void* mask, void* p_out, int T, int K, float omega,
+                               float dx2, void* stream) {
   if (T <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  hn::rbsor_lagged_kernel<<<T, hn::TILE, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p_in), static_cast<const float*>(div),
-      static_cast<const int*>(nbr), static_cast<float*>(p_out), K, omega, dx2);
+  const float* pi = static_cast<const float*>(p_in);
+  const float* d = static_cast<const float*>(div);
+  const int* n = static_cast<const int*>(nbr);
+  const float* m = static_cast<const float*>(mask);
+  float* po = static_cast<float*>(p_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m == nullptr)
+    hn::rbsor_lagged_kernel<false><<<T, hn::TILE, 0, s>>>(pi, d, n, m, po, K, omega, dx2);
+  else
+    hn::rbsor_lagged_kernel<true><<<T, hn::TILE, 0, s>>>(pi, d, n, m, po, K, omega, dx2);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,15 @@
 """Build and load the hand-written CUDA kernels of ``hnanosolver_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at the first kernel launch of a process, from the sources
-in the checkout only, into ``build/hnanosolver_tpu_torch/`` at the repo
-root. The library's file name carries a hash of the sources and the flags,
-so an edit to any source rebuilds; ``nvcc.log`` beside it keeps the
-compiler's output (``-Xptxas -v``: registers, shared memory, spills).
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, loaded with
+``ctypes``. No relocatable device code (``-rdc``) is needed: the grid
+barrier of kernel B5 links without it. The build runs at the first kernel
+launch of a process, from the sources in the checkout only, into
+``build/hnanosolver_tpu_torch/`` at the repo root. The library's file name
+carries a hash of the sources and the flags, so an edit to any source
+rebuilds; ``nvcc.log`` beside it keeps the compiler's output (``-Xptxas
+-v``: registers, shared memory, spills).
 
 Each C entry takes device pointers, ints and floats plus the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``; the Python
@@ -28,10 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hnanosolver_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p, so
@@ -39,7 +40,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "hn_bfecc_sample": (_P, _P, _P, _I, _I, _I, _F, _F, _P),
     "hn_bfecc_tail": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "hn_rbsor_lagged": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "hn_rbsor_lagged": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "hn_rbsor_color": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "hn_rbsor_fused": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "hn_residual": (_P, _P, _P, _P, _I, _F, _P),
 }
 
 
@@ -86,15 +90,33 @@ def build() -> BuildInfo:
     if lib.exists():
         return BuildInfo(lib, 0.0, log_path.read_text() if log_path.exists() else "")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{cu.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.returncode)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    log_path.write_text(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    log = "\n".join(log)
+    log_path.write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return BuildInfo(lib, seconds, log)
 

@@ -18,6 +18,7 @@ from hnanosolver_tpu_torch.core import coords as C
 from hnanosolver_tpu_torch.core.layout import positions_flat
 from hnanosolver_tpu_torch.core.topology import Topology, active_mask, build_topology
 from hnanosolver_tpu_torch.fields import FieldState, zeros_state
+from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.solver import step
 
 
@@ -92,9 +93,10 @@ def emit(topo: Topology, state: FieldState, cfg: PlumeConfig, dt: float) -> Fiel
 
 
 def plume_step(topo: Topology, state: FieldState, params: SolverParams,
-               cfg: PlumeConfig) -> FieldState:
-    """Emit + one full solver step."""
-    return step(topo, emit(topo, state, cfg, params.dt), params)
+               cfg: PlumeConfig, hierarchy: tuple = ()) -> FieldState:
+    """Emit + one full solver step. ``hierarchy``: from
+    ``ops.multigrid.hierarchy_for`` when params selects multigrid."""
+    return step(topo, emit(topo, state, cfg, params.dt), params, hierarchy)
 
 
 def run_plume(
@@ -120,8 +122,9 @@ def run_plume(
         topo = initial_topology(cfg, device=device)
     if state is None:
         state = zeros_state(topo)
+    hier = hierarchy_for(topo, params)  # once: the topology does not grow
     for f in range(frames):
-        state = plume_step(topo, state, params, cfg)
+        state = plume_step(topo, state, params, cfg, hier)
         if on_frame is not None:
             on_frame(f, topo, state)
     return topo, state

@@ -6,36 +6,23 @@
 one iteration being a red sweep then a black sweep. Out-of-domain pressure
 reads are background 0 (Dirichlet p = 0 on the sparse boundary).
 
-Two semantics, chosen by ``halo_lag``:
-- ``halo_lag > 1``: blocks of ``halo_lag`` pairs with the cross-tile halo
-  taken once per block (kernel B3, ``ops/cuda_pressure.py``). In-tile
-  neighbours stay fresh.
-- ``halo_lag == 1``: the textbook per-colour sweep, halo fresh every colour.
-  Plain PyTorch only for now: its kernel (B4) is not ported, so on CUDA it
-  raises, as do remainder sweeps (``iterations % halo_lag != 0``).
+``solve_pressure`` dispatches as the JAX package's TPU ("pallas") branch
+does (``hnanosolver_tpu/ops/pressure.py:69-109``), in this order:
+
+1. T <= ``MAX_FUSED_ROWS``: the whole textbook solve in one launch (B5).
+2. ``halo_lag > 1`` or ``pair_blocks``: ``iterations // halo_lag`` lagged
+   blocks (B3); the remainder as textbook colour sweeps (B4).
+3. otherwise the textbook solve as one B4 launch per colour sweep.
+
+``mask`` (multigrid coarse levels) is the in-domain voxel mask: ``p``
+enters multiplied by it and voxels outside it never update.
 """
 
 from __future__ import annotations
 
 import torch
 
-from hnanosolver_tpu_torch.core.layout import parity_flat
-from hnanosolver_tpu_torch.kernels import build
-from hnanosolver_tpu_torch.ops import cuda_pressure
-from hnanosolver_tpu_torch.ops.shifts import neighbor_sum
-
-_NO_B4 = ("the textbook per-colour sweep on CUDA needs kernel B4, not ported "
-          "yet (ROADMAP: kernels still to port, B4)")
-
-
-def _textbook(topo, div, iterations, dx, omega, p):
-    dx2 = dx * dx
-    red = parity_flat(topo) == 0
-    for _ in range(iterations):
-        for color_mask in (red, ~red):
-            pgs = (neighbor_sum(topo, p) - div * dx2) * (1.0 / 6.0)
-            p = torch.where(color_mask, p + omega * (pgs - p), p)
-    return p
+from hnanosolver_tpu_torch.ops import cuda_pressure, cuda_stencil
 
 
 def solve_pressure(
@@ -46,27 +33,33 @@ def solve_pressure(
     omega: float,
     p0: torch.Tensor | None = None,
     halo_lag: int = 1,
+    pair_blocks: bool = False,
+    mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Run ``iterations`` red+black SOR pairs from p0 (zeros by default).
-    div, p: [T,512]."""
-    p = torch.zeros_like(div) if p0 is None else p0
-    on_cpu = build.on_cpu(div.device)
+    div, p: [T,512]. Returns a new tensor."""
     if halo_lag < 1:
         raise ValueError(f"halo_lag must be >= 1, got {halo_lag}")
-    if halo_lag == 1:
-        if not on_cpu:
-            raise NotImplementedError(_NO_B4)
-        return _textbook(topo, div, iterations, dx, omega, p)
-    blocks, rem = divmod(iterations, halo_lag)
-    if rem and not on_cpu:
-        raise NotImplementedError(
-            f"iterations {iterations} % halo_lag {halo_lag} != 0: " + _NO_B4)
+    dx2 = dx * dx
+    if div.shape[0] <= cuda_pressure.MAX_FUSED_ROWS:
+        return cuda_pressure.rbsor_fused(topo.nbr, div, iterations, omega, dx2,
+                                         p0=p0, mask=mask)
+    p = torch.zeros_like(div) if p0 is None else p0
+    if mask is not None:
+        p = p * mask
+    blocks = iterations // halo_lag if halo_lag > 1 or pair_blocks else 0
     for _ in range(blocks):
-        p = cuda_pressure.rbsor_lagged(topo.nbr, p, div, halo_lag, omega, dx * dx)
-    return _textbook(topo, div, rem, dx, omega, p) if rem else p
+        p = cuda_pressure.rbsor_lagged(topo.nbr, p, div, halo_lag, omega, dx2, mask)
+    rem = iterations - blocks * halo_lag
+    if rem and p is p0:
+        p = p.clone()  # the colour sweeps update in place
+    for _ in range(rem):
+        for color in (0, 1):
+            p = cuda_pressure.rbsor_color(topo.nbr, p, div, color, omega, dx2, mask)
+    return p
 
 
 def residual(topo, p: torch.Tensor, div: torch.Tensor, dx: float) -> torch.Tensor:
-    """Pointwise residual r = div - L(p), L(p) = (sum nbrs - 6 p) / dx^2."""
-    lap = (neighbor_sum(topo, p) - 6.0 * p) / (dx * dx)
-    return div - lap
+    """Pointwise residual r = div - L(p), L(p) = (sum nbrs - 6 p) / dx^2
+    (kernel B6)."""
+    return cuda_stencil.residual(topo.nbr, p, div, dx)

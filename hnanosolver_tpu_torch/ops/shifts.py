@@ -39,9 +39,10 @@ def _boundary_mask(off, device) -> torch.Tensor:
 
 
 def shifted_view(topo, f: torch.Tensor, off) -> torch.Tensor:
-    """One +-1 face-shifted view of ``f [T,512]``."""
+    """One +-1 face-shifted view of ``f [..., T, 512]`` (one row gather for
+    all leading fields)."""
     _, _, s_in, s_fix = _DIRS[tuple(off)]
-    n = f.index_select(0, topo.nbr[:, d_of(off)])
+    n = f.index_select(-2, topo.nbr[:, d_of(off)])
     return torch.where(_boundary_mask(off, f.device),
                        torch.roll(n, s_fix, -1), torch.roll(f, s_in, -1))
 
@@ -67,7 +68,12 @@ def face_views_nbr(nbr: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
 def neighbor_sum(topo, f: torch.Tensor) -> torch.Tensor:
     """Sum of the six face neighbours, added left to right in FACE_DIRS
     order (the JAX package's order)."""
-    v = face_views_multi(topo, f[None])[:, 0]
+    return neighbor_sum_nbr(topo.nbr, f)
+
+
+def neighbor_sum_nbr(nbr: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """:func:`neighbor_sum` given the ``nbr [T,27]`` table itself."""
+    v = face_views_nbr(nbr, f[None])[:, 0]
     return v[0] + v[1] + v[2] + v[3] + v[4] + v[5]
 
 
