@@ -19,24 +19,27 @@ exit). Each phase prints the seconds it took.
      and without a mask (24 iterations); on BASELINE config 5 (1024^3,
      269,104 tiles) B3 with mask at level 2 (6,144 rows) and B6 at the fine
      level (269,312 rows)
-  4. the main path: plume_step for STEPS steps on the bench domain with the
-     bench SolverParams / PlumeConfig, launch counters reset just before and
-     read just after (exactly 2 B1, 2 B2, 10 B3 launches per step), every
-     field finite, null and padding rows exactly 0
+  4. the main path: plume_step for 20 steps from rest on the bench domain
+     with the bench SolverParams / PlumeConfig, launch counters reset just
+     before and read just after (exactly 2 B1, 2 B2, 10 B3 launches per
+     step), every field finite, null and padding rows exactly 0
   5. one more step from the developed state through the kernels and through
      the plain versions on the card, max relative error per field
   6. timing with CUDA events: ms/step (median of single steps), active
-     voxel-updates/s, each kernel's time per step beside its plain
+     voxel-updates/s; each kernel call of one step against its plain
+     version on the same inputs, and its time per step beside the plain
      version's and its bound
   7. the multigrid path on the bench domain (mg_levels 2, 2 V-cycles, FMG):
      MG_STEPS steps from the developed state with exact launch counts, one
-     step kernels vs plain, timings
+     step kernels vs plain, each kernel call of one step vs plain, timings
   8. one bench step in the "parity" precision tier (halo_lag 1: 100 B4
-     colour sweeps), kernels vs plain, B4's time
-  9. BASELINE config 5 at full size, kernels only: 4 RBGS-50 steps to
-     develop the plume, MG steps (mg_levels 5) with exact launch counts, a
-     project-only solve with both solvers (MG must reach max|r| <= 0.1 *
-     max|div|), ms/step of both, peak device memory
+     colour sweeps), kernels vs plain, each B4 call vs plain, B4's time
+  9. BASELINE config 5 at full size, steps through the kernels only (no
+     plain step at this size): 4 RBGS-50 steps to develop the plume, MG
+     steps (mg_levels 5) with exact launch counts, a project-only solve
+     with both solvers (MG must reach max|r| <= 0.1 * max|div|), ms/step
+     of both, peak device memory; then each kernel call of one MG step
+     against its plain version, and the kernels' times
 
 Launch counts come only from the main-path runs (phases 4, 7, 8, 9), each
 with the counters set to 0 just before and read just after; launches made
@@ -46,7 +49,14 @@ parity step, B5-B6 the bench MG step): per-launch medians over runs of 10
 back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
 move (each input read once, each output written once) over 3.35 TB/s and
-their f32 operations over 67 TFLOP/s (the H100 SXM data sheet).
+their f32 operations over 67 TFLOP/s (the H100 SXM data sheet). On the
+bench domain a launch's operands fit the 50 MB L2 and stay there between
+back-to-back calls, as they largely do in the step, so its HBM bound is
+not a floor on its time; the per-launch lines say where that holds. Only
+the config-5 fine level (551 MB a field) is held to a true HBM bound.
+
+The cells (domains, solver settings, develop steps) come from
+``hnanosolver_tpu_torch/cells.py``, which ``profile_step`` reads too.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -64,19 +74,9 @@ from unittest import mock
 
 import numpy as np
 
-STEPS = 20  # main-path steps from rest (develops the plume)
 MG_STEPS = 3  # multigrid steps on the bench domain
-C5_DEVELOP = 4  # RBGS-50 steps that develop the config-5 plume
 C5_MG_STEPS = 2  # counted multigrid steps at config 5
 SEED = 0
-# bench settings (bench.py): 50 pressure iterations, 1/24 s, dx 0.5
-BENCH_PARAMS = dict(dt=1.0 / 24.0, iterations=50, voxel_size=0.5)
-BENCH_CFG = dict(center=(128.0, 24.0, 128.0), radius=20.0)
-MG_PARAMS = dict(dt=1.0 / 24.0, voxel_size=0.5, pressure_solver="mg", iterations=2,
-                 mg_fmg=True)
-# BASELINE config 5 (tools/scale1024_r5.py): the radius-256 plume cone
-C5_ENVELOPE = (256, 1024, 512, 512)
-C5_CFG = dict(center=(512.0, 96.0, 512.0), radius=80.0, velocity_jet=8.0)
 # Tolerances, kernel vs its plain version on the card. The kernels use
 # round-to-nearest intrinsics in the plain version's op order, so bitwise
 # agreement is the expected outcome; the allowances below cover ulp-level
@@ -89,6 +89,7 @@ TOL_STEP = 1e-4  # per field, one full step from the developed state
 C5_RMAX_OVER_DIV0 = 0.1  # SCALE_r05.md's convergence criterion
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+L2_BYTES = 50e6  # H100 SXM L2 cache
 KEYS = ("B1", "B2", "B3", "B4", "B5", "B6")
 
 
@@ -158,8 +159,9 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
     return 9.0  # B6
 
 
-def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str]:
-    """The least time the card could take for one launch: (ms, bound by)."""
+def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]:
+    """The least time the card could take for one launch: (ms, bound by,
+    bytes moved)."""
     import torch
 
     seen, moved = set(), 0
@@ -171,7 +173,7 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str]:
     T = args[0].shape[0]
     ops = ops_per_voxel(key, args, kwargs) * T * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
 
 
 def main() -> int:
@@ -188,7 +190,7 @@ def main() -> int:
           f" | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     from hnanosolver_tpu_torch import solver
-    from hnanosolver_tpu_torch.config import SolverParams
+    from hnanosolver_tpu_torch.cells import CELLS
     from hnanosolver_tpu_torch.core.topology import active_mask, build_topology
     from hnanosolver_tpu_torch.fields import zeros_state
     from hnanosolver_tpu_torch.kernels import build
@@ -217,13 +219,10 @@ def main() -> int:
     done("2")
 
     dev = torch.device("cuda")
-    tiles = plume.build_plume_envelope(64, 256)
-    n = len(np.unique(tiles, axis=0))
-    cap = ((n + 1 + 511) // 512) * 512  # bench.py's tight capacity
-    topo = build_topology(tiles, capacity=cap, device=dev)
+    bench = CELLS["bench"]
+    topo = bench.topology(dev)
     T = topo.capacity
-    params = SolverParams(**BENCH_PARAMS)
-    cfg = plume.PlumeConfig(**BENCH_CFG)
+    params, cfg = bench.params, bench.plume
     sdt = params.dt * params.inv_voxel_size
     lag = params.effective_halo_lag
     omega, dx2 = params.omega, params.voxel_size ** 2
@@ -256,15 +255,15 @@ def main() -> int:
         mod, attr = k["wrap"]
         k["kernel_fn"], k["plain_fn"] = getattr(mod, attr), getattr(mod, attr + "_plain")
 
-    def check(key, label, got, want, tol=TOL_B3):
+    def check(key, label, got, want, tol=TOL_B3, phase="3"):
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
         bitwise = bool(torch.equal(got, want))
         kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], err)
-        print(f"[3] {key} {label}: max abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}),"
+        print(f"[{phase}] {key} {label}: max abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}),"
               f" bitwise {bitwise}", flush=True)
         if not rel <= tol:
-            raise AssertionError(f"phase 3: {key} {label} rel err {rel} > {tol}")
+            raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
 
     @contextlib.contextmanager
     def main_path(label: str, per_step: dict, steps: int):
@@ -343,13 +342,30 @@ def main() -> int:
         torch.cuda.synchronize()
         return list(groups.values())
 
+    def vs_plain(label, key, a, kw):
+        """One recorded call through the kernel and through its plain
+        version, each on its own copy of the inputs (B4 updates p in
+        place)."""
+        def inputs():
+            return [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+
+        k = kernels[key]
+        got, want = k["kernel_fn"](*inputs(), **kw), k["plain_fn"](*inputs(), **kw)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            check(key, f"main-path call T={a[0].shape[0]}", g, w,
+                  TOL_B1 if key == "B1" else TOL_B3, label)
+
     def time_calls(label: str, groups: list, plain: bool = True) -> dict:
-        """Per-step kernel, plain and bound ms of recorded calls: one timed
-        launch per distinct call, times its count. ``plain=False`` times
-        the kernels alone."""
+        """Each recorded call against its plain version on the same inputs,
+        then per-step kernel, plain and bound ms: one timed launch per
+        distinct call, times its count. ``plain=False`` times the kernels
+        alone."""
         res = {}
         for key, a, kw, out, count in groups:
             k = kernels[key]
+            vs_plain(label, key, a, kw)
             if plain:
                 k_ms, p_ms = paired_ms(lambda: k["kernel_fn"](*a, **kw),
                                        lambda: k["plain_fn"](*a, **kw))
@@ -357,15 +373,16 @@ def main() -> int:
                 k["kernel_fn"](*a, **kw)
                 k_ms = statistics.median(cuda_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10))
                 p_ms = float("nan")
-            b_ms, by = bound_ms(key, a, kw, out)
+            b_ms, by, moved = bound_ms(key, a, kw, out)
             r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
             r["ms"] += k_ms * count
             r["plain_ms"] += p_ms * count
             r["bound_ms"] += b_ms * count
             r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms * count
+            in_l2 = " (operands fit the L2: HBM bound)" if moved <= L2_BYTES else ""
             print(f"[{label}] {key} T={a[0].shape[0]} x{count}/step: {k_ms:.4f} ms kernel,"
-                  f" {p_ms:.4f} ms plain, bound {b_ms:.4f} ms ({by}) per launch | {card}",
-                  flush=True)
+                  f" {p_ms:.4f} ms plain, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB)"
+                  f"{in_l2} per launch | {card}", flush=True)
         for key, r in res.items():
             r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get) if r["bound_by"] else "bytes"
             print(f"[{label}] {key} {kernels[key]['name']}: {r['ms']:.4f} ms/step kernel vs "
@@ -426,10 +443,8 @@ def main() -> int:
     del t5, m5, d5, k5
 
     # BASELINE config 5: the domain and its hierarchy (reused in phase 9)
-    c5_tiles = plume.build_plume_envelope(*C5_ENVELOPE)
-    n5 = len(np.unique(c5_tiles, axis=0))
-    c5 = build_topology(c5_tiles, capacity=((n5 + 1 + 511) // 512) * 512, device=dev)
-    c5_mg = SolverParams(**MG_PARAMS, mg_levels=5)
+    c5 = CELLS["c5"].topology(dev)
+    c5_mg = CELLS["c5-mg"].params
     c5_hier = multigrid.hierarchy_for(c5, c5_mg)
     lv2 = c5_hier[1]
     d2 = field(lv2.topo.capacity, 512, mask=lv2.mask)
@@ -449,10 +464,10 @@ def main() -> int:
     # -- 4. the main path ------------------------------------------------------
     state = zeros_state(topo)
     t0 = time.perf_counter()
-    with main_path("4", {"B1": 2, "B2": 2, "B3": params.iterations // lag}, STEPS):
-        topo, state = plume.run_plume(STEPS, params, cfg, topo=topo, state=state)
+    with main_path("4", {"B1": 2, "B2": 2, "B3": params.iterations // lag}, bench.develop):
+        topo, state = plume.run_plume(bench.develop, params, cfg, topo=topo, state=state)
     wall = time.perf_counter() - t0
-    print(f"[4] main path: {STEPS} plume steps on {topo.n_active} tiles "
+    print(f"[4] main path: {bench.develop} plume steps on {topo.n_active} tiles "
           f"({topo.num_voxels} active voxels, capacity {T}), {params.iterations} "
           f"iterations at halo_lag {lag}: {wall:.2f} s wall; max density "
           f"{float(state.scalars['density'].max()):.4f}, max |u| "
@@ -490,7 +505,7 @@ def main() -> int:
     # level 1: B5 3, B6 1. FMG: the level-2 solve (B5 1), the level-1
     # V-cycle, the fine V-cycle: B3 4, B5 7, B6 3. Then 2 V-cycles: B3 8,
     # B5 6, B6 4. Per step: B1 2, B2 2, B3 12, B5 13, B6 7.
-    mg_params = SolverParams(**MG_PARAMS, mg_levels=2)
+    mg_params = CELLS["bench-mg"].params
     hier = multigrid.hierarchy_for(topo, mg_params)
     print(f"[7] bench hierarchy: tiles per level "
           f"{[topo.n_active] + [lv.topo.n_active for lv in hier]}, capacities "
@@ -513,7 +528,7 @@ def main() -> int:
     done("7")
 
     # -- 8. the "parity" precision tier: halo_lag 1 ---------------------------
-    par_params = SolverParams(**BENCH_PARAMS, precision="parity")
+    par_params = params.replace(precision="parity")
     assert par_params.effective_halo_lag == 1
     with main_path("8", {"B1": 2, "B2": 2, "B4": 2 * params.iterations}, 1):
         topo, par_state = plume.run_plume(1, par_params, cfg, topo=topo, state=state)
@@ -534,14 +549,13 @@ def main() -> int:
     # -- 9. BASELINE config 5 at full size, kernels only -------------------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    c5_rb = SolverParams(**BENCH_PARAMS)
-    cfg5 = plume.PlumeConfig(**C5_CFG)
+    c5_rb, cfg5 = CELLS["c5"].params, CELLS["c5"].plume
     print(f"[9] config 5: {c5.n_active} tiles = {c5.num_voxels} voxels (capacity "
           f"{c5.capacity}); hierarchy tiles per level "
           f"{[c5.n_active] + [lv.topo.n_active for lv in c5_hier]}, capacities "
           f"{[c5.capacity] + [lv.topo.capacity for lv in c5_hier]}", flush=True)
-    with main_path("9", {"B1": 2, "B2": 2, "B3": 10}, C5_DEVELOP):
-        c5, st5 = plume.run_plume(C5_DEVELOP, c5_rb, cfg5, topo=c5)
+    with main_path("9", {"B1": 2, "B2": 2, "B3": 10}, CELLS["c5"].develop):
+        c5, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5)
     check_state("9", c5, st5)
     # Per MG step (mg_levels 5): fine 269,312, L1 45,056 and L2 6,144 rows
     # smooth with one-pair B3 blocks (L1, L2 masked); L3 1,024, L4 128, L5 32
@@ -560,7 +574,6 @@ def main() -> int:
     c5_ms = {}
     for name, p_, h_ in (("MG", c5_mg, c5_hier), ("RBGS-50", c5_rb, ())):
         c5_ms[name] = statistics.median(cuda_ms(c5_step(p_, h_), 3))
-    time_calls("9", record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6")), plain=False)
     # project-only solve on the developed velocity (tools/scale1024_r5.py)
     inv_dx, dx = c5_rb.inv_voxel_size, c5_rb.voxel_size
     div5 = stencil.divergence(c5, st5.velocity, inv_dx)
@@ -592,6 +605,8 @@ def main() -> int:
     if not rmax["MG"] <= C5_RMAX_OVER_DIV0 * div0:
         raise AssertionError(f"phase 9: MG max|r| {rmax['MG']} > {C5_RMAX_OVER_DIV0} * "
                              f"div0 {div0}")
+    # after the peak is read: the plain versions' temporaries are not the step's
+    time_calls("9", record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6")), plain=False)
     done("9")
 
     print(card)

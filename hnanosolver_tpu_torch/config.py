@@ -31,7 +31,7 @@ class SolverParams:
     dt: float = 1.0 / 24.0
     voxel_size: float = 0.5
     iterations: int = 20  # red+black SOR pairs per pressure solve
-    pressure_solver: str = "rbgs"  # "mg" is not ported yet
+    pressure_solver: str = "rbgs"  # or "mg" (multigrid)
     # Red+black pairs per cross-tile halo refresh; None = by precision tier
     # (1 for "parity", 5 otherwise).
     halo_lag: int | None = None

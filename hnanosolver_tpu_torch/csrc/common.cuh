@@ -24,6 +24,25 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// The six face values of voxel c of tile t added left to right in the
+// order +x -x +y -y +z -z (the plain versions' FACE_DIRS order): in-tile
+// faces from `row` (t's row of p, in global or shared memory), cross-tile
+// faces from the neighbour's row of p through nb (t's 27 nbr entries; the
+// null row 0, all zeros, where the neighbour is absent). A cross-tile face
+// reads the neighbour row's voxel on the touching plane (the coordinate
+// wrapped mod 8); the in-tile index is clamped to the row on the boundary
+// so no address outside it is ever formed.
+__device__ __forceinline__ float face_sum(const float* p, const float* row, const int* nb,
+                                          int c) {
+  const int cx = c >> 6, cy = (c >> 3) & 7, cz = c & 7;
+  float sum = (cx == 7) ? p[(size_t)nb[D_PX] * TILE + c - 448] : row[cx == 7 ? c : c + 64];
+  sum = add(sum, (cx == 0) ? p[(size_t)nb[D_MX] * TILE + c + 448] : row[cx == 0 ? c : c - 64]);
+  sum = add(sum, (cy == 7) ? p[(size_t)nb[D_PY] * TILE + c - 56] : row[cy == 7 ? c : c + 8]);
+  sum = add(sum, (cy == 0) ? p[(size_t)nb[D_MY] * TILE + c + 56] : row[cy == 0 ? c : c - 8]);
+  sum = add(sum, (cz == 7) ? p[(size_t)nb[D_PZ] * TILE + c - 7] : row[cz == 7 ? c : c + 1]);
+  return add(sum, (cz == 0) ? p[(size_t)nb[D_MZ] * TILE + c + 7] : row[cz == 0 ? c : c - 1]);
+}
+
 // jnp.clip / torch.clamp order: max with the lower bound, then min
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);

@@ -3,9 +3,8 @@
 //
 // One update of voxel c of tile t on the current p (in place):
 //   pgs = (sum_6 p_nbr - div*dx2) / 6,  p <- p + omega*(pgs - p)
-// with the six faces added in the order +x -x +y -y +z -z: in-tile faces
-// from t's own row, cross-tile faces from the neighbour's row through nbr
-// (the null row 0, all zeros, where the neighbour is absent). Every face of
+// with the six faces summed by common.cuh::face_sum from t's own row and
+// the neighbours' rows of the current p. Every face of
 // a voxel has the other colour, and a half-sweep writes only its own
 // colour, so reads and writes of one half-sweep never overlap: updating in
 // place is race-free and deterministic.
@@ -33,17 +32,8 @@ __device__ __forceinline__ int color_col(int i, int color) {
 __device__ __forceinline__ float sor_point(const float* p, const float* __restrict__ div,
                                            const int* __restrict__ nb, size_t t, int c,
                                            float omega, float dx2) {
-  const int cx = c >> 6, cy = (c >> 3) & 7, cz = c & 7;
   const float* row = p + t * TILE;
-  // a cross-tile face reads the neighbour row's voxel on the touching plane
-  // (the coordinate wrapped mod 8); the in-tile index is clamped to the row
-  // on the boundary so no address outside it is ever formed
-  float sum = (cx == 7) ? p[(size_t)nb[D_PX] * TILE + c - 448] : row[cx == 7 ? c : c + 64];
-  sum = add(sum, (cx == 0) ? p[(size_t)nb[D_MX] * TILE + c + 448] : row[cx == 0 ? c : c - 64]);
-  sum = add(sum, (cy == 7) ? p[(size_t)nb[D_PY] * TILE + c - 56] : row[cy == 7 ? c : c + 8]);
-  sum = add(sum, (cy == 0) ? p[(size_t)nb[D_MY] * TILE + c + 56] : row[cy == 0 ? c : c - 8]);
-  sum = add(sum, (cz == 7) ? p[(size_t)nb[D_PZ] * TILE + c - 7] : row[cz == 7 ? c : c + 1]);
-  sum = add(sum, (cz == 0) ? p[(size_t)nb[D_MZ] * TILE + c + 7] : row[cz == 0 ? c : c - 1]);
+  const float sum = face_sum(p, row, nb, c);
   const float pgs = mul(sub(sum, mul(div[t * TILE + c], dx2)), 1.0f / 6.0f);
   const float pc = row[c];
   return add(pc, mul(omega, sub(pgs, pc)));

@@ -5,10 +5,10 @@
 // neighbour planes on the tile boundary with one-hot MXU dots.
 //
 // One 512-thread block per tile, one thread per voxel. The tile's row of p
-// is staged in shared memory for the in-tile faces; a cross-tile face is
-// read straight from the neighbour's row through nbr (the null row 0 where
-// absent). The six faces are added left to right in the order
-// +x -x +y -y +z -z, then 6p is subtracted and the difference divided by
+// and its nbr entries are staged in shared memory; common.cuh::face_sum
+// adds the six faces left to right in the order +x -x +y -y +z -z (a
+// cross-tile face read straight from the neighbour's row, the null row 0
+// where absent), then 6p is subtracted and the difference divided by
 // dx2 with a true division (__fdiv_rn, not a multiply by the reciprocal):
 // the op order of ops/pressure.py's plain form, so the kernel is bitwise
 // equal to it at any dx.
@@ -23,25 +23,16 @@ __global__ void __launch_bounds__(TILE)
 residual_kernel(const float* __restrict__ p, const float* __restrict__ div,
                 const int* __restrict__ nbr, float* __restrict__ out, float dx2) {
   __shared__ float s[TILE];
-  __shared__ int face[6];
+  __shared__ int nb[27];
   const size_t t = blockIdx.x;
   const int c = threadIdx.x;
   const size_t self = t * TILE + c;
   const float pc = p[self];
   s[c] = pc;
-  if (c < 6) {
-    const int d[6] = {D_PX, D_MX, D_PY, D_MY, D_PZ, D_MZ};
-    face[c] = nbr[t * 27 + d[c]];
-  }
+  if (c < 27) nb[c] = nbr[t * 27 + c];
   __syncthreads();
 
-  const int cx = c >> 6, cy = (c >> 3) & 7, cz = c & 7;
-  float acc = (cx == 7) ? p[(size_t)face[0] * TILE + c - 448] : s[cx == 7 ? c : c + 64];
-  acc = add(acc, (cx == 0) ? p[(size_t)face[1] * TILE + c + 448] : s[cx == 0 ? c : c - 64]);
-  acc = add(acc, (cy == 7) ? p[(size_t)face[2] * TILE + c - 56] : s[cy == 7 ? c : c + 8]);
-  acc = add(acc, (cy == 0) ? p[(size_t)face[3] * TILE + c + 56] : s[cy == 0 ? c : c - 8]);
-  acc = add(acc, (cz == 7) ? p[(size_t)face[4] * TILE + c - 7] : s[cz == 7 ? c : c + 1]);
-  acc = add(acc, (cz == 0) ? p[(size_t)face[5] * TILE + c + 7] : s[cz == 0 ? c : c - 1]);
+  const float acc = face_sum(p, s, nb, c);
   out[self] = sub(div[self], __fdiv_rn(sub(acc, mul(6.0f, pc)), dx2));
 }
 

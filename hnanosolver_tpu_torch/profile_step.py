@@ -1,50 +1,38 @@
 """Where the time of one step goes on the card. Run from the repository
 root on a machine with one CUDA card:
 
-    python3 -m hnanosolver_tpu_torch.profile_step [CELL ...] [--steps N]
+    python3 -m hnanosolver_tpu_torch.profile_step [CELL ...]
 
-Cells: ``bench`` (RBGS-50 on the 4196-tile bench plume), ``bench-mg``
-(multigrid, mg_levels 2, FMG + 2 V-cycles, same domain), ``c5`` and
-``c5-mg`` (BASELINE config 5, the 269,104-tile 1024^3 plume cone, RBGS-50
-and multigrid with mg_levels 5). Each cell's state is developed first (20
-RBGS steps on the bench domain, 4 at config 5). Per cell it prints:
+Cells (``cells.CELLS``, default all): ``bench`` (RBGS-50 on the
+4196-tile bench plume), ``bench-mg`` (multigrid, mg_levels 2, FMG + 2
+V-cycles, same domain), ``c5`` and ``c5-mg`` (BASELINE config 5, the
+269,104-tile 1024^3 plume cone, RBGS-50 and multigrid with mg_levels 5).
+Each cell's state is developed first (20 RBGS-50 steps on the bench
+domain, 4 at config 5). Per cell it prints:
 
 - host ms/step: median wall time of single steps ending in a synchronise;
 - enqueue ms/step: median time for the step call to return, unsynchronised
   (how long the host needs to issue the step's work);
 - device ms/step and busy share: the kernels' device time per step from
-  ``torch.profiler`` over N steps, over the wall time of that window;
+  ``torch.profiler`` over STEPS steps, over the wall time of that window;
 - the kernels with the most device time per step, with launches per step.
 """
 
 from __future__ import annotations
 
-import argparse
 import statistics
 import subprocess
+import sys
 import time
 
-import numpy as np
 import torch
 
-from hnanosolver_tpu_torch.config import SolverParams
-from hnanosolver_tpu_torch.core.topology import build_topology
+from hnanosolver_tpu_torch.cells import CELLS, RBGS50
 from hnanosolver_tpu_torch.models import plume
 from hnanosolver_tpu_torch.ops import multigrid
 
-BENCH = dict(dt=1.0 / 24.0, iterations=50, voxel_size=0.5)
-MG = dict(dt=1.0 / 24.0, voxel_size=0.5, pressure_solver="mg", iterations=2, mg_fmg=True)
-CELLS = {
-    # name: (envelope args, PlumeConfig kwargs, params, develop steps)
-    "bench": ((64, 256), dict(center=(128.0, 24.0, 128.0), radius=20.0),
-              SolverParams(**BENCH), 20),
-    "bench-mg": ((64, 256), dict(center=(128.0, 24.0, 128.0), radius=20.0),
-                 SolverParams(**MG, mg_levels=2), 20),
-    "c5": ((256, 1024, 512, 512), dict(center=(512.0, 96.0, 512.0), radius=80.0),
-           SolverParams(**BENCH), 4),
-    "c5-mg": ((256, 1024, 512, 512), dict(center=(512.0, 96.0, 512.0), radius=80.0),
-              SolverParams(**MG, mg_levels=5), 4),
-}
+STEPS = 5  # steps timed on the host clock, then steps profiled
+TOP = 15  # kernels listed per cell
 
 
 def _device_events(prof):
@@ -60,13 +48,10 @@ def _device_events(prof):
     return sorted(out, key=lambda x: -x[1])
 
 
-def profile_cell(name: str, steps: int, top: int) -> None:
-    env, cfg_kw, params, develop = CELLS[name]
-    tiles = plume.build_plume_envelope(*env)
-    n = len(np.unique(tiles, axis=0))
-    topo = build_topology(tiles, capacity=((n + 1 + 511) // 512) * 512)
-    cfg = plume.PlumeConfig(**cfg_kw)
-    topo, state = plume.run_plume(develop, SolverParams(**BENCH), cfg, topo=topo)
+def profile_cell(name: str) -> None:
+    cell = CELLS[name]
+    params, cfg = cell.params, cell.plume
+    topo, state = plume.run_plume(cell.develop, RBGS50, cfg, topo=cell.topology())
     hier = multigrid.hierarchy_for(topo, params)
 
     def step():
@@ -76,7 +61,7 @@ def profile_cell(name: str, steps: int, top: int) -> None:
         step()
     torch.cuda.synchronize()
     host, enqueue = [], []
-    for _ in range(steps):
+    for _ in range(STEPS):
         t0 = time.perf_counter()
         step()
         t1 = time.perf_counter()
@@ -86,38 +71,33 @@ def profile_cell(name: str, steps: int, top: int) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(STEPS):
             step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
+        wall = (time.perf_counter() - t0) * 1e3 / STEPS
     ev = _device_events(prof)
-    dev_ms = sum(us for _, us, _ in ev) / 1e3 / steps
+    dev_ms = sum(us for _, us, _ in ev) / 1e3 / STEPS
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(f"[{name}] {topo.n_active} tiles, capacity {topo.capacity}, {params.pressure_solver}"
-          f" | host {statistics.median(host):.3f} ms/step (median of {steps}), enqueue "
+          f" | host {statistics.median(host):.3f} ms/step (median of {STEPS}), enqueue "
           f"{statistics.median(enqueue):.3f} ms/step | profiled: wall {wall:.3f} ms/step, "
           f"device {dev_ms:.3f} ms/step, busy share {dev_ms / wall:.3f}, "
-          f"{sum(c for _, _, c in ev) / steps:.0f} kernels/step | {card}", flush=True)
-    for key, us, count in ev[:top]:
-        print(f"[{name}]   {us / steps:9.1f} us/step  x{count / steps:6.1f}  {key[:110]}")
+          f"{sum(c for _, _, c in ev) / STEPS:.0f} kernels/step | {card}", flush=True)
+    for key, us, count in ev[:TOP]:
+        print(f"[{name}]   {us / STEPS:9.1f} us/step  x{count / STEPS:6.1f}  {key[:110]}")
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("cells", nargs="*", metavar="CELL",
-                    help=f"any of {', '.join(CELLS)} (default: all)")
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args()
-    unknown = sorted(set(args.cells) - set(CELLS))
+    names = sys.argv[1:] or list(CELLS)
+    unknown = sorted(set(names) - set(CELLS))
     if unknown:
-        ap.error(f"unknown cells {unknown}")
+        raise SystemExit(f"unknown cells {unknown}; the cells are {', '.join(CELLS)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    for name in args.cells or list(CELLS):
-        profile_cell(name, args.steps, args.top)
+    for name in names:
+        profile_cell(name)
         torch.cuda.empty_cache()
 
 

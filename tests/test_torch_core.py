@@ -190,3 +190,25 @@ def test_entry_points_default_to_the_card(entry):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
+
+
+@pytest.mark.parametrize("name", ["bench", "bench-mg"])
+def test_bench_cells_hold_bench_py_domain(name):
+    """The chip scripts' bench cells run bench.py's domain: its plume
+    envelope through the JAX package's topology at its tight capacity (4196
+    tiles in 4608 rows), bitwise, stepped with bench.py's dt, voxel size and
+    halo lag."""
+    from bench import build_plume_envelope as bench_envelope
+    from hnanosolver_tpu_torch.cells import CELLS
+
+    cell = CELLS[name]
+    tiles = bench_envelope(*cell.envelope)
+    n = len(np.unique(tiles, axis=0))
+    j = jtopo.build_topology(tiles, capacity=((n + 1 + 511) // 512) * 512)
+    t = cell.topology("cpu")
+    np.testing.assert_array_equal(t.keys.numpy(), np.asarray(j.keys))
+    np.testing.assert_array_equal(t.nbr.numpy(), np.asarray(j.nbr))
+    assert (t.n_active, t.capacity) == (int(j.n_active), j.capacity) == (4196, 4608)
+    bench = jcfg.SolverParams(dt=1.0 / 24.0, iterations=50, voxel_size=0.5)
+    for f in ("dt", "voxel_size", "effective_halo_lag", "omega"):
+        assert getattr(cell.params, f) == getattr(bench, f)
