@@ -13,16 +13,19 @@ exit). Each phase prints the seconds it took.
   2. build the kernels, print the seconds it took
   3. each kernel against its plain PyTorch version on the card, inputs from
      a seed: at the bench shapes (4196-tile plume at capacity 4608) B1 in
-     velocity and scalar mode with displacements past the clamp, B2 for
-     F = 3 and F = 5 (bitwise), B3 as 10 launches of 5 pairs, B4 both
-     colours with and without an in-domain mask, B6; B5 at T = 2048 with
-     and without a mask (24 iterations); on BASELINE config 5 (1024^3,
-     269,104 tiles) B3 with mask at level 2 (6,144 rows) and B6 at the fine
-     level (269,312 rows)
+     velocity and scalar mode with displacements past the clamp, without
+     and with a collision SDF (the config-4 sphere; the share of traces it
+     rejects is printed and must be > 0), B2 for F = 3 and F = 5 (bitwise),
+     B3 as 10 launches of 5 pairs, B4 both colours with and without an
+     in-domain mask, B6, B7a, B7b, B8 for n = 1, 3, 8 and 11 fields with
+     displacements past the clamp; B5 at T = 2048 with and without a mask
+     (24 iterations); on BASELINE config 5 (1024^3, 269,104 tiles) B3 with
+     mask at level 2 (6,144 rows), B6, B7a and B7b at the fine level
+     (269,312 rows)
   4. the main path: plume_step for 20 steps from rest on the bench domain
      with the bench SolverParams / PlumeConfig, launch counters reset just
-     before and read just after (exactly 2 B1, 2 B2, 10 B3 launches per
-     step), every field finite, null and padding rows exactly 0
+     before and read just after (exactly 2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b
+     launches per step), every field finite, null and padding rows exactly 0
   5. one more step from the developed state through the kernels and through
      the plain versions on the card, max relative error per field
   6. timing with CUDA events: ms/step (median of single steps), active
@@ -40,12 +43,28 @@ exit). Each phase prints the seconds it took.
      with both solvers (MG must reach max|r| <= 0.1 * max|div|), ms/step
      of both, peak device memory; then each kernel call of one MG step
      against its plain version, and the kernels' times
+ 10. BASELINE config 4, the moving SDF sphere crossing the bench plume:
+     run_collider for 20 frames from rest with exact launch counts (2 B1
+     with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b per step); after every frame
+     velocity exactly 0 where sdf < 0, every scalar there bitwise equal to
+     its value entering the scalar advection (a trace from inside the
+     solid is rejected to d = 0, so phiF = phiB = phi(x)), median |u.n|/|u|
+     on the shell -0.5 <= sdf < 0.05 below 0.35, the SDF preserved on
+     active rows; the collider moved; then one step kernels vs plain, each
+     kernel call of one step vs plain, ms/step
+ 11. RK2-4 backtraces on the developed config-4 state: the ops-level
+     advect_velocity and advect_scalars_fused at trace_order 2, 3, 4,
+     without and with the SDF, exactly order - 1 + 2 B8 launches per call
+     (+2 with the SDF) and 1 B2; each call kernels vs plain, each recorded
+     kernel call vs plain, times
 
-Launch counts come only from the main-path runs (phases 4, 7, 8, 9), each
+Launch counts come only from the main-path runs (phases 4, 7-11), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
-line are per step of the path it serves (B1-B3 the bench RBGS step, B4 the
-parity step, B5-B6 the bench MG step): per-launch medians over runs of 10
+line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
+step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4 advection
+with the SDF of the config-4 state: the velocity and the scalar pass):
+per-launch medians over runs of 10
 back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
 move (each input read once, each output written once) over 3.35 TB/s and
@@ -53,7 +72,8 @@ their f32 operations over 67 TFLOP/s (the H100 SXM data sheet). On the
 bench domain a launch's operands fit the 50 MB L2 and stay there between
 back-to-back calls, as they largely do in the step, so its HBM bound is
 not a floor on its time; the per-launch lines say where that holds. Only
-the config-5 fine level (551 MB a field) is held to a true HBM bound.
+the config-5 levels (551 MB a field at the fine one) are held to a true
+HBM bound.
 
 The cells (domains, solver settings, develop steps) come from
 ``hnanosolver_tpu_torch/cells.py``, which ``profile_step`` reads too.
@@ -90,7 +110,8 @@ C5_RMAX_OVER_DIV0 = 0.1  # SCALE_r05.md's convergence criterion
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
-KEYS = ("B1", "B2", "B3", "B4", "B5", "B6")
+C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
+KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8")
 
 
 def sh(cmd: list[str]) -> str:
@@ -141,13 +162,22 @@ def nbytes(x) -> int:
 def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
     """f32 operations per voxel of one launch, counted from the kernel's
     source: trilinear sample of n fields 15 + 8 * (2 + 2n); SOR update 11;
-    residual 9; BFECC tail 19 per field."""
+    residual 9; BFECC tail 19 per field; divergence 6; u - grad p 9; an SDF
+    probe one sample of one field and a compare."""
     def sample(n):
         return 15 + 8 * (2 + 2 * n)
 
     if key == "B1":
         nb, f_lo = args[1].shape[0], args[3]
-        return 18 + sample(nb) + sample(nb - f_lo)
+        sdf = args[4] if len(args) > 4 else kwargs.get("sdf")
+        probes = 0 if sdf is None else 2 * (sample(1) + 1)
+        return 18 + sample(nb) + sample(nb - f_lo) + probes
+    if key == "B7a":
+        return 6.0
+    if key == "B7b":
+        return 9.0
+    if key == "B8":
+        return float(sample(args[1].shape[0]))
     if key == "B2":
         return 19.0 * args[1].shape[0]
     if key == "B3":
@@ -192,11 +222,12 @@ def main() -> int:
     from hnanosolver_tpu_torch import solver
     from hnanosolver_tpu_torch.cells import CELLS
     from hnanosolver_tpu_torch.core.topology import active_mask, build_topology
-    from hnanosolver_tpu_torch.fields import zeros_state
+    from hnanosolver_tpu_torch.fields import COLLISION_FIELD, zeros_state
     from hnanosolver_tpu_torch.kernels import build
-    from hnanosolver_tpu_torch.models import plume
-    from hnanosolver_tpu_torch.ops import (cuda_bfecc, cuda_pressure, cuda_stencil,
-                                           cuda_tail, multigrid, stencil)
+    from hnanosolver_tpu_torch.models import collider, plume
+    from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
+                                           cuda_pressure, cuda_sample, cuda_stencil, cuda_tail,
+                                           multigrid, stencil)
     from hnanosolver_tpu_torch.ops import pressure as prs
 
     def done(phase: str):
@@ -248,7 +279,18 @@ def main() -> int:
                    wrap=(cuda_pressure, "rbsor_fused")),
         "B6": dict(name="residual", source=src + "residual.cu",
                    replaces="hnanosolver_tpu/ops/pallas_stencil.py:184",
-                   counter=cuda_stencil.launches, wrap=(cuda_stencil, "residual")),
+                   counter=cuda_stencil.launches_residual, wrap=(cuda_stencil, "residual")),
+        "B7a": dict(name="divergence", source=src + "stencil.cu",
+                    replaces="hnanosolver_tpu/ops/pallas_stencil.py:89",
+                    counter=cuda_stencil.launches_div, wrap=(cuda_stencil, "divergence")),
+        "B7b": dict(name="subtract_gradient", source=src + "stencil.cu",
+                    replaces="hnanosolver_tpu/ops/pallas_stencil.py:151",
+                    counter=cuda_stencil.launches_subgrad,
+                    wrap=(cuda_stencil, "subtract_gradient")),
+        "B8": dict(name="sample_at", source=src + "sample_at.cu",
+                   replaces="hnanosolver_tpu/ops/pallas_interp2.py:54, "
+                            "hnanosolver_tpu/ops/pallas_interp.py:51",
+                   counter=cuda_sample.launches, wrap=(cuda_sample, "sample_at")),
     }
     for k in kernels.values():
         k.update(route="cuda", launches=0, max_abs_err=0.0, library_ms=None)
@@ -355,7 +397,7 @@ def main() -> int:
             got, want = (got,), (want,)
         for g, w in zip(got, want):
             check(key, f"main-path call T={a[0].shape[0]}", g, w,
-                  TOL_B1 if key == "B1" else TOL_B3, label)
+                  TOL_B1 if key in ("B1", "B8") else TOL_B3, label)
 
     def time_calls(label: str, groups: list, plain: bool = True) -> dict:
         """Each recorded call against its plain version on the same inputs,
@@ -412,6 +454,28 @@ def main() -> int:
         want = cuda_bfecc.bfecc_sample_plain(topo.nbr, fields, sdt, f_lo)
         for part, g, w in zip(("phiF", "phiB"), got, want):
             check("B1", f"{mode:8s} {part} ({clamped:.1%} of traces clamped)", g, w, TOL_B1)
+    # B1 with the config-4 sphere at frame 0 as the collision SDF (masked,
+    # as mask_state leaves it)
+    col4 = CELLS["c4"].collider
+    sdf3 = collider.sphere_sdf(topo, collider.collider_center(col4, 0, params.dt, dev),
+                               col4.radius) * m
+    lim = cuda_bfecc.DISP_LIMIT
+    d = torch.clamp(-vel * sdt, -lim, lim)
+    hit = cuda_sample.sample_at_plain(topo.nbr, sdf3[None], d)[0] < 0
+    d = torch.where(hit, 0.0, d)
+    d2 = torch.clamp(d + cuda_sample.sample_at_plain(topo.nbr, vel, d) * sdt, -lim, lim)
+    hit2 = cuda_sample.sample_at_plain(topo.nbr, sdf3[None], d2)[0] < 0
+    share = (float(hit.sum()) / topo.num_voxels, float(hit2.sum()) / topo.num_voxels)
+    if not min(share) > 0:
+        raise AssertionError(f"phase 3: the SDF rejected no trace at a probe: {share}")
+    for mode, fields, f_lo in (("velocity", vel, 0),
+                               ("scalars", torch.cat([vel, scal]).contiguous(), 3)):
+        got = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo, sdf3)
+        want = cuda_bfecc.bfecc_sample_plain(topo.nbr, fields, sdt, f_lo, sdf3)
+        for part, g, w in zip(("phiF", "phiB"), got, want):
+            check("B1", f"{mode:8s} {part} with SDF ({share[0]:.2%} of back traces, "
+                  f"{share[1]:.2%} of re-traces rejected)", g, w, TOL_B1)
+    del d, d2, hit, hit2
     for F in (3, 5):
         phi0, pf, pb = field(F, T, 512), field(F, T, 512), field(F, T, 512)
         got = cuda_tail.bfecc_tail(topo.nbr, phi0, pf, pb)
@@ -433,6 +497,23 @@ def main() -> int:
             check("B4", f"colour {color}, {'mask' if mk is not None else 'no mask'}", pk, want)
     check("B6", f"bench T={T}", cuda_stencil.residual(topo.nbr, p0, div, 0.5),
           cuda_stencil.residual_plain(topo.nbr, p0, div, 0.5))
+    for inv_dx in (params.inv_voxel_size, 1.0 / 0.3):  # an exact and an inexact scale
+        check("B7a", f"bench T={T}, inv_dx {inv_dx:.4f}",
+              cuda_stencil.divergence(topo.nbr, vel, inv_dx),
+              cuda_stencil.divergence_plain(topo.nbr, vel, inv_dx))
+        check("B7b", f"bench T={T}, inv_dx {inv_dx:.4f}",
+              cuda_stencil.subtract_gradient(topo.nbr, vel, p0, inv_dx),
+              cuda_stencil.subtract_gradient_plain(topo.nbr, vel, p0, inv_dx))
+    # B8 at displacements past the clamp, n = 11 in two launches (8 + 3)
+    dd = torch.from_numpy(rng.uniform(-9.0, 9.0, (3, T, 512)).astype(np.float32)).to(dev)
+    dd = torch.clamp(dd, -lim, lim)
+    allf = torch.cat([vel, scal, field(3, T, 512)])
+    for n in (1, 3, 8, 11):
+        fn = allf[:n].contiguous()
+        check("B8", f"n={n} fields, {float((dd.abs() >= lim).float().mean()):.1%} of "
+              f"displacements at the clamp", cuda_sample.sample_at(topo.nbr, fn, dd),
+              cuda_sample.sample_at_plain(topo.nbr, fn, dd), TOL_B1)
+    del dd, allf, fn
     t5 = build_topology(plume.build_plume_envelope(40, 256), capacity=2048, device=dev)
     m5 = active_mask(t5)[:, None]
     d5, k5 = field(2048, 512, mask=m5), in_domain(2048, m5)
@@ -458,13 +539,21 @@ def main() -> int:
     pc, dc = field(c5.capacity, 512, mask=m_c5), field(c5.capacity, 512, mask=m_c5)
     check("B6", f"config-5 fine T={c5.capacity}", cuda_stencil.residual(c5.nbr, pc, dc, 0.5),
           cuda_stencil.residual_plain(c5.nbr, pc, dc, 0.5))
-    del d2, p_k, p_p, pc, dc, m_c5
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vc = torch.randn((3, c5.capacity, 512), generator=gen, device=dev) * m_c5
+    check("B7a", f"config-5 fine T={c5.capacity}", cuda_stencil.divergence(c5.nbr, vc, 1 / 0.3),
+          cuda_stencil.divergence_plain(c5.nbr, vc, 1 / 0.3))
+    check("B7b", f"config-5 fine T={c5.capacity}",
+          cuda_stencil.subtract_gradient(c5.nbr, vc, pc, 1 / 0.3),
+          cuda_stencil.subtract_gradient_plain(c5.nbr, vc, pc, 1 / 0.3))
+    del d2, p_k, p_p, pc, dc, m_c5, vc
     done("3")
 
     # -- 4. the main path ------------------------------------------------------
     state = zeros_state(topo)
     t0 = time.perf_counter()
-    with main_path("4", {"B1": 2, "B2": 2, "B3": params.iterations // lag}, bench.develop):
+    with main_path("4", {"B1": 2, "B2": 2, "B3": params.iterations // lag, "B7a": 1, "B7b": 1},
+                   bench.develop):
         topo, state = plume.run_plume(bench.develop, params, cfg, topo=topo, state=state)
     wall = time.perf_counter() - t0
     print(f"[4] main path: {bench.develop} plume steps on {topo.n_active} tiles "
@@ -488,7 +577,7 @@ def main() -> int:
     one_step()
     step_ms = statistics.median(cuda_ms(one_step, 15))
     vups = topo.num_voxels / (step_ms * 1e-3)
-    for key, r in time_calls("6", record(one_step, ("B1", "B2", "B3"))).items():
+    for key, r in time_calls("6", record(one_step, ("B1", "B2", "B3", "B7a", "B7b"))).items():
         kernels[key].update(r)
     print(f"[6] step: {step_ms:.3f} ms/step (median of 15, CUDA events), "
           f"{vups:.4e} active voxel-updates/s, {topo.num_voxels} voxels, "
@@ -510,7 +599,8 @@ def main() -> int:
     print(f"[7] bench hierarchy: tiles per level "
           f"{[topo.n_active] + [lv.topo.n_active for lv in hier]}, capacities "
           f"{[T] + [lv.topo.capacity for lv in hier]}", flush=True)
-    with main_path("7", {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7}, MG_STEPS):
+    with main_path("7", {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1},
+                   MG_STEPS):
         topo, mg_state = plume.run_plume(MG_STEPS, mg_params, cfg, topo=topo, state=state)
     check_state("7", topo, mg_state)
     step_vs_plain("7", lambda: plume.plume_step(topo, mg_state, mg_params, cfg, hier))
@@ -530,7 +620,7 @@ def main() -> int:
     # -- 8. the "parity" precision tier: halo_lag 1 ---------------------------
     par_params = params.replace(precision="parity")
     assert par_params.effective_halo_lag == 1
-    with main_path("8", {"B1": 2, "B2": 2, "B4": 2 * params.iterations}, 1):
+    with main_path("8", {"B1": 2, "B2": 2, "B4": 2 * params.iterations, "B7a": 1, "B7b": 1}, 1):
         topo, par_state = plume.run_plume(1, par_params, cfg, topo=topo, state=state)
     check_state("8", topo, par_state)
     step_vs_plain("8", lambda: plume.plume_step(topo, state, par_params, cfg))
@@ -554,7 +644,7 @@ def main() -> int:
           f"{c5.capacity}); hierarchy tiles per level "
           f"{[c5.n_active] + [lv.topo.n_active for lv in c5_hier]}, capacities "
           f"{[c5.capacity] + [lv.topo.capacity for lv in c5_hier]}", flush=True)
-    with main_path("9", {"B1": 2, "B2": 2, "B3": 10}, CELLS["c5"].develop):
+    with main_path("9", {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1}, CELLS["c5"].develop):
         c5, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5)
     check_state("9", c5, st5)
     # Per MG step (mg_levels 5): fine 269,312, L1 45,056 and L2 6,144 rows
@@ -564,7 +654,8 @@ def main() -> int:
     # from the fine level B3 12, B5 5, B6 5. FMG: the level-5 solve, then one
     # V-cycle from each level 4..0: B3 0+0+4+8+12, B5 1+3+5+5+5+5, B6
     # 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2).
-    with main_path("9", {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25}, C5_MG_STEPS):
+    with main_path("9", {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1},
+                   C5_MG_STEPS):
         c5, st5 = plume.run_plume(C5_MG_STEPS, c5_mg, cfg5, topo=c5, state=st5)
     check_state("9", c5, st5)
 
@@ -606,8 +697,134 @@ def main() -> int:
         raise AssertionError(f"phase 9: MG max|r| {rmax['MG']} > {C5_RMAX_OVER_DIV0} * "
                              f"div0 {div0}")
     # after the peak is read: the plain versions' temporaries are not the step's
-    time_calls("9", record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6")), plain=False)
+    time_calls("9", record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6", "B7a", "B7b")), plain=False)
+    del c5, st5, c5_hier, lv2, div5
+    torch.cuda.empty_cache()
     done("9")
+
+    # -- 10. BASELINE config 4: the moving SDF sphere ----------------------------
+    c4 = CELLS["c4"]
+    p4, cfg4 = c4.params, c4.plume
+    t4 = c4.topology(dev)
+    inv4, act = p4.inv_voxel_size, slice(1, t4.n_active + 1)
+    print(f"[10] config 4: {t4.n_active} tiles = {t4.num_voxels} voxels (capacity "
+          f"{t4.capacity}), sphere radius {col4.radius} from {col4.center0} at "
+          f"{col4.velocity} voxels/s, {p4.iterations} iterations", flush=True)
+
+    def advection_input(st_in):
+        """The scalars entering a frame's scalar advection: the frame's input
+        after emit and combustion (both pointwise, as in the step)."""
+        s_ = plume.emit(t4, st_in, cfg4, p4.dt).scalars
+        cp = p4.combustion
+        fuel, waste, temp, flame, _ = combustion.combustion_oxygen(
+            s_["fuel"], s_["waste"], s_["temperature"], s_["flame"],
+            torch.zeros_like(s_["fuel"]), cp.temperature_release, cp.expansion_rate)
+        return {**s_, "fuel": fuel, "waste": waste, "temperature": temp, "flame": flame}
+
+    prev = [zeros_state(t4)]
+
+    def on_frame(f, topo_, st):
+        sdf = st.scalars[COLLISION_FIELD]
+        want = collider.sphere_sdf(topo_, collider.collider_center(col4, f, p4.dt, dev),
+                                   col4.radius)
+        inside = sdf < 0
+        n_in = int(inside.sum())
+        vin = advection_input(prev[0])
+        moved = [k for k, v in st.scalars.items()
+                 if k != COLLISION_FIELD and not torch.equal(v[inside], vin[k][inside])]
+        burnt = sum(int((vin[k][inside] != v[inside]).sum())
+                    for k, v in prev[0].scalars.items() if k in vin)
+        normal = collision.sdf_normal_field(topo_, sdf, inv4)
+        # active rows only: the null and padding rows hold sdf 0
+        shell = (sdf >= -0.5) & (sdf < 0.05) & (active_mask(topo_) > 0)[:, None]
+        if n_in == 0 or int(shell.sum()) <= 10:
+            raise AssertionError(f"phase 10 frame {f}: the collider is not in the domain")
+        vdotn = (st.velocity * normal).sum(0)[shell].abs()
+        ratio = float((vdotn / (st.velocity.norm(dim=0)[shell] + 1e-12)).median())
+        deep = sdf < -1.5
+        dens = float(st.scalars["density"][deep].max()) if bool(deep.any()) else 0.0
+        print(f"[10] frame {f}: {n_in} voxels inside, max|u| there "
+              f"{float(st.velocity[:, inside].abs().max()):.1f}, scalars changed there "
+              f"{moved or 'none'} ({burnt} values moved by emit/combustion), shell "
+              f"{int(shell.sum())} voxels median |u.n|/|u| {ratio:.4f}, max density "
+              f"where sdf < -1.5 {dens:.4f}, max|u| {float(st.velocity.abs().max()):.2f}",
+              flush=True)
+        if not torch.equal(sdf[act], want[act]):
+            raise AssertionError(f"phase 10 frame {f}: the SDF was not preserved")
+        if bool(st.velocity[:, inside].any()):
+            raise AssertionError(f"phase 10 frame {f}: velocity not 0 inside the solid")
+        if moved:
+            raise AssertionError(f"phase 10 frame {f}: {moved} changed inside the solid")
+        if not ratio < C4_SHELL_VDOTN:
+            raise AssertionError(f"phase 10 frame {f}: shell median |u.n|/|u| {ratio}")
+        prev[0] = st
+
+    t0 = time.perf_counter()
+    with main_path("10", {"B1": 2, "B2": 2, "B3": p4.iterations // p4.effective_halo_lag,
+                          "B7a": 1, "B7b": 1}, c4.develop):
+        t4, st4 = collider.run_collider(c4.develop, p4, cfg4, col4, topo=t4, state=prev[0],
+                                        on_frame=on_frame)
+    print(f"[10] {c4.develop} collider frames: {time.perf_counter() - t0:.2f} s wall with "
+          f"the per-frame checks", flush=True)
+    check_state("10", t4, st4)
+    travel = float((collider.collider_center(col4, c4.develop - 1, p4.dt)
+                    - collider.collider_center(col4, 0, p4.dt)).norm())
+    if not travel > 5.0:
+        raise AssertionError(f"phase 10: the collider moved {travel} voxels")
+
+    def c4_step():
+        return collider.collider_step(t4, st4, p4, cfg4, col4, c4.develop)
+
+    step_vs_plain("10", c4_step)
+    c4_step()
+    c4_ms = statistics.median(cuda_ms(c4_step, 7))
+    time_calls("10", record(c4_step, ("B1", "B2", "B3", "B7a", "B7b")))
+    print(f"[10] config-4 step: {c4_ms:.3f} ms/step (median of 7, CUDA events), "
+          f"{t4.num_voxels / (c4_ms * 1e-3):.4e} active voxel-updates/s; the collider "
+          f"travelled {travel:.1f} voxels | {card}", flush=True)
+    done("10")
+
+    # -- 11. RK2-4 backtraces on the developed config-4 state ---------------------
+    vel4, sdf4 = st4.velocity, st4.scalars[COLLISION_FIELD]
+    sc4 = {k: v for k, v in st4.scalars.items() if k != COLLISION_FIELD}
+    for order in (2, 3, 4):
+        for s_ in (None, sdf4):
+            tag = f"RK{order}" + ("" if s_ is None else " + SDF")
+            n8 = order - 1 + 2 + (0 if s_ is None else 2)
+
+            def rk(order=order, s_=s_):
+                return (advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, order),
+                        advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_, order))
+
+            with main_path(f"11 {tag} velocity", {"B8": n8, "B2": 1}, 1):
+                advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, order)
+            with main_path(f"11 {tag} scalars", {"B8": n8, "B2": 1}, 1):
+                advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_, order)
+            (uk, sk) = rk()
+            with plain_versions():
+                up, sp = rk()
+            worst, parts = 0.0, []
+            for name, g, w in [("velocity", uk, up)] + [(k, sk[k], sp[k]) for k in sorted(sk)]:
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"phase 11 {tag}: {name} not finite")
+                _, rel = rel_err(g, w)
+                worst = max(worst, rel)
+                parts.append(f"{name} {rel:.2e}")
+            print(f"[11] {tag}: kernels vs plain, max rel err per field {', '.join(parts)} "
+                  f"(tol {TOL_STEP:g})", flush=True)
+            if not worst <= TOL_STEP:
+                raise AssertionError(f"phase 11 {tag}: rel err {worst} > {TOL_STEP}")
+            groups = record(rk, ("B8", "B2"))
+            if order == 4 and s_ is not None:
+                kernels["B8"].update(time_calls("11", groups)["B8"])
+            else:
+                for key, a, kw, _, _ in groups:
+                    vs_plain("11", key, a, kw)
+            rk()
+            print(f"[11] {tag}: velocity + scalar advection "
+                  f"{statistics.median(cuda_ms(rk, 5)):.3f} ms (median of 5) | {card}",
+                  flush=True)
+    done("11")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -24,23 +24,36 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// The face value of voxel c of tile t in direction D (one of the D_* nbr
+// columns above; shifts.shifted_view in the plain versions): in-tile from
+// `row` (t's row of p, in global or shared memory), cross-tile from the
+// neighbour's row of p through nb (t's 27 nbr entries; the null row 0, all
+// zeros, where the neighbour is absent). A cross-tile face reads the
+// neighbour row's voxel on the touching plane (the coordinate wrapped mod
+// 8); the in-tile index is clamped to the row on the boundary so no
+// address outside it is ever formed.
+template <int D>
+__device__ __forceinline__ float face(const float* p, const float* row, const int* nb, int c) {
+  static_assert(D == D_PX || D == D_MX || D == D_PY || D == D_MY || D == D_PZ || D == D_MZ,
+                "not a face direction");
+  constexpr bool plus = D == D_PX || D == D_PY || D == D_PZ;
+  constexpr int step = (D == D_PX || D == D_MX) ? 64 : (D == D_PY || D == D_MY) ? 8 : 1;
+  const int coord = (c / step) & 7;
+  const bool edge = plus ? coord == 7 : coord == 0;
+  return edge ? p[(size_t)nb[D] * TILE + (plus ? c - 7 * step : c + 7 * step)]
+              : row[edge ? c : (plus ? c + step : c - step)];
+}
+
 // The six face values of voxel c of tile t added left to right in the
-// order +x -x +y -y +z -z (the plain versions' FACE_DIRS order): in-tile
-// faces from `row` (t's row of p, in global or shared memory), cross-tile
-// faces from the neighbour's row of p through nb (t's 27 nbr entries; the
-// null row 0, all zeros, where the neighbour is absent). A cross-tile face
-// reads the neighbour row's voxel on the touching plane (the coordinate
-// wrapped mod 8); the in-tile index is clamped to the row on the boundary
-// so no address outside it is ever formed.
+// order +x -x +y -y +z -z (the plain versions' FACE_DIRS order).
 __device__ __forceinline__ float face_sum(const float* p, const float* row, const int* nb,
                                           int c) {
-  const int cx = c >> 6, cy = (c >> 3) & 7, cz = c & 7;
-  float sum = (cx == 7) ? p[(size_t)nb[D_PX] * TILE + c - 448] : row[cx == 7 ? c : c + 64];
-  sum = add(sum, (cx == 0) ? p[(size_t)nb[D_MX] * TILE + c + 448] : row[cx == 0 ? c : c - 64]);
-  sum = add(sum, (cy == 7) ? p[(size_t)nb[D_PY] * TILE + c - 56] : row[cy == 7 ? c : c + 8]);
-  sum = add(sum, (cy == 0) ? p[(size_t)nb[D_MY] * TILE + c + 56] : row[cy == 0 ? c : c - 8]);
-  sum = add(sum, (cz == 7) ? p[(size_t)nb[D_PZ] * TILE + c - 7] : row[cz == 7 ? c : c + 1]);
-  return add(sum, (cz == 0) ? p[(size_t)nb[D_MZ] * TILE + c + 7] : row[cz == 0 ? c : c - 1]);
+  float sum = face<D_PX>(p, row, nb, c);
+  sum = add(sum, face<D_MX>(p, row, nb, c));
+  sum = add(sum, face<D_PY>(p, row, nb, c));
+  sum = add(sum, face<D_MY>(p, row, nb, c));
+  sum = add(sum, face<D_PZ>(p, row, nb, c));
+  return add(sum, face<D_MZ>(p, row, nb, c));
 }
 
 // jnp.clip / torch.clamp order: max with the lower bound, then min

@@ -5,7 +5,7 @@ stay identically zero; every sampler relies on it."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -13,6 +13,7 @@ from hnanosolver_tpu_torch.core.layout import TILE
 from hnanosolver_tpu_torch.core.topology import Topology, active_mask
 
 COMBUSTION_FIELDS = ("fuel", "waste", "temperature", "flame")
+COLLISION_FIELD = "collision_sdf"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +22,13 @@ class FieldState:
 
     velocity: torch.Tensor
     scalars: Dict[str, torch.Tensor]
+
+    def with_scalar(self, name: str, value: torch.Tensor) -> "FieldState":
+        return dataclasses.replace(self, scalars={**self.scalars, name: value})
+
+    def sdf(self) -> Optional[torch.Tensor]:
+        """The collision SDF field, or None."""
+        return self.scalars.get(COLLISION_FIELD)
 
 
 def zeros_state(

@@ -38,8 +38,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p, so
 # ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "hn_bfecc_sample": (_P, _P, _P, _I, _I, _I, _F, _F, _P),
+    "hn_bfecc_sample": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     "hn_bfecc_tail": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "hn_divergence": (_P, _P, _P, _I, _F, _P),
+    "hn_subtract_gradient": (_P, _P, _P, _P, _I, _F, _P),
+    "hn_sample_at": (_P, _P, _P, _P, _I, _I, _P),
     "hn_rbsor_lagged": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "hn_rbsor_color": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     "hn_rbsor_fused": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),

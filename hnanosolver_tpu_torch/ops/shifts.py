@@ -41,8 +41,13 @@ def _boundary_mask(off, device) -> torch.Tensor:
 def shifted_view(topo, f: torch.Tensor, off) -> torch.Tensor:
     """One +-1 face-shifted view of ``f [..., T, 512]`` (one row gather for
     all leading fields)."""
+    return shifted_view_nbr(topo.nbr, f, off)
+
+
+def shifted_view_nbr(nbr: torch.Tensor, f: torch.Tensor, off) -> torch.Tensor:
+    """:func:`shifted_view` given the ``nbr [T,27]`` table itself."""
     _, _, s_in, s_fix = _DIRS[tuple(off)]
-    n = f.index_select(-2, topo.nbr[:, d_of(off)])
+    n = f.index_select(-2, nbr[:, d_of(off)])
     return torch.where(_boundary_mask(off, f.device),
                        torch.roll(n, s_fix, -1), torch.roll(f, s_in, -1))
 

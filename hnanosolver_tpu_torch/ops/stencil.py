@@ -1,44 +1,34 @@
 """Collocated central-difference stencil ops on the flat layout: divergence,
 pressure-gradient subtraction and vorticity confinement.
 
-Out-of-domain reads are exact background 0 via the null tile.
+Divergence and u - grad(p) are kernels B7a and B7b
+(``ops/cuda_stencil.py``). Out-of-domain reads are exact background 0 via
+the null tile.
 """
 
 from __future__ import annotations
 
 import torch
 
-from hnanosolver_tpu_torch.ops.shifts import shifted_view
+from hnanosolver_tpu_torch.ops import cuda_stencil
 
 
 def divergence(topo, vel: torch.Tensor, inv_dx: float) -> torch.Tensor:
     """div(u) at cell centres: (u_{+1} - u_{-1}) / (2 dx) per axis, the
     three axis terms added left to right. vel [3,T,512] -> [T,512]."""
-    ux, uy, uz = vel[0], vel[1], vel[2]
-    return (
-        (shifted_view(topo, ux, (1, 0, 0)) - shifted_view(topo, ux, (-1, 0, 0)))
-        + (shifted_view(topo, uy, (0, 1, 0)) - shifted_view(topo, uy, (0, -1, 0)))
-        + (shifted_view(topo, uz, (0, 0, 1)) - shifted_view(topo, uz, (0, 0, -1)))
-    ) * (0.5 * inv_dx)
+    return cuda_stencil.divergence(topo.nbr, vel.contiguous(), inv_dx)
 
 
 def pressure_gradient(topo, p: torch.Tensor, inv_dx: float) -> torch.Tensor:
-    """grad(p) at cell centres, [3,T,512]."""
-    def v(off):
-        return shifted_view(topo, p, off)
-
-    return torch.stack([
-        v((1, 0, 0)) - v((-1, 0, 0)),
-        v((0, 1, 0)) - v((0, -1, 0)),
-        v((0, 0, 1)) - v((0, 0, -1)),
-    ]) * (0.5 * inv_dx)
+    """grad(p) at cell centres, [3,T,512] (plain torch)."""
+    return cuda_stencil.gradient(topo.nbr, p, inv_dx)
 
 
 def subtract_pressure_gradient(
     topo, vel: torch.Tensor, p: torch.Tensor, inv_dx: float
 ) -> torch.Tensor:
     """u <- u* - grad(p); dt/rho is absorbed into p's units."""
-    return vel - pressure_gradient(topo, p, inv_dx)
+    return cuda_stencil.subtract_gradient(topo.nbr, vel.contiguous(), p.contiguous(), inv_dx)
 
 
 def vorticity_confinement(

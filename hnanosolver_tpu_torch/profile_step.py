@@ -6,9 +6,11 @@ root on a machine with one CUDA card:
 Cells (``cells.CELLS``, default all): ``bench`` (RBGS-50 on the
 4196-tile bench plume), ``bench-mg`` (multigrid, mg_levels 2, FMG + 2
 V-cycles, same domain), ``c5`` and ``c5-mg`` (BASELINE config 5, the
-269,104-tile 1024^3 plume cone, RBGS-50 and multigrid with mg_levels 5).
-Each cell's state is developed first (20 RBGS-50 steps on the bench
-domain, 4 at config 5). Per cell it prints:
+269,104-tile 1024^3 plume cone, RBGS-50 and multigrid with mg_levels 5),
+``c4`` (BASELINE config 4: the bench plume with a moving SDF sphere,
+4354 tiles, RBGS-50, one collider step). Each cell's state is developed
+first (20 RBGS-50 steps on the bench domain, 4 at config 5, 20 collider
+frames at config 4). Per cell it prints:
 
 - host ms/step: median wall time of single steps ending in a synchronise;
 - enqueue ms/step: median time for the step call to return, unsynchronised
@@ -28,7 +30,7 @@ import time
 import torch
 
 from hnanosolver_tpu_torch.cells import CELLS, RBGS50
-from hnanosolver_tpu_torch.models import plume
+from hnanosolver_tpu_torch.models import collider, plume
 from hnanosolver_tpu_torch.ops import multigrid
 
 STEPS = 5  # steps timed on the host clock, then steps profiled
@@ -50,12 +52,19 @@ def _device_events(prof):
 
 def profile_cell(name: str) -> None:
     cell = CELLS[name]
-    params, cfg = cell.params, cell.plume
-    topo, state = plume.run_plume(cell.develop, RBGS50, cfg, topo=cell.topology())
-    hier = multigrid.hierarchy_for(topo, params)
+    params, cfg, col = cell.params, cell.plume, cell.collider
+    if col is None:
+        topo, state = plume.run_plume(cell.develop, RBGS50, cfg, topo=cell.topology())
+        hier = multigrid.hierarchy_for(topo, params)
 
-    def step():
-        return plume.plume_step(topo, state, params, cfg, hier)
+        def step():
+            return plume.plume_step(topo, state, params, cfg, hier)
+    else:
+        topo, state = collider.run_collider(cell.develop, params, cfg, col,
+                                            topo=cell.topology())
+
+        def step():
+            return collider.collider_step(topo, state, params, cfg, col, cell.develop)
 
     for _ in range(2):
         step()

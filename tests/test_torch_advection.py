@@ -17,19 +17,29 @@
   (the 8-corner gather sampler): the same arithmetic, except that XLA may
   contract the re-trace d + u*sdt and the corner sums into FMAs; an ulp in
   a trace position moves a sample by ulps times the field gradient, so
-  allow 1e-5 times the field's max.
+  allow 1e-5 times the field's max. The same holds at trace orders 2-4,
+  with and without a collision SDF (the JAX CPU path there is
+  ``_advect_chunked`` with the gather sampler, one chunk of the whole
+  capacity; it runs op by op under ``jax.disable_jit()``, since XLA takes
+  40-60 s on the CPU to compile that path's ``lax.map`` body at each RK
+  order, and under a second to run the same ops one by one), for ten scalars (two B1 batches) and for the solver's
+  HNanoAdvect / HNanoAdvectVelocity entry points.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from hnanosolver_tpu import solver as jsolver
 from hnanosolver_tpu.core import topology as jtopo
 from hnanosolver_tpu.ops import advection as jadv
 from hnanosolver_tpu.ops import pallas_bfecc as jpb
 from hnanosolver_tpu.ops import pallas_tail as jpt
+from hnanosolver_tpu_torch import config as tcfg
 from hnanosolver_tpu_torch import convert
+from hnanosolver_tpu_torch import solver as tsolver
 from hnanosolver_tpu_torch.ops import advection as tadv
 from hnanosolver_tpu_torch.ops import cuda_bfecc as tcb
 from hnanosolver_tpu_torch.ops import cuda_tail as tct
@@ -38,6 +48,8 @@ torch.set_num_threads(1)
 
 TOL_PHIF, TOL_PHIB = 4e-6, 4e-5  # times max|phi|, see the module doc
 LIM = 7.0 - 1e-3
+NAMES = ("density", "temperature", "fuel", "waste", "flame")
+DT, INV_DX = 1 / 24, 2.0
 
 
 @pytest.fixture(scope="module")
@@ -140,12 +152,16 @@ def test_advect_scalars_fused_matches_jax(dom):
 
 
 def test_advection_rejects_unported_options(dom):
+    """Of the advection stage of a step, what still raises: vorticity
+    confinement at int(factor_scale) >= 1, applied to the advected
+    velocity (RK2-4 traces and the collision SDF are ported)."""
     _, tt, vel, _, _ = dom
-    v = torch.from_numpy(vel)
+    T = tt.capacity
+    st = convert.state_from_numpy(vel, {n: np.zeros((T, 512), np.float32) for n in NAMES},
+                                  device="cpu")
+    params = tcfg.SolverParams(combustion=tcfg.CombustionParams(factor_scale=1.0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tadv.advect_velocity(tt, v, 0.1, 1.0, sdf=v[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tadv.advect_velocity(tt, v, 0.1, 1.0, trace_order=2)
+        tsolver.step(tt, st, params)
 
 
 @pytest.mark.parametrize("nb,f_lo", [(4, 0), (3, 3), (12, 3), (2, 0)])
@@ -163,3 +179,92 @@ def test_b2_wrapper_rejects_mismatched_shapes(dom):
         tct.bfecc_tail(tt.nbr, a, a[:2], a)
     with pytest.raises(ValueError):
         tct.bfecc_tail(tt.nbr, a, a, a.double())
+
+
+def _sphere_sdf(jt, m, center, radius):
+    """Index-space sphere SDF, masked as ``mask_state`` leaves it (the
+    null tile then reads 0)."""
+    org = np.asarray(jt.origins)[:, None, :] * 8
+    col = np.arange(512)
+    pos = org + np.stack([col // 64, (col // 8) % 8, col % 8], -1)[None]
+    d = np.linalg.norm(pos - np.asarray(center, np.float64), axis=-1) - radius
+    return (d * m).astype(np.float32)
+
+
+def _assert_fields_close(got, want):
+    w = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("with_sdf", [False, True])
+@pytest.mark.parametrize("order", [2, 3, 4])
+def test_rk_advection_matches_jax(dom, order, with_sdf):
+    """RK2 (midpoint), RK3 (Ralston), RK4 backtraces through the sampler
+    B8/B9 and B2, with and without SDF trace rejection, against the JAX
+    CPU path: velocity self-advection and three scalars."""
+    jt, tt, _, _, _ = dom
+    rng = np.random.default_rng(20 + order)
+    m = np.asarray(jtopo.active_mask(jt))[:, None]
+    vel, sc = _smooth_state(rng, tt.capacity, m, 3)
+    vel = vel * 4.0  # traces of about a voxel
+    sdf = _sphere_sdf(jt, m, (20.0, 18.0, 21.0), 8.0) if with_sdf else None
+    jsdf = None if sdf is None else jnp.asarray(sdf)
+    tsdf = None if sdf is None else torch.from_numpy(sdf)
+    with jax.disable_jit():  # see the module doc
+        want = jadv.advect_velocity(jt, jnp.asarray(vel), DT, INV_DX, sdf=jsdf,
+                                    trace_order=order)
+    got = tadv.advect_velocity(tt, torch.from_numpy(vel), DT, INV_DX, sdf=tsdf,
+                               trace_order=order)
+    _assert_fields_close(got, want)
+    names = NAMES[:3]
+    with jax.disable_jit():
+        want = jadv.advect_scalars_fused(jt, jnp.asarray(vel),
+                                         {n: jnp.asarray(s) for n, s in zip(names, sc)},
+                                         DT, INV_DX, sdf=jsdf, trace_order=order)
+    got = tadv.advect_scalars_fused(tt, torch.from_numpy(vel),
+                                    {n: torch.from_numpy(s) for n, s in zip(names, sc)},
+                                    DT, INV_DX, sdf=tsdf, trace_order=order)
+    for n in names:
+        _assert_fields_close(got[n], want[n])
+
+
+def test_advect_ten_scalars_matches_jax(dom):
+    """Ten scalars: more than B1 takes in one launch, so two batches (the
+    JAX package advects any count)."""
+    jt, tt, _, _, _ = dom
+    rng = np.random.default_rng(31)
+    m = np.asarray(jtopo.active_mask(jt))[:, None]
+    vel, sc = _smooth_state(rng, tt.capacity, m, 10)
+    names = [f"s{i:02d}" for i in range(10)]
+    want = jadv.advect_scalars_fused(jt, jnp.asarray(vel),
+                                     {n: jnp.asarray(s) for n, s in zip(names, sc)}, DT, INV_DX)
+    got = tadv.advect_scalars_fused(tt, torch.from_numpy(vel),
+                                    {n: torch.from_numpy(s) for n, s in zip(names, sc)},
+                                    DT, INV_DX)
+    assert sorted(got) == names
+    for n in names:
+        _assert_fields_close(got[n], want[n])
+
+
+def test_solver_advect_entry_points_match_jax(dom):
+    """HNanoAdvect / HNanoAdvectVelocity (``solver.advect_scalars`` /
+    ``advect_velocity``)."""
+    jt, tt, _, _, _ = dom
+    rng = np.random.default_rng(32)
+    m = np.asarray(jtopo.active_mask(jt))[:, None]
+    vel, sc = _smooth_state(rng, tt.capacity, m, 2)
+    names = ("density", "temperature")
+    voxel_size = 0.5
+    want = jsolver.advect_scalars(jt, jnp.asarray(vel),
+                                  {n: jnp.asarray(s) for n, s in zip(names, sc)}, DT, voxel_size)
+    got = tsolver.advect_scalars(tt, torch.from_numpy(vel),
+                                 {n: torch.from_numpy(s) for n, s in zip(names, sc)},
+                                 DT, voxel_size)
+    for n in names:
+        _assert_fields_close(got[n], want[n])
+    _assert_fields_close(tsolver.advect_velocity(tt, torch.from_numpy(vel), DT, voxel_size),
+                         jsolver.advect_velocity(jt, jnp.asarray(vel), DT, voxel_size))
+    # the single-field form
+    _assert_fields_close(
+        tadv.advect_scalar(tt, torch.from_numpy(vel), torch.from_numpy(sc[0]), DT, INV_DX),
+        jadv.advect_scalar(jt, jnp.asarray(vel), jnp.asarray(sc[0]), DT, INV_DX))
