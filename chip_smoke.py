@@ -57,23 +57,47 @@ exit). Each phase prints the seconds it took.
      without and with the SDF, exactly order - 1 + 2 B8 launches per call
      (+2 with the SDF) and 1 B2; each call kernels vs plain, each recorded
      kernel call vs plain, times
+ 12. BASELINE config 2: run_plume with the JAX package's defaults
+     (PlumeConfig(), SolverParams(), growth every frame) for C2_FRAMES
+     frames from the emitter's topology, launch counts per frame from the
+     capacity the step ran at (B5 at T <= 2048, else B3 blocks); each
+     frame's tile count, capacity and seconds, fields finite, null and
+     padding rows 0, and every remap keeping each kept tile's values
+     exactly; then one step kernels vs plain
+ 13. BASELINE config 3: run_fire with FireConfig() and default_params()
+     (vorticity confinement at s = 1) for C3_FRAMES frames, the same
+     per-frame checks, then tests/test_fire.py's: max flame > 0.3, waste
+     > 0, max temperature > 85, hot gas (T > 50) above y = 10; one step
+     kernels vs plain
+ 14. the table sampler (advection.INTERP = "vmem") on the bench cell's
+     developed state, the velocity scaled into each band (narrow, mixed,
+     wide), COMBINE_TBL off and on: build_topology's host seconds with and
+     without the chunk plans (bench and config 5); B11 vs its plain version
+     and bitwise vs build_table_dual; the dual B1 ("both" with and without
+     the SDF, "back", "fwd") vs its plain version and bitwise vs the nbr B1
+     and B8; one step per band and switch as a main path (launches from the
+     branches taken) vs its plain step and vs the nbr-path step; times of
+     B11, the dual B1, the table builds and the table-path pass beside the
+     nbr B1 pass
 
-Launch counts come only from the main-path runs (phases 4, 7-11), each
+Launch counts come only from the main-path runs (phases 4, 7-14), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
 step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4 advection
-with the SDF of the config-4 state: the velocity and the scalar pass):
+with the SDF of the config-4 state: the velocity and the scalar pass; B1d
+and B11 one table-path bench step in the narrow band with COMBINE_TBL on):
 per-launch medians over runs of 10
 back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
-move (each input read once, each output written once) over 3.35 TB/s and
+move (each input read once, each output written once; B11 reads only the
+table values it copies) over 3.35 TB/s and
 their f32 operations over 67 TFLOP/s (the H100 SXM data sheet). On the
 bench domain a launch's operands fit the 50 MB L2 and stay there between
 back-to-back calls, as they largely do in the step, so its HBM bound is
 not a floor on its time; the per-launch lines say where that holds. Only
-the config-5 levels (551 MB a field at the fine one) are held to a true
-HBM bound.
+the config-5 levels (551 MB a field at the fine one) and the bench's chunk
+tables (133-353 MB a launch) are held to a true HBM bound.
 
 The cells (domains, solver settings, develop steps) come from
 ``hnanosolver_tpu_torch/cells.py``, which ``profile_step`` reads too.
@@ -95,6 +119,9 @@ from unittest import mock
 import numpy as np
 
 MG_STEPS = 3  # multigrid steps on the bench domain
+C2_FRAMES = 48  # config-2 plume frames from rest (growth every frame)
+C3_FRAMES = 48  # config-3 fire frames from rest
+BANDS = (("narrow", 1.5), ("mixed", 3.0), ("wide", 5.0))  # phase 14: CFL per band
 C5_MG_STEPS = 2  # counted multigrid steps at config 5
 SEED = 0
 # Tolerances, kernel vs its plain version on the card. The kernels use
@@ -111,7 +138,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
-KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8")
+KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11")
 
 
 def sh(cmd: list[str]) -> str:
@@ -167,6 +194,17 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
     def sample(n):
         return 15 + 8 * (2 + 2 * n)
 
+    if key == "B11":
+        return 0.0  # a copy
+    if key == "B1d":
+        nb, f_lo = args[4], args[5]
+        mode = args[6] if len(args) > 6 else kwargs.get("mode", "both")
+        sdf = args[7] if len(args) > 7 else kwargs.get("has_sdf", False)
+        if mode == "fwd":
+            return float(sample(nb - f_lo))
+        if mode == "back":
+            return 6 + float(sample(nb - f_lo))
+        return 18 + sample(nb) + sample(nb - f_lo) + (2 * (sample(1) + 1) if sdf else 0)
     if key == "B1":
         nb, f_lo = args[1].shape[0], args[3]
         sdf = args[4] if len(args) > 4 else kwargs.get("sdf")
@@ -189,9 +227,21 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
     return 9.0  # B6
 
 
+def call_label(key: str, args: tuple) -> str:
+    return f"nc={args[0].shape[0]} nf={args[2]}" if key == "B11" else f"T={rows(key, args)}"
+
+
+def rows(key: str, args: tuple) -> int:
+    """The tile rows one launch works on (the table kernels' first argument
+    is a chunk table: B1d's rows are those of its ldual)."""
+    return args[1].shape[0] if key == "B1d" else args[0].shape[0]
+
+
 def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]:
     """The least time the card could take for one launch: (ms, bound by,
-    bytes moved)."""
+    bytes moved). Each input is read once and each output written once;
+    B11's reads are the table values its dloc picks (the data decides
+    them), as many as it writes."""
     import torch
 
     seen, moved = set(), 0
@@ -199,9 +249,10 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]
         if isinstance(a, torch.Tensor) and a.data_ptr() not in seen:
             seen.add(a.data_ptr())
             moved += nbytes(a)
+    if key == "B11":  # it reads only the 27-table values its output copies
+        moved = nbytes(args[1]) + nbytes(out)
     moved += nbytes(out)
-    T = args[0].shape[0]
-    ops = ops_per_voxel(key, args, kwargs) * T * 512
+    ops = ops_per_voxel(key, args, kwargs) * rows(key, args) * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
 
@@ -224,10 +275,14 @@ def main() -> int:
     from hnanosolver_tpu_torch.core.topology import active_mask, build_topology
     from hnanosolver_tpu_torch.fields import COLLISION_FIELD, zeros_state
     from hnanosolver_tpu_torch.kernels import build
-    from hnanosolver_tpu_torch.models import collider, plume
+    from hnanosolver_tpu_torch.core import topology as topology_mod
+    from hnanosolver_tpu_torch.core.layout import positions_flat
+    from hnanosolver_tpu_torch.fields import FieldState
+    from hnanosolver_tpu_torch.models import collider, fire, plume
+    from hnanosolver_tpu_torch.config import SolverParams
     from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
-                                           cuda_pressure, cuda_sample, cuda_stencil, cuda_tail,
-                                           multigrid, stencil)
+                                           cuda_pressure, cuda_sample, cuda_stencil, cuda_tables,
+                                           cuda_tail, multigrid, stencil, tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
 
     def done(phase: str):
@@ -291,6 +346,14 @@ def main() -> int:
                    replaces="hnanosolver_tpu/ops/pallas_interp2.py:54, "
                             "hnanosolver_tpu/ops/pallas_interp.py:51",
                    counter=cuda_sample.launches, wrap=(cuda_sample, "sample_at")),
+        "B1d": dict(name="bfecc_sample_dual", source=src + "bfecc_sample.cu",
+                    replaces="hnanosolver_tpu/ops/pallas_bfecc.py:303 (use_dual, :899-913, "
+                             ":974-984)",
+                    counter=cuda_bfecc.launches_dual, wrap=(cuda_bfecc, "bfecc_sample_dual")),
+        "B11": dict(name="combine_dual", source=src + "combine_dual.cu",
+                    replaces="hnanosolver_tpu/ops/pallas_bfecc.py:676",
+                    counter=cuda_tables.launches,
+                    wrap=(cuda_tables, "build_table_dual_combine")),
     }
     for k in kernels.values():
         k.update(route="cuda", launches=0, max_abs_err=0.0, library_ms=None)
@@ -308,15 +371,18 @@ def main() -> int:
             raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
 
     @contextlib.contextmanager
-    def main_path(label: str, per_step: dict, steps: int):
+    def main_path(label: str, per_step, steps: int = 1):
         """Counters to 0 just before the run, read just after; the counts
-        must be exactly ``per_step`` times ``steps``."""
+        must be exactly ``per_step`` times ``steps`` (``per_step`` a
+        callable: the run's total counts, asked after the run)."""
         for k in kernels.values():
             k["counter"].n = 0
         torch.cuda.synchronize()
         yield
         torch.cuda.synchronize()
         counts = {key: k["counter"].n for key, k in kernels.items()}
+        if callable(per_step):
+            per_step, steps = per_step(), 1
         want = {key: per_step.get(key, 0) * steps for key in KEYS}
         for key, k in kernels.items():
             k["launches"] += counts[key]
@@ -396,8 +462,8 @@ def main() -> int:
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         for g, w in zip(got, want):
-            check(key, f"main-path call T={a[0].shape[0]}", g, w,
-                  TOL_B1 if key in ("B1", "B8") else TOL_B3, label)
+            check(key, f"main-path call {call_label(key, a)}", g, w,
+                  TOL_B1 if key in ("B1", "B8", "B1d") else TOL_B3, label)
 
     def time_calls(label: str, groups: list, plain: bool = True) -> dict:
         """Each recorded call against its plain version on the same inputs,
@@ -422,7 +488,7 @@ def main() -> int:
             r["bound_ms"] += b_ms * count
             r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms * count
             in_l2 = " (operands fit the L2: HBM bound)" if moved <= L2_BYTES else ""
-            print(f"[{label}] {key} T={a[0].shape[0]} x{count}/step: {k_ms:.4f} ms kernel,"
+            print(f"[{label}] {key} {call_label(key, a)} x{count}/step: {k_ms:.4f} ms kernel,"
                   f" {p_ms:.4f} ms plain, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB)"
                   f"{in_l2} per launch | {card}", flush=True)
         for key, r in res.items():
@@ -554,7 +620,8 @@ def main() -> int:
     t0 = time.perf_counter()
     with main_path("4", {"B1": 2, "B2": 2, "B3": params.iterations // lag, "B7a": 1, "B7b": 1},
                    bench.develop):
-        topo, state = plume.run_plume(bench.develop, params, cfg, topo=topo, state=state)
+        topo, state = plume.run_plume(bench.develop, params, cfg, topo=topo, state=state,
+                                      grow_every=0)
     wall = time.perf_counter() - t0
     print(f"[4] main path: {bench.develop} plume steps on {topo.n_active} tiles "
           f"({topo.num_voxels} active voxels, capacity {T}), {params.iterations} "
@@ -601,7 +668,8 @@ def main() -> int:
           f"{[T] + [lv.topo.capacity for lv in hier]}", flush=True)
     with main_path("7", {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1},
                    MG_STEPS):
-        topo, mg_state = plume.run_plume(MG_STEPS, mg_params, cfg, topo=topo, state=state)
+        topo, mg_state = plume.run_plume(MG_STEPS, mg_params, cfg, topo=topo, state=state,
+                                         grow_every=0)
     check_state("7", topo, mg_state)
     step_vs_plain("7", lambda: plume.plume_step(topo, mg_state, mg_params, cfg, hier))
 
@@ -621,7 +689,8 @@ def main() -> int:
     par_params = params.replace(precision="parity")
     assert par_params.effective_halo_lag == 1
     with main_path("8", {"B1": 2, "B2": 2, "B4": 2 * params.iterations, "B7a": 1, "B7b": 1}, 1):
-        topo, par_state = plume.run_plume(1, par_params, cfg, topo=topo, state=state)
+        topo, par_state = plume.run_plume(1, par_params, cfg, topo=topo, state=state,
+                                          grow_every=0)
     check_state("8", topo, par_state)
     step_vs_plain("8", lambda: plume.plume_step(topo, state, par_params, cfg))
 
@@ -633,6 +702,7 @@ def main() -> int:
     kernels["B4"].update(time_calls("8", record(par_step, ("B4",)))["B4"])
     print(f"[8] bench parity-tier step: {par_ms:.3f} ms/step (median of 5) | {card}",
           flush=True)
+    bench_state = state  # the developed bench state, for phase 14
     del mg_state, par_state, s, state
     done("8")
 
@@ -645,7 +715,7 @@ def main() -> int:
           f"{[c5.n_active] + [lv.topo.n_active for lv in c5_hier]}, capacities "
           f"{[c5.capacity] + [lv.topo.capacity for lv in c5_hier]}", flush=True)
     with main_path("9", {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1}, CELLS["c5"].develop):
-        c5, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5)
+        c5, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5, grow_every=0)
     check_state("9", c5, st5)
     # Per MG step (mg_levels 5): fine 269,312, L1 45,056 and L2 6,144 rows
     # smooth with one-pair B3 blocks (L1, L2 masked); L3 1,024, L4 128, L5 32
@@ -656,7 +726,8 @@ def main() -> int:
     # 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2).
     with main_path("9", {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1},
                    C5_MG_STEPS):
-        c5, st5 = plume.run_plume(C5_MG_STEPS, c5_mg, cfg5, topo=c5, state=st5)
+        c5, st5 = plume.run_plume(C5_MG_STEPS, c5_mg, cfg5, topo=c5, state=st5,
+                                  grow_every=0)
     check_state("9", c5, st5)
 
     def c5_step(p_, h_):
@@ -763,7 +834,7 @@ def main() -> int:
     with main_path("10", {"B1": 2, "B2": 2, "B3": p4.iterations // p4.effective_halo_lag,
                           "B7a": 1, "B7b": 1}, c4.develop):
         t4, st4 = collider.run_collider(c4.develop, p4, cfg4, col4, topo=t4, state=prev[0],
-                                        on_frame=on_frame)
+                                        grow_every=0, on_frame=on_frame)
     print(f"[10] {c4.develop} collider frames: {time.perf_counter() - t0:.2f} s wall with "
           f"the per-frame checks", flush=True)
     check_state("10", t4, st4)
@@ -825,6 +896,274 @@ def main() -> int:
                   f"{statistics.median(cuda_ms(rk, 5)):.3f} ms (median of 5) | {card}",
                   flush=True)
     done("11")
+    del t4, st4, vel4, sdf4, sc4, prev
+    torch.cuda.empty_cache()
+
+    # -- 12-13. growing topologies: BASELINE configs 2 and 3 -------------------
+    from hnanosolver_tpu_torch.core import activation
+
+    def step_counts(cap: int, p_) -> dict:
+        """Launches of one step without collision at capacity ``cap`` on the
+        nbr path with at most 8 scalars: the pressure solve as
+        ops/pressure.solve_pressure dispatches it."""
+        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
+        if cap <= cuda_pressure.MAX_FUSED_ROWS:
+            c["B5"] = 1
+        else:
+            lag_ = p_.effective_halo_lag
+            blocks = p_.iterations // lag_ if lag_ > 1 else 0
+            c["B3"], c["B4"] = blocks, 2 * (p_.iterations - blocks * lag_)
+        return c
+
+    def totals(caps: list, p_):
+        def want():
+            out = {}
+            for cap in caps:
+                for key, n in step_counts(cap, p_).items():
+                    out[key] = out.get(key, 0) + n
+            return out
+        return want
+
+    @contextlib.contextmanager
+    def growth_checked(label: str, model, caps: list, clock: dict):
+        """``model.expand_for_state`` wrapped: records the capacity each
+        frame's step ran at and the seconds of the step (from the frame's
+        start) and of the growth pass, and holds every remap to the tile
+        keys, found on the host: a tile in both topologies keeps its values
+        exactly, a new tile and every padding row read 0."""
+        real = activation.expand_for_state
+
+        def wrapped(topo_, st, *a, **kw):
+            caps.append(topo_.capacity)
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            new_t, new_s = real(topo_, st, *a, **kw)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            clock["step"].append(t_a - clock["start"])
+            clock["grow"].append(t_b - t_a)
+            if new_t is topo_:
+                return new_t, new_s
+            ok_ = np.asarray(topo_.keys[1:topo_.n_active + 1].cpu())
+            nk = np.asarray(new_t.keys[1:new_t.n_active + 1].cpu())
+            _, io, in_ = np.intersect1d(ok_, nk, return_indices=True)
+            io, in_ = torch.from_numpy(io + 1).to(dev), torch.from_numpy(in_ + 1).to(dev)
+            fresh = torch.ones(new_t.capacity, dtype=torch.bool, device=dev)
+            fresh[in_] = False
+            fresh[0] = True
+            for name, old_f, new_f in [("velocity", st.velocity, new_s.velocity)] + [
+                    (k, st.scalars[k], new_s.scalars[k]) for k in sorted(st.scalars)]:
+                if not torch.equal(new_f[..., in_, :], old_f[..., io, :]):
+                    raise AssertionError(f"phase {label}: the remap changed kept {name}")
+                if bool(new_f[..., fresh, :].any()):
+                    raise AssertionError(f"phase {label}: a new or padding row of {name} != 0")
+            return new_t, new_s
+
+        with mock.patch.object(model, "expand_for_state", wrapped):
+            yield
+
+    def frame_printer(label: str, caps: list, clock: dict):
+        clock.update(start=time.perf_counter(), step=[], grow=[])
+
+        def on_frame(f, topo_, st):
+            check_state(label, topo_, st)
+            print(f"[{label}] frame {f}: step at capacity {caps[-1]} {clock['step'][-1]:.4f} s, "
+                  f"growth {clock['grow'][-1]:.4f} s -> {topo_.n_active} tiles at capacity "
+                  f"{topo_.capacity}; max|u| {float(st.velocity.abs().max()):.2f}", flush=True)
+            torch.cuda.synchronize()
+            clock["start"] = time.perf_counter()
+        return on_frame
+
+    def frame_summary(label: str, clock: dict):
+        st_, gr = clock["step"], clock["grow"]
+        print(f"[{label}] seconds per frame, median (last 10 frames): step "
+              f"{statistics.median(st_):.4f} ({statistics.median(st_[-10:]):.4f}), growth "
+              f"{statistics.median(gr):.4f} ({statistics.median(gr[-10:]):.4f}); sums step "
+              f"{sum(st_):.3f}, growth {sum(gr):.3f} | {card}", flush=True)
+
+    p2, cfg2 = SolverParams(), plume.PlumeConfig()
+    caps2, clock2 = [], {}
+    t0 = time.perf_counter()
+    with growth_checked("12", plume, caps2, clock2), main_path("12", totals(caps2, p2)):
+        t2, st2 = plume.run_plume(C2_FRAMES, p2, cfg2, device=dev,
+                                  on_frame=frame_printer("12", caps2, clock2))
+    frame_summary("12", clock2)
+    print(f"[12] config 2: {C2_FRAMES} frames in {time.perf_counter() - t0:.2f} s wall "
+          f"(growth and per-frame checks included): {t2.n_active} tiles, capacity "
+          f"{t2.capacity}, max density {float(st2.scalars['density'].max()):.4f}", flush=True)
+    check_state("12", t2, st2)
+    if not t2.n_active > len(plume.emitter_tiles(cfg2)):
+        raise AssertionError("phase 12: the topology did not grow")
+    step_vs_plain("12", lambda: plume.plume_step(t2, st2, p2, cfg2))
+    done("12")
+
+    p3, cfg3 = fire.default_params(), fire.FireConfig()
+    caps3, clock3 = [], {}
+    t0 = time.perf_counter()
+    with growth_checked("13", fire, caps3, clock3), main_path("13", totals(caps3, p3)):
+        t3, st3 = fire.run_fire(C3_FRAMES, p3, cfg3, device=dev,
+                                on_frame=frame_printer("13", caps3, clock3))
+    frame_summary("13", clock3)
+    sc3 = st3.scalars
+    hot = torch.where(sc3["temperature"] > 50.0, positions_flat(t3)[1].to(torch.float32), -1e9)
+    facts = dict(flame=float(sc3["flame"].max()), waste=float(sc3["waste"].sum()),
+                 temperature=float(sc3["temperature"].max()), hot_y=float(hot.max()))
+    print(f"[13] config 3: {C3_FRAMES} frames in {time.perf_counter() - t0:.2f} s wall: "
+          f"{t3.n_active} tiles, capacity {t3.capacity}; max flame {facts['flame']:.4f} "
+          f"(> 0.3), waste sum {facts['waste']:.3f} (> 0), max T {facts['temperature']:.2f} "
+          f"(> 85), hot gas up to y {facts['hot_y']:.0f} (> 10)", flush=True)
+    check_state("13", t3, st3)
+    if not (facts["flame"] > 0.3 and facts["waste"] > 0 and facts["temperature"] > 85
+            and facts["hot_y"] > 10):
+        raise AssertionError(f"phase 13: the fireball checks failed: {facts}")
+    step_vs_plain("13", lambda: fire.fire_step(t3, st3, p3, cfg3))
+    del t2, st2, t3, st3, sc3, hot
+    done("13")
+
+    # -- 14. the table sampler on the bench cell ---------------------------------
+    for name, cell in (("bench", bench), ("config 5", CELLS["c5"])):
+        tiles = plume.build_plume_envelope(*cell.envelope)
+        n = len(np.unique(tiles, axis=0))
+        cap = ((n + 1 + 511) // 512) * 512
+        secs = {}
+        for what, kw in (("plain", {}), ("plans", {"plans": True}), ("plans+dloc", {"dloc": True})):
+            t0 = time.perf_counter()
+            topology_mod.build_topology(tiles, capacity=cap, device=dev, **kw)
+            torch.cuda.synchronize()
+            secs[what] = time.perf_counter() - t0
+        print(f"[14] build_topology host seconds, {name} ({n} tiles, capacity {cap}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()), flush=True)
+    torch.cuda.empty_cache()
+
+    tb = topology_mod.ensure_dual_local(topo)
+    nc, Ud = tb.chunk_dsrc.shape[:2]
+    print(f"[14] bench chunk plans: {nc} chunks, U {tb.chunk_uniq.shape[1]}, Ud {Ud}", flush=True)
+    vel0, sc0 = bench_state.velocity, bench_state.scalars
+    # emit sets the jet inside the emitter: scale the flow outside it, so
+    # that the velocity pass sees the band's CFL
+    inside = plume.emit(topo, zeros_state(topo), cfg, params.dt).velocity[1] != 0
+    cfl0 = float(vel0.abs().amax(0)[~inside].max()) * sdt
+    print(f"[14] developed bench state: CFL max|u|*sdt = {float(vel0.abs().max()) * sdt:.3f}, "
+          f"{cfl0:.3f} outside the emitter", flush=True)
+    names = sorted(sc0)
+
+    def table_counts(comb: bool):
+        def want():
+            b = advection.BANDS
+            c = {"B2": 2, "B3": params.iterations // lag, "B7a": 1, "B7b": 1,
+                 "B1": b["wide"], "B8": b["mixed fwd wide"],
+                 "B1d": b["narrow"] + b["mixed"] + b["mixed fwd narrow"]}
+            if comb:
+                c["B11"] = b["narrow"] + b["mixed"]
+            return c
+        return want
+
+    def vmem(comb):
+        advection.INTERP, cuda_tables.COMBINE_TBL = "vmem", comb
+
+    def nbr_path():
+        advection.INTERP, cuda_tables.COMBINE_TBL = None, None
+
+    narrow_step = None
+    for band, cfl in BANDS:
+        vb = (vel0 * (cfl / cfl0)).contiguous()
+        sb = FieldState(velocity=vb, scalars=sc0)
+        f8 = torch.cat([vb, torch.stack([sc0[k] for k in names])]).contiguous()
+        for comb in (False, True):
+            vmem(comb)
+            advection.BANDS.clear()
+            label = f"14 {band} COMBINE_TBL={comb}"
+            with main_path(label, table_counts(comb)):
+                out_v = plume.plume_step(tb, sb, params, cfg)
+            print(f"[{label}] branches taken {dict(advection.BANDS)}", flush=True)
+            step_vs_plain(label, lambda: plume.plume_step(tb, sb, params, cfg))
+            nbr_path()
+            out_n = plume.plume_step(topo, sb, params, cfg)
+            parts, worst = [], 0.0
+            for fname in ["velocity"] + sorted(out_v.scalars):
+                g = out_v.velocity if fname == "velocity" else out_v.scalars[fname]
+                w = out_n.velocity if fname == "velocity" else out_n.scalars[fname]
+                _, rel = rel_err(g, w)
+                worst = max(worst, rel)
+                parts.append(f"{fname} {rel:.2e}{' (bitwise)' if torch.equal(g, w) else ''}")
+            print(f"[{label}] step vs the nbr-path step, max rel err per field: "
+                  f"{', '.join(parts)} (tol {TOL_STEP:g})", flush=True)
+            if not worst <= TOL_STEP:
+                raise AssertionError(f"phase {label}: vs the nbr path {worst} > {TOL_STEP}")
+            if band == "narrow" and comb:
+                def narrow_step(tb=tb, sb=sb):
+                    vmem(True)
+                    plume.plume_step(tb, sb, params, cfg)
+        # the kernels at this band's inputs (scalar pass: velocity + 5 scalars)
+        lab = f"14 {band}"
+        if band == "narrow":
+            t27 = tables.build_table(tb, f8)
+            b11 = cuda_tables.build_table_dual_combine(t27, tb.chunk_dloc, 8)
+            check("B11", f"T={T} nf=8 vs plain", b11,
+                  cuda_tables.build_table_dual_combine_plain(t27, tb.chunk_dloc, 8), 0.0, lab)
+            tdual = tables.build_table_dual(tb, f8)
+            check("B11", f"T={T} nf=8 vs build_table_dual", b11, tdual, 0.0, lab)
+            for fl, fields in ((0, vb), (3, f8)):
+                tv = tables.build_table_dual(tb, fields)
+                nb_ = fields.shape[0]
+                got = cuda_bfecc.bfecc_sample_dual(tv, tb.chunk_ldual, vb, sdt, nb_, fl)
+                want = cuda_bfecc.bfecc_sample_dual_plain(tv, tb.chunk_ldual, vb, sdt, nb_, fl)
+                ref = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, fl)
+                for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
+                    check("B1d", f"both f_lo={fl} {part} vs plain", g, w, TOL_B1, lab)
+                    check("B1d", f"both f_lo={fl} {part} vs nbr B1", g, r, 0.0, lab)
+            ts = tables.build_table_dual(tb, torch.cat([f8, sdf3[None]]))
+            got = cuda_bfecc.bfecc_sample_dual(ts, tb.chunk_ldual, vb, sdt, 8, 3, "both", True)
+            want = cuda_bfecc.bfecc_sample_dual_plain(ts, tb.chunk_ldual, vb, sdt, 8, 3, "both",
+                                                      True)
+            ref = cuda_bfecc.bfecc_sample(topo.nbr, f8, sdt, 3, sdf3)
+            for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
+                check("B1d", f"both + SDF {part} vs plain", g, w, TOL_B1, lab)
+                check("B1d", f"both + SDF {part} vs nbr B1", g, r, 0.0, lab)
+            k_ms, p_ms = paired_ms(
+                lambda: cuda_tables.build_table_dual_combine(t27, tb.chunk_dloc, 8),
+                lambda: cuda_tables.build_table_dual_combine_plain(t27, tb.chunk_dloc, 8))
+            t27_ms = statistics.median(cuda_ms(lambda: tables.build_table(tb, f8), 5, 10))
+            dual_ms = statistics.median(cuda_ms(lambda: tables.build_table_dual(tb, f8), 5, 10))
+            print(f"[{lab}] nf=8 tables: B11 {k_ms:.4f} ms (plain {p_ms:.4f}), build_table "
+                  f"{t27_ms:.4f} ms, build_table_dual {dual_ms:.4f} ms ({nbytes(t27) / 1e6:.1f} "
+                  f"and {nbytes(tdual) / 1e6:.1f} MB) | {card}", flush=True)
+            del t27, b11, tdual, ts
+        elif band == "mixed":
+            tv = tables.build_table_dual(tb, f8)
+            d = torch.clamp(-vb * sdt, -lim, lim)
+            got = cuda_bfecc.bfecc_sample_dual(tv, tb.chunk_ldual, vb, sdt, 8, 0, "back")
+            check("B1d", "back vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
+                tv, tb.chunk_ldual, vb, sdt, 8, 0, "back"), TOL_B1, lab)
+            check("B1d", "back vs B8", got, cuda_sample.sample_at(topo.nbr, f8, d), 0.0, lab)
+            d2 = torch.clamp(d + got[:3] * sdt, -3.85, 3.85)
+            got = cuda_bfecc.bfecc_sample_dual(tv, tb.chunk_ldual, d2, sdt, 8, 3, "fwd")
+            check("B1d", "fwd vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
+                tv, tb.chunk_ldual, d2, sdt, 8, 3, "fwd"), TOL_B1, lab)
+            check("B1d", "fwd vs B8", got,
+                  cuda_sample.sample_at(topo.nbr, f8[3:].contiguous(), d2), 0.0, lab)
+            del tv, d, d2
+        # the scalar pass: the table path against the nbr-form B1
+        times = {}
+        for what, fn in (("nbr B1", lambda: cuda_bfecc.bfecc_sample(topo.nbr, f8, sdt, 3)),
+                         ("table path", lambda: advection._bfecc_samples(tb, f8, sdt, 3, None, 1)),
+                         ("table path + B11", lambda: advection._bfecc_samples(
+                             tb, f8, sdt, 3, None, 1))):
+            vmem("B11" in what)
+            fn()
+            times[what] = statistics.median(cuda_ms(fn, 5, 5))
+        nbr_path()
+        print(f"[{lab}] scalar pass (3 + 5 fields, CFL {cfl}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + f" (with the host CFL read and the table builds) | {card}", flush=True)
+        del f8, vb, sb, out_v, out_n
+    groups = record(narrow_step, ("B1d", "B11"))
+    nbr_path()
+    for key, r in time_calls("14", groups).items():
+        kernels[key].update(r)
+    nbr_path()
+    del tb, bench_state
+    done("14")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -16,17 +16,24 @@ from hnanosolver_tpu_torch.core.topology import Topology, resolve_device
 from hnanosolver_tpu_torch.fields import FieldState
 
 
-def topology_from_numpy(keys, origins, nbr, n_active, device=None) -> Topology:
+PLAN_FIELDS = ("chunk_uniq", "chunk_lnbr", "chunk_dsrc", "chunk_ldual", "chunk_dloc")
+
+
+def topology_from_numpy(keys, origins, nbr, n_active, device=None, **plans) -> Topology:
     """Topology on ``device`` (default: the CUDA card) from numpy ``keys
     [T]``, ``origins [T,3]``, ``nbr [T,27]`` (all int32) and the active row
-    count."""
+    count. ``plans``: any of the chunk plans (``PLAN_FIELDS``), carried
+    across as given; None entries are left out."""
     device = resolve_device(device)
+    unknown = set(plans) - set(PLAN_FIELDS)
+    if unknown:
+        raise TypeError(f"unknown plan fields {sorted(unknown)}")
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
 
-    return Topology(keys=t(keys), origins=t(origins), nbr=t(nbr),
-                    n_active=int(n_active))
+    return Topology(keys=t(keys), origins=t(origins), nbr=t(nbr), n_active=int(n_active),
+                    **{k: t(v) for k, v in plans.items() if v is not None})
 
 
 def state_from_numpy(

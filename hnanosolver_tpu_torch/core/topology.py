@@ -12,6 +12,14 @@
 
 The table is built on the host in numpy and moved to ``device`` once; the
 tensors' device is the device every op on this topology runs on.
+
+The table sampler (``ops/advection.py`` with ``INTERP = "vmem"``) also
+needs the chunk plans of the JAX package's topology (``chunk_uniq``,
+``chunk_lnbr``, ``chunk_dsrc``, ``chunk_ldual``; ``chunk_dloc`` for kernel
+B11). They are built in host numpy, equal to the JAX package's arrays, only
+when asked: ``build_topology(..., plans=True)``, :func:`ensure_chunk_plans`
+and :func:`ensure_dual_local`. A topology grown from a planned one
+(``core/activation.py``) is planned too.
 """
 
 from __future__ import annotations
@@ -40,6 +48,20 @@ class Topology:
     origins: torch.Tensor  # [T, 3] int32
     nbr: torch.Tensor  # [T, 27] int32
     n_active: int  # active rows are 1..n_active
+    # Chunk plans (None until asked for). Tiles run in chunks of
+    # SAMPLE_CHUNK rows; chunk_uniq[c] lists the sorted unique rows of
+    # chunk c's 27-neighbourhoods (null row first, zero-padded) and
+    # chunk_lnbr maps nbr into positions in it. chunk_dsrc[c, u] lists the 8
+    # source rows (d - 1 + b, b in {0,1}^3, 0 where absent) of chunk c's
+    # u-th dual tile d, whose half-shifted row is S[d][l] = f[d*8 + l - 4];
+    # row 0 of every chunk is the all-null dual row. chunk_ldual[t, j] is
+    # the chunk-local dual row of t + (j>>2, (j>>1)&1, j&1). chunk_dloc
+    # maps chunk_dsrc's rows into positions in chunk_uniq[c].
+    chunk_uniq: Optional[torch.Tensor] = None  # [nc, U] int32
+    chunk_lnbr: Optional[torch.Tensor] = None  # [T, 27] int32
+    chunk_dsrc: Optional[torch.Tensor] = None  # [nc, Ud, 8] int32
+    chunk_ldual: Optional[torch.Tensor] = None  # [T, 8] int32
+    chunk_dloc: Optional[torch.Tensor] = None  # [nc, Ud, 8] int32
 
     @property
     def capacity(self) -> int:
@@ -82,10 +104,13 @@ def build_topology(
     tile_coords: np.ndarray,
     capacity: Optional[int] = None,
     device: torch.device | str | None = None,
+    plans: bool = False,
+    dloc: bool = False,
 ) -> Topology:
     """Build a Topology on ``device`` (default: the CUDA card) from an
     ``[M, 3]`` array of (possibly duplicated) tile coordinates; the tables
-    are computed in host numpy."""
+    are computed in host numpy. ``plans``: also the chunk plans of the
+    table sampler; ``dloc``: also ``chunk_dloc`` (implies ``plans``)."""
     device = resolve_device(device)
     tile_coords = np.asarray(tile_coords, dtype=np.int32).reshape(-1, 3)
     if tile_coords.size:
@@ -115,12 +140,130 @@ def build_topology(
         pos_c = np.minimum(pos, n - 1)
         found = keys_np[pos_c] == nbr_keys
         nbr[1 : n + 1] = np.where(found, pos_c + 1, 0).astype(np.int32)
+    extra = {}
+    if plans or dloc:
+        extra = _plans_np(full_keys, origins, nbr, n, dloc)
     return Topology(
         keys=torch.from_numpy(full_keys).to(device),
         origins=torch.from_numpy(origins).to(device),
         nbr=torch.from_numpy(nbr).to(device),
         n_active=n,
+        **{k: torch.from_numpy(v).to(device) for k, v in extra.items()},
     )
+
+
+SAMPLE_CHUNK = 512  # tiles per sampling chunk
+
+_DUAL_OFFSETS = np.array(
+    [(bx, by, bz) for bx in (0, 1) for by in (0, 1) for bz in (0, 1)],
+    dtype=np.int32,
+)  # [8, 3]; index j = bx*4 + by*2 + bz
+
+
+def _chunk_plan(nbr: np.ndarray, capacity: int):
+    """(chunk_uniq [nc, U], chunk_lnbr [T, 27]); U is the largest unique
+    count over the chunks rounded up to a multiple of 8, padding entries
+    point at the null row 0."""
+    C_ = min(SAMPLE_CHUNK, capacity)
+    if capacity % C_:
+        raise ValueError(f"capacity {capacity} is not a multiple of {C_}")
+    nc = capacity // C_
+    uniqs = [np.unique(np.concatenate([[0], nbr[c * C_:(c + 1) * C_].ravel()]))
+             for c in range(nc)]
+    U = ((max(len(u) for u in uniqs) + 7) // 8) * 8
+    uq = np.zeros((nc, U), np.int32)
+    ln = np.zeros((capacity, 27), np.int32)
+    for c, u in enumerate(uniqs):
+        uq[c, :len(u)] = u
+        ln[c * C_:(c + 1) * C_] = np.searchsorted(u, nbr[c * C_:(c + 1) * C_])
+    return uq, ln
+
+
+def _dual_plan(origins: np.ndarray, keys_np: np.ndarray, capacity: int):
+    """(chunk_dsrc [nc, Ud, 8], chunk_ldual [T, 8]); dual keys are packed
+    int64 with a wide offset (tile + 1 can sit one past the packable int32
+    key range)."""
+    C_ = min(SAMPLE_CHUNK, capacity)
+    nc = capacity // C_
+    n = int(keys_np.shape[0])
+
+    def pack64(t):
+        t = t.astype(np.int64) + 1024
+        return (t[..., 0] * 4096 + t[..., 1]) * 4096 + t[..., 2]
+
+    def src_rows(dcoords):
+        """[m, 3] dual coords -> [m, 8] source tile rows (0 where absent)."""
+        cand = dcoords[:, None, :] - 1 + _DUAL_OFFSETS[None]
+        ck = C.pack_keys_np(np.clip(cand, -C.TILE_OFFSET, C.TILE_OFFSET - 1))
+        pos_c = np.minimum(np.searchsorted(keys_np, ck), n - 1)
+        ok = (keys_np[pos_c] == ck) & np.all(
+            (cand >= -C.TILE_OFFSET) & (cand < C.TILE_OFFSET), axis=-1)
+        return np.where(ok, pos_c + 1, 0).astype(np.int32)
+
+    per_chunk, Ud = [], 1
+    for c in range(nc):
+        rows = np.arange(c * C_, (c + 1) * C_)
+        org = origins[rows][(rows >= 1) & (rows <= n)]
+        dc = (org[:, None, :] + _DUAL_OFFSETS[None]).reshape(-1, 3)
+        dk, idx = np.unique(pack64(dc), return_index=True)
+        per_chunk.append((dc[idx], dk))
+        Ud = max(Ud, len(dk) + 1)
+    Ud = ((Ud + 7) // 8) * 8
+    dsrc = np.zeros((nc, Ud, 8), np.int32)
+    ldual = np.zeros((capacity, 8), np.int32)
+    for c, (dc, dk) in enumerate(per_chunk):
+        if not len(dc):
+            continue
+        dsrc[c, 1:len(dc) + 1] = src_rows(dc)
+        rows = np.arange(c * C_, (c + 1) * C_)
+        act = rows[(rows >= 1) & (rows <= n)]
+        qc = origins[act][:, None, :] + _DUAL_OFFSETS[None]
+        ldual[act] = np.searchsorted(dk, pack64(qc)) + 1
+    return dsrc, ldual
+
+
+def _dual_local(uq: np.ndarray, dsrc: np.ndarray) -> np.ndarray:
+    """chunk_dloc: chunk_dsrc's rows as positions in chunk_uniq[c] (every
+    dual source of chunk c is a 27-neighbour of one of its tiles)."""
+    dloc = np.zeros(dsrc.shape, np.int32)
+    for c in range(dsrc.shape[0]):
+        u = uq[c, :1 + int(np.count_nonzero(uq[c]))]
+        pos = np.searchsorted(u, dsrc[c])
+        if not np.array_equal(u[np.minimum(pos, len(u) - 1)], dsrc[c]):
+            raise AssertionError("dual source missing from chunk unique set")
+        dloc[c] = pos
+    return dloc
+
+
+def _plans_np(full_keys, origins, nbr, n, dloc: bool) -> dict:
+    cap = full_keys.shape[0]
+    uq, ln = _chunk_plan(nbr, cap)
+    dsrc, ldual = _dual_plan(origins, full_keys[1:n + 1], cap)
+    out = dict(chunk_uniq=uq, chunk_lnbr=ln, chunk_dsrc=dsrc, chunk_ldual=ldual)
+    if dloc:
+        out["chunk_dloc"] = _dual_local(uq, dsrc)
+    return out
+
+
+def ensure_chunk_plans(topo: Topology) -> Topology:
+    """``topo`` carrying the table sampler's chunk plans, built on the host
+    if it lacks them (one device-to-host copy of its tables)."""
+    if topo.chunk_dsrc is not None:
+        return topo
+    extra = _plans_np(topo.keys.cpu().numpy(), topo.origins.cpu().numpy(),
+                      topo.nbr.cpu().numpy(), topo.n_active, False)
+    return dataclasses.replace(
+        topo, **{k: torch.from_numpy(v).to(topo.device) for k, v in extra.items()})
+
+
+def ensure_dual_local(topo: Topology) -> Topology:
+    """``topo`` carrying ``chunk_dloc`` (kernel B11's indirection) and the
+    chunk plans it needs, computed on the host on demand."""
+    if topo.chunk_dloc is not None:
+        return topo
+    topo = ensure_chunk_plans(topo)
+    dloc = _dual_local(topo.chunk_uniq.cpu().numpy(), topo.chunk_dsrc.cpu().numpy())
+    return dataclasses.replace(topo, chunk_dloc=torch.from_numpy(dloc).to(topo.device))
 
 
 def active_mask(topo: Topology) -> torch.Tensor:

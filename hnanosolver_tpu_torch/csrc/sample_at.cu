@@ -38,8 +38,8 @@ sample_at_kernel(const float* __restrict__ fields, const float* __restrict__ d,
   const size_t plane = (size_t)T * TILE;
   const size_t self = (size_t)t * TILE + c;
   float acc[N];
-  sample<0, N>(fields, plane, snbr, c >> 6, (c >> 3) & 7, c & 7, d[self], d[plane + self],
-               d[2 * plane + self], acc);
+  sample<0, N>(NbrCorners{fields, plane, snbr}, c >> 6, (c >> 3) & 7, c & 7, d[self],
+               d[plane + self], d[2 * plane + self], acc);
 #pragma unroll
   for (int j = 0; j < N; ++j) out[j * plane + self] = acc[j];
 }

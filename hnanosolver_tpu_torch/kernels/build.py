@@ -39,6 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "hn_bfecc_sample": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    "hn_bfecc_sample_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "hn_sample_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "hn_combine_dual": (_P, _P, _P, _I, _I, _I, _I, _P),
     "hn_bfecc_tail": (_P, _P, _P, _P, _P, _I, _I, _P),
     "hn_divergence": (_P, _P, _P, _I, _F, _P),
     "hn_subtract_gradient": (_P, _P, _P, _P, _I, _F, _P),

@@ -6,9 +6,9 @@ Houdini feeds a fresh collision SDF into the solver every cook; here the
 analytic sphere translating at constant velocity, then the plume is emitted
 and the solver steps with collision on.
 
-Topology growth between frames is not ported yet (``core/activation.py``):
-``run_collider`` steps on a fixed topology, which must cover the collider's
-whole sweep, and raises for ``grow_every != 0``.
+Every ``grow_every`` frames the topology follows the plume and keeps the
+emitter and the collider's shell at the next frame active, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from hnanosolver_tpu_torch.config import SolverParams
 from hnanosolver_tpu_torch.core import coords as C
+from hnanosolver_tpu_torch.core.activation import expand_for_state
 from hnanosolver_tpu_torch.core.layout import positions_flat
 from hnanosolver_tpu_torch.core.topology import Topology, build_topology
 from hnanosolver_tpu_torch.fields import COLLISION_FIELD, FieldState, zeros_state
@@ -92,18 +93,16 @@ def run_collider(
     col: Optional[ColliderConfig] = None,
     topo: Optional[Topology] = None,
     state: Optional[FieldState] = None,
-    grow_every: int = 0,
+    grow_every: int = 1,
     on_frame=None,
     device: torch.device | str | None = None,
 ):
-    """Frame loop on a fixed topology with the animated SDF and collision
-    on. Returns (topo, state). ``device`` (default: the CUDA card) is used
-    only when ``topo`` is not given; the default topology covers the emitter
-    and the collider's shell at frame 0."""
-    if grow_every:
-        raise NotImplementedError(
-            "topology growth is not ported yet (ROADMAP: modules still to "
-            "port, growth); pass grow_every=0")
+    """Frame loop with the animated SDF and collision on: step, then every
+    ``grow_every`` frames (0: never) re-activate the topology, keeping the
+    emitter and the collider's shell at the next frame. Returns (topo,
+    state). ``device`` (default: the CUDA card) is used only when ``topo``
+    is not given; the default topology covers the emitter and the
+    collider's shell at frame 0."""
     params = dataclasses.replace(params or SolverParams(), has_collision=True)
     cfg = cfg or P.PlumeConfig()
     col = col or ColliderConfig()
@@ -115,9 +114,18 @@ def run_collider(
     if COLLISION_FIELD not in state.scalars:
         state = state.with_scalar(COLLISION_FIELD, sphere_sdf(
             topo, collider_center(col, 0, params.dt, topo.device), col.radius))
-    hier = hierarchy_for(topo, params)  # once: the topology does not grow
+    hier = hierarchy_for(topo, params)
     for f in range(frames):
         state = collider_step(topo, state, params, cfg, col, f, hier)
+        if grow_every and (f + 1) % grow_every == 0:
+            keep = np.concatenate([P.emitter_tiles(cfg, pad=1),
+                                   collider_tiles(col, f + 1, params.dt)])
+            prev = topo
+            topo, state = expand_for_state(
+                topo, state, threshold=cfg.occupancy_threshold, radius=cfg.dilate_radius,
+                keep_tiles=keep, padding=cfg.padding)
+            if topo is not prev:
+                hier = hierarchy_for(topo, params)
         if on_frame is not None:
             on_frame(f, topo, state)
     return topo, state

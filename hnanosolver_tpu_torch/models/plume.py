@@ -1,8 +1,7 @@
 """Rising smoke/fire plume, the flagship scenario: a sphere emitter sources
-density, temperature and fuel every frame, then the solver steps.
-
-Topology growth between frames is not ported yet (``core/activation.py``):
-``run_plume`` steps on a fixed topology and raises for ``grow_every != 0``.
+density, temperature and fuel every frame, then the solver steps, and every
+``grow_every`` frames the topology follows the plume
+(``core/activation.expand_for_state``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import torch
 
 from hnanosolver_tpu_torch.config import SolverParams
 from hnanosolver_tpu_torch.core import coords as C
+from hnanosolver_tpu_torch.core.activation import expand_for_state
 from hnanosolver_tpu_torch.core.layout import positions_flat
 from hnanosolver_tpu_torch.core.topology import Topology, active_mask, build_topology
 from hnanosolver_tpu_torch.fields import FieldState, zeros_state
@@ -105,26 +105,31 @@ def run_plume(
     cfg: Optional[PlumeConfig] = None,
     topo: Optional[Topology] = None,
     state: Optional[FieldState] = None,
-    grow_every: int = 0,
+    grow_every: int = 1,
     on_frame=None,
     device: torch.device | str | None = None,
 ):
-    """Frame loop on a fixed topology. Returns (topo, state).
-    ``device`` (default: the CUDA card) is used only when ``topo`` is not
-    given."""
-    if grow_every:
-        raise NotImplementedError(
-            "topology growth is not ported yet (ROADMAP: modules still to "
-            "port, growth); pass grow_every=0")
+    """Frame loop: step, then every ``grow_every`` frames (0: never)
+    re-activate the topology around the matter, keeping the emitter's
+    tiles. Returns (topo, state). ``device`` (default: the CUDA card) is
+    used only when ``topo`` is not given."""
     params = params or SolverParams()
     cfg = cfg or PlumeConfig()
     if topo is None:
         topo = initial_topology(cfg, device=device)
     if state is None:
         state = zeros_state(topo)
-    hier = hierarchy_for(topo, params)  # once: the topology does not grow
+    keep = emitter_tiles(cfg, pad=1)
+    hier = hierarchy_for(topo, params)
     for f in range(frames):
         state = plume_step(topo, state, params, cfg, hier)
+        if grow_every and (f + 1) % grow_every == 0:
+            prev = topo
+            topo, state = expand_for_state(
+                topo, state, threshold=cfg.occupancy_threshold, radius=cfg.dilate_radius,
+                keep_tiles=keep, padding=cfg.padding)
+            if topo is not prev:
+                hier = hierarchy_for(topo, params)
         if on_frame is not None:
             on_frame(f, topo, state)
     return topo, state

@@ -19,15 +19,42 @@ the back and forward passes) is one call of kernel B8/B9
 (``ops/cuda_sample.py``). Steps 5-6 are kernel B2 (``ops/cuda_tail.py``).
 Displacements are clamped to ``cuda_bfecc.DISP_LIMIT`` voxels per axis so
 every trilinear corner lies in the tile's 3x3x3 neighbourhood.
+
+The table sampler (``INTERP = "vmem"``, trace order 1, on a topology that
+carries chunk plans: ``core/topology.ensure_chunk_plans``) is the JAX
+package's ``_advect_vmem``. It switches on the step's CFL number
+max|clamp(-u*sdt)|, read on the host (one sync per pass):
+  - narrow (CFL < 1.9): B1 on the dual table, mode "both" (with the SDF);
+  - mixed (1.9 <= CFL < 3.9, no SDF): B1 "back" on the dual table, the
+    re-trace d2 = clamp(d + u(back)*sdt) in torch, then B1 "fwd" on the same
+    table if max|d2| < 3.9, else B8/B9 at d2 through ``nbr``;
+  - wide (CFL >= 3.9, or >= 1.9 with an SDF): the nbr-form B1, valid for
+    every clamped displacement (the JAX package's 24-window kernel).
+The dual table is ``tables.build_table_dual``, or kernel B11 from
+``tables.build_table`` when ``cuda_tables.COMBINE_TBL`` is on and the
+topology carries ``chunk_dloc``. Tables whose JAX byte model exceeds
+``TABLE_BYTES_BUDGET`` (which the JAX package samples in chunk slices)
+raise. ``BANDS`` counts the passes each branch took.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional
 
 import torch
 
-from hnanosolver_tpu_torch.ops import collision, cuda_bfecc, cuda_sample, cuda_tail
+from hnanosolver_tpu_torch.ops import collision, cuda_bfecc, cuda_sample, cuda_tables, cuda_tail
+from hnanosolver_tpu_torch.ops import tables
+
+# Sampling backend at trace order 1: None = B1 through nbr (the default);
+# "vmem" = the table sampler where the topology carries chunk plans.
+INTERP: Optional[str] = None
+# Table bytes (the JAX package's byte model) above which the JAX package
+# samples in chunk slices; not ported (ROADMAP queue 1, the sliced table path)
+TABLE_BYTES_BUDGET = 2 * 1024 ** 3
+
+BANDS = collections.Counter()  # passes per branch of the table sampler
 
 
 def _clamp(d: torch.Tensor) -> torch.Tensor:
@@ -63,11 +90,65 @@ def _reject(topo, sdf: Optional[torch.Tensor], d: torch.Tensor, home) -> torch.T
     return torch.where(inside, home, d)
 
 
+def _amax(d: torch.Tensor) -> float:
+    return float(d.abs().amax())
+
+
+def _dual_table(topo, fields: torch.Tensor) -> torch.Tensor:
+    """The chunk dual table of ``fields [nf,T,512]``: B11 from the 27-table
+    when COMBINE_TBL is on and the topology carries chunk_dloc, else the
+    direct gather. Raises above TABLE_BYTES_BUDGET."""
+    nf = fields.shape[0]
+    nc, Ud = topo.chunk_dsrc.shape[:2]
+    comb = cuda_tables.combine_ok(topo)
+    need = tables.table_bytes(nc, Ud, nf)
+    if comb:
+        need = max(need, tables.table_bytes(nc, topo.chunk_uniq.shape[1], nf))
+    if need > TABLE_BYTES_BUDGET:
+        raise NotImplementedError(
+            f"table sampler: {need} table bytes exceed TABLE_BYTES_BUDGET; the sliced "
+            "table path is not ported (ROADMAP queue 1, the sliced table path)")
+    if comb:
+        return cuda_tables.build_table_dual_combine(
+            tables.build_table(topo, fields), topo.chunk_dloc, nf)
+    return tables.build_table_dual(topo, fields)
+
+
+def _table_samples(topo, fields: torch.Tensor, sdt: float, f_lo: int,
+                   sdf: Optional[torch.Tensor]):
+    """(phiF, phiB) by the table sampler (see the module doc)."""
+    nb = fields.shape[0]
+    vel = fields[:3]
+    d = _clamp(-vel * sdt)
+    cfl = _amax(d)
+    if cfl < cuda_bfecc.CFL_LIMIT:
+        BANDS["narrow"] += 1
+        base = fields if sdf is None else torch.cat([fields, sdf[None]])
+        return cuda_bfecc.bfecc_sample_dual(_dual_table(topo, base), topo.chunk_ldual, vel,
+                                            sdt, nb, f_lo, "both", sdf is not None)
+    if sdf is not None or cfl >= cuda_bfecc.CFL_MID:
+        BANDS["wide"] += 1
+        return cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo, sdf)
+    BANDS["mixed"] += 1
+    tdual = _dual_table(topo, fields)
+    backs = cuda_bfecc.bfecc_sample_dual(tdual, topo.chunk_ldual, vel, sdt, nb, 0, "back")
+    d2 = _clamp(d + backs[:3] * sdt)
+    if _amax(d2) < cuda_bfecc.CFL_MID:
+        BANDS["mixed fwd narrow"] += 1
+        phib = cuda_bfecc.bfecc_sample_dual(tdual, topo.chunk_ldual, d2, sdt, nb, f_lo, "fwd")
+    else:
+        BANDS["mixed fwd wide"] += 1
+        phib = cuda_sample.sample_at(topo.nbr, fields[f_lo:].contiguous(), d2)
+    return backs[f_lo:], phib
+
+
 def _bfecc_samples(topo, fields: torch.Tensor, sdt: float, f_lo: int,
                    sdf: Optional[torch.Tensor], trace_order: int):
     """(phiF, phiB) over ``fields[f_lo:]``; ``fields[0:3]`` is the velocity
     that traces. Orders below 2 trace first-order, as the JAX package does."""
     if trace_order < 2:
+        if INTERP == "vmem" and topo.chunk_dsrc is not None:
+            return _table_samples(topo, fields, sdt, f_lo, sdf)
         return cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo, sdf)
     d = _reject(topo, sdf, _backtrace(topo, fields[:3], sdt, trace_order), 0.0)
     back = cuda_sample.sample_at(topo.nbr, fields, d)

@@ -47,11 +47,27 @@ def sample_at(nbr: torch.Tensor, fields: torch.Tensor, d: torch.Tensor) -> torch
 
 
 def sample_at_plain(nbr: torch.Tensor, fields: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`sample_at`: floor/frac weights
-    (wx*wy)*wz, the eight corners read through ``nbr`` and summed in
-    (di, dj, dk) order."""
+    """Plain PyTorch version of :func:`sample_at`: the eight corners read
+    through ``nbr`` (:func:`trilinear_plain`)."""
     n, T, _ = fields.shape
-    cx, cy, cz = col_coords(fields.device)
+    flat = fields.reshape(n, T * TILE)
+
+    def read(qx, qy, qz):
+        dsel = ((qx + 8) >> 3) * 9 + ((qy + 8) >> 3) * 3 + ((qz + 8) >> 3)
+        row = torch.gather(nbr, 1, dsel.long()).long()
+        idx = row * TILE + ((qx & 7) * 64 + (qy & 7) * 8 + (qz & 7))
+        return flat[:, idx.reshape(-1)].reshape(n, T, TILE)
+
+    return trilinear_plain(d, read)
+
+
+def trilinear_plain(d: torch.Tensor, read) -> torch.Tensor:
+    """The trilinear sample of every plain sampler at x + d: floor/frac
+    weights (wx*wy)*wz, the eight corners summed in (di, dj, dk) order;
+    ``read(qx, qy, qz)`` returns the fields' values ``[n, T, 512]`` at the
+    corners' in-tile positions (three [T, 512] int32 tensors), as the
+    kernels' Corners policies do (``csrc/trilinear.cuh``)."""
+    cx, cy, cz = col_coords(d.device)
     lx = cx.to(torch.float32) + d[0]
     ly = cy.to(torch.float32) + d[1]
     lz = cz.to(torch.float32) + d[2]
@@ -59,7 +75,6 @@ def sample_at_plain(nbr: torch.Tensor, fields: torch.Tensor, d: torch.Tensor) ->
     fx, fy, fz = lx - bx, ly - by, lz - bz
     ix, iy, iz = 1.0 - fx, 1.0 - fy, 1.0 - fz
     bx, by, bz = bx.to(torch.int32), by.to(torch.int32), bz.to(torch.int32)
-    flat = fields.reshape(n, T * TILE)
     acc = None
     for di in (0, 1):
         wx = fx if di else ix
@@ -67,10 +82,6 @@ def sample_at_plain(nbr: torch.Tensor, fields: torch.Tensor, d: torch.Tensor) ->
             wy = fy if dj else iy
             for dk in (0, 1):
                 wz = fz if dk else iz
-                qx, qy, qz = bx + di, by + dj, bz + dk
-                dsel = ((qx + 8) >> 3) * 9 + ((qy + 8) >> 3) * 3 + ((qz + 8) >> 3)
-                row = torch.gather(nbr, 1, dsel.long()).long()
-                idx = row * TILE + ((qx & 7) * 64 + (qy & 7) * 8 + (qz & 7))
-                v = flat[:, idx.reshape(-1)].reshape(n, T, TILE) * (wx * wy * wz)
+                v = read(bx + di, by + dj, bz + dk) * (wx * wy * wz)
                 acc = v if acc is None else acc + v
     return acc

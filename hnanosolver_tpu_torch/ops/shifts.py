@@ -82,6 +82,25 @@ def neighbor_sum_nbr(nbr: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return v[0] + v[1] + v[2] + v[3] + v[4] + v[5]
 
 
+def offset_view(topo, f: torch.Tensor, off) -> torch.Tensor:
+    """``f [..., T, 512]`` at the fixed integer offset ``off`` (each
+    component in [-8, 8]): per column, one read from the neighbour tile
+    row that holds voxel + off, through ``nbr`` (the null row where it is
+    absent). The JAX package reads the same values from a [T, 27*512]
+    neighbourhood table; this reads them without one."""
+    ox, oy, oz = (int(o) for o in off)
+    if not all(-8 <= o <= 8 for o in (ox, oy, oz)):
+        raise ValueError(f"offset {off} outside [-8, 8]")
+    cx, cy, cz = col_coords(f.device)
+    qx, qy, qz = cx[0] + ox, cy[0] + oy, cz[0] + oz
+    d = ((qx + 8) >> 3) * 9 + ((qy + 8) >> 3) * 3 + ((qz + 8) >> 3)  # [512]
+    lane = (qx & 7) * 64 + (qy & 7) * 8 + (qz & 7)
+    T = topo.nbr.shape[0]
+    idx = topo.nbr[:, d].long() * TILE + lane  # [T, 512]
+    flat = f.reshape(*f.shape[:-2], T * TILE)
+    return flat[..., idx.reshape(-1)].reshape(f.shape)
+
+
 def table_index(cx, cy, cz):
     """In-neighbourhood coords (each in [-8, 16)) -> index into the 27-tile
     neighbourhood table ``d*512 + col``, with d the ``nbr`` column."""

@@ -54,14 +54,15 @@ def profile_cell(name: str) -> None:
     cell = CELLS[name]
     params, cfg, col = cell.params, cell.plume, cell.collider
     if col is None:
-        topo, state = plume.run_plume(cell.develop, RBGS50, cfg, topo=cell.topology())
+        topo, state = plume.run_plume(cell.develop, RBGS50, cfg, topo=cell.topology(),
+                                      grow_every=0)
         hier = multigrid.hierarchy_for(topo, params)
 
         def step():
             return plume.plume_step(topo, state, params, cfg, hier)
     else:
         topo, state = collider.run_collider(cell.develop, params, cfg, col,
-                                            topo=cell.topology())
+                                            topo=cell.topology(), grow_every=0)
 
         def step():
             return collider.collider_step(topo, state, params, cfg, col, cell.develop)

@@ -39,6 +39,7 @@ from hnanosolver_tpu.ops import pallas_bfecc as jpb
 from hnanosolver_tpu.ops import pallas_tail as jpt
 from hnanosolver_tpu_torch import config as tcfg
 from hnanosolver_tpu_torch import convert
+from hnanosolver_tpu_torch.core.topology import ensure_chunk_plans
 from hnanosolver_tpu_torch import solver as tsolver
 from hnanosolver_tpu_torch.ops import advection as tadv
 from hnanosolver_tpu_torch.ops import cuda_bfecc as tcb
@@ -151,17 +152,23 @@ def test_advect_scalars_fused_matches_jax(dom):
         np.testing.assert_allclose(got[n].numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
 
 
-def test_advection_rejects_unported_options(dom):
-    """Of the advection stage of a step, what still raises: vorticity
-    confinement at int(factor_scale) >= 1, applied to the advected
-    velocity (RK2-4 traces and the collision SDF are ported)."""
+def test_advection_rejects_unported_options(dom, monkeypatch):
+    """Of the advection stage of a step, what still raises: the table
+    sampler (``INTERP = "vmem"``) on tables above ``TABLE_BYTES_BUDGET``,
+    which the JAX package samples in chunk slices (not ported). Vorticity
+    confinement at int(factor_scale) >= 1, which raised here before, runs
+    (RK2-4 traces and the collision SDF are ported)."""
     _, tt, vel, _, _ = dom
     T = tt.capacity
     st = convert.state_from_numpy(vel, {n: np.zeros((T, 512), np.float32) for n in NAMES},
                                   device="cpu")
     params = tcfg.SolverParams(combustion=tcfg.CombustionParams(factor_scale=1.0))
+    out = tsolver.step(tt, st, params)
+    assert torch.isfinite(out.velocity).all()
+    monkeypatch.setattr(tadv, "INTERP", "vmem")
+    monkeypatch.setattr(tadv, "TABLE_BYTES_BUDGET", 1024)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.step(tt, st, params)
+        tsolver.step(ensure_chunk_plans(tt), st, params)
 
 
 @pytest.mark.parametrize("nb,f_lo", [(4, 0), (3, 3), (12, 3), (2, 0)])

@@ -216,7 +216,7 @@ def test_run_collider_frames_match_jax(collider):
     tt = _port_topo(jt)
     got = []
     tcol.run_collider(FRAMES, tcfg.SolverParams(**PARAMS_KW), tplume.PlumeConfig(**CFG_KW),
-                      tcol.ColliderConfig(**COL_KW), topo=tt,
+                      tcol.ColliderConfig(**COL_KW), topo=tt, grow_every=0,
                       on_frame=lambda f, t, s: got.append(s))
     assert len(got) == FRAMES
     for s, want in zip(got, frames):

@@ -256,7 +256,8 @@ def test_plume_frames_mg_match_jax():
         frames.append(s)
     got = []
     tplume.run_plume(3, tcfg.SolverParams(**kw), tplume.PlumeConfig(**cfg_kw),
-                     topo=_port_topo(jt), on_frame=lambda f, t, st: got.append(st))
+                     topo=_port_topo(jt), grow_every=0,
+                     on_frame=lambda f, t, st: got.append(st))
     for st, want in zip(got, frames):
         _assert_state_close(st, want)
     assert float(got[-1].velocity[1].max()) > 0

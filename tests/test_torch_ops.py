@@ -120,11 +120,15 @@ def test_residual_matches(dom):
 
 
 def test_vorticity_confinement_s0_identity_and_s1_raises(dom):
-    _, tt, _, vel, _ = dom
+    """s = 0 returns the velocity itself; s = 1 (ported; it raised before)
+    matches the JAX package (tests/test_torch_fire.py holds s = 1 and 2 on
+    a sparse box)."""
+    jt, tt, _, vel, _ = dom
     v = torch.from_numpy(vel)
     assert tstn.vorticity_confinement(tt, v, 0.1, 2.0, 1.0, 0.5) is v
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstn.vorticity_confinement(tt, v, 0.1, 2.0, 1.0, 1.0)
+    want = np.asarray(jstn.vorticity_confinement(jt, jnp.asarray(vel), 0.1, 2.0, 1.0, 1.0))
+    _close(tstn.vorticity_confinement(tt, v, 0.1, 2.0, 1.0, 1.0).numpy(), want,
+           np.abs(want).max())
 
 
 def test_emit_matches():

@@ -25,6 +25,7 @@ from hnanosolver_tpu.models import plume as jplume
 from hnanosolver_tpu.solver import step as jstep
 from hnanosolver_tpu_torch import config as tcfg
 from hnanosolver_tpu_torch import convert
+from hnanosolver_tpu_torch.core.topology import ensure_chunk_plans
 from hnanosolver_tpu_torch.models import collider as tcollider
 from hnanosolver_tpu_torch.models import plume as tplume
 from hnanosolver_tpu_torch.ops import advection as tadv
@@ -123,7 +124,8 @@ def test_plume_frames_match_jax(plume):
     params = tcfg.SolverParams(halo_lag=1, **PLUME_KW)
     cfg = tplume.PlumeConfig(**CFG_KW)
     got = []
-    tplume.run_plume(3, params, cfg, topo=tt, on_frame=lambda f, t, s: got.append(s))
+    tplume.run_plume(3, params, cfg, topo=tt, grow_every=0,
+                     on_frame=lambda f, t, s: got.append(s))
     assert len(got) == len(frames)
     for s, want in zip(got, frames):
         _assert_state_close(s, want)
@@ -169,11 +171,15 @@ def test_default_lag_residual_within_textbook(plume, monkeypatch):
         assert not f[..., 0, :].any() and not f[..., tt.n_active + 1:, :].any()
 
 
-def test_step_rejects_unported_branches(box):
-    """What still raises: topology growth between frames, in the plume and
-    the collider drivers (collision itself is ported)."""
+def test_step_rejects_unported_branches(box, monkeypatch):
+    """What still raises in the plume and collider frame loops: the table
+    sampler's sliced path (tables above ``TABLE_BYTES_BUDGET``) under
+    ``INTERP = "vmem"``, on a topology with chunk plans. Growth between
+    frames, which raised here before, is ported (tests/test_torch_growth.py)."""
     jt, _, _, _, _ = box
-    tt = _port_topo(jt)
+    tt = ensure_chunk_plans(_port_topo(jt))
+    monkeypatch.setattr(tadv, "INTERP", "vmem")
+    monkeypatch.setattr(tadv, "TABLE_BYTES_BUDGET", 1024)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tplume.run_plume(1, topo=tt, grow_every=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
