@@ -90,8 +90,8 @@ and B11 one table-path bench step in the narrow band with COMBINE_TBL on):
 per-launch medians over runs of 10
 back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
-move (each input read once, each output written once; B11 reads only the
-table values it copies) over 3.35 TB/s and
+move (each input read once, each output written once; B11 reads each
+distinct table value it copies once) over 3.35 TB/s and
 their f32 operations over 67 TFLOP/s (the H100 SXM data sheet). On the
 bench domain a launch's operands fit the 50 MB L2 and stay there between
 back-to-back calls, as they largely do in the step, so its HBM bound is
@@ -237,11 +237,21 @@ def rows(key: str, args: tuple) -> int:
     return args[1].shape[0] if key == "B1d" else args[0].shape[0]
 
 
+def b11_read_bytes(dloc, nf: int) -> int:
+    """The 27-table bytes B11 must read: dest octant j of dual row u copies
+    one octant (64 values) of row dloc[c, u, j] of each field, and no two
+    entries of a chunk pick the same octant of a non-null row (tile s is
+    source j of dual tile s + 1 - b_j alone); zero entries (absent sources,
+    padding dual rows) all read the chunk's null row, counted once."""
+    octant = 64 * 4
+    return int((dloc != 0).sum()) * nf * octant + dloc.shape[0] * nf * 8 * octant
+
+
 def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]:
     """The least time the card could take for one launch: (ms, bound by,
     bytes moved). Each input is read once and each output written once;
     B11's reads are the table values its dloc picks (the data decides
-    them), as many as it writes."""
+    them): :func:`b11_read_bytes`."""
     import torch
 
     seen, moved = set(), 0
@@ -249,8 +259,8 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]
         if isinstance(a, torch.Tensor) and a.data_ptr() not in seen:
             seen.add(a.data_ptr())
             moved += nbytes(a)
-    if key == "B11":  # it reads only the 27-table values its output copies
-        moved = nbytes(args[1]) + nbytes(out)
+    if key == "B11":  # it reads each distinct 27-table value it copies once
+        moved = nbytes(args[1]) + b11_read_bytes(args[1], args[2])
     moved += nbytes(out)
     ops = ops_per_voxel(key, args, kwargs) * rows(key, args) * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -1026,7 +1036,7 @@ def main() -> int:
         n = len(np.unique(tiles, axis=0))
         cap = ((n + 1 + 511) // 512) * 512
         secs = {}
-        for what, kw in (("plain", {}), ("plans", {"plans": True}), ("plans+dloc", {"dloc": True})):
+        for what, kw in (("plain", {}), ("plans", {"plans": True})):
             t0 = time.perf_counter()
             topology_mod.build_topology(tiles, capacity=cap, device=dev, **kw)
             torch.cuda.synchronize()
@@ -1035,7 +1045,7 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()), flush=True)
     torch.cuda.empty_cache()
 
-    tb = topology_mod.ensure_dual_local(topo)
+    tb = topology_mod.ensure_chunk_plans(topo)
     nc, Ud = tb.chunk_dsrc.shape[:2]
     print(f"[14] bench chunk plans: {nc} chunks, U {tb.chunk_uniq.shape[1]}, Ud {Ud}", flush=True)
     vel0, sc0 = bench_state.velocity, bench_state.scalars

@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from hnanosolver_tpu_torch.core.topology import Topology, resolve_device
+from hnanosolver_tpu_torch.core.topology import Topology, _dual_local, resolve_device
 from hnanosolver_tpu_torch.fields import FieldState
 
 
@@ -22,18 +22,27 @@ PLAN_FIELDS = ("chunk_uniq", "chunk_lnbr", "chunk_dsrc", "chunk_ldual", "chunk_d
 def topology_from_numpy(keys, origins, nbr, n_active, device=None, **plans) -> Topology:
     """Topology on ``device`` (default: the CUDA card) from numpy ``keys
     [T]``, ``origins [T,3]``, ``nbr [T,27]`` (all int32) and the active row
-    count. ``plans``: any of the chunk plans (``PLAN_FIELDS``), carried
-    across as given; None entries are left out."""
+    count. ``plans``: the chunk plans (``PLAN_FIELDS``), carried across as
+    given, all or none (None entries count as absent); ``chunk_dloc`` is
+    computed when it is the one missing (the JAX package builds it only on
+    demand)."""
     device = resolve_device(device)
+    plans = {k: v for k, v in plans.items() if v is not None}
     unknown = set(plans) - set(PLAN_FIELDS)
     if unknown:
         raise TypeError(f"unknown plan fields {sorted(unknown)}")
+    missing = set(PLAN_FIELDS[:4]) - set(plans)
+    if plans and missing:
+        raise TypeError(f"chunk plans come all or none: missing {sorted(missing)}")
+    if plans and "chunk_dloc" not in plans:
+        plans["chunk_dloc"] = _dual_local(np.asarray(plans["chunk_uniq"]),
+                                          np.asarray(plans["chunk_dsrc"]))
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
 
     return Topology(keys=t(keys), origins=t(origins), nbr=t(nbr), n_active=int(n_active),
-                    **{k: t(v) for k, v in plans.items() if v is not None})
+                    **{k: t(v) for k, v in plans.items()})
 
 
 def state_from_numpy(

@@ -11,9 +11,8 @@ Counterpart of ``hnanosolver_tpu/core/activation.py``:
   old rows to the new ones by key.
 
 Capacity never shrinks and grows by ``topology._round_capacity``. A
-topology grown from one that carries chunk plans carries them too (and
-``chunk_dloc`` where the old one had it), so the table sampler finds its
-plans on every new topology. ``n_active`` stays a host int: one
+topology grown from one that carries chunk plans carries them too, so the
+table sampler finds its plans on every new topology. ``n_active`` stays a host int: one
 activation pass waits for the device once, on the occupancy mask.
 """
 
@@ -87,8 +86,7 @@ def _rebuild(topo: Topology, parts: list, min_capacity: Optional[int]) -> Topolo
     if cap < n_unique + 1:
         cap = max(cap, _round_capacity(n_unique))
     return build_topology(tiles, capacity=cap, device=topo.device,
-                          plans=topo.chunk_dsrc is not None,
-                          dloc=topo.chunk_dloc is not None)
+                          plans=topo.chunk_dsrc is not None)
 
 
 def topology_from_bboxes(topo: Topology, occ: np.ndarray, lo: np.ndarray, hi: np.ndarray,

@@ -15,10 +15,10 @@ tensors' device is the device every op on this topology runs on.
 
 The table sampler (``ops/advection.py`` with ``INTERP = "vmem"``) also
 needs the chunk plans of the JAX package's topology (``chunk_uniq``,
-``chunk_lnbr``, ``chunk_dsrc``, ``chunk_ldual``; ``chunk_dloc`` for kernel
-B11). They are built in host numpy, equal to the JAX package's arrays, only
-when asked: ``build_topology(..., plans=True)``, :func:`ensure_chunk_plans`
-and :func:`ensure_dual_local`. A topology grown from a planned one
+``chunk_lnbr``, ``chunk_dsrc``, ``chunk_ldual`` and ``chunk_dloc``, kernel
+B11's indirection). They are built together in host numpy, equal to the JAX
+package's arrays, only when asked: ``build_topology(..., plans=True)`` or
+:func:`ensure_chunk_plans`. A topology grown from a planned one
 (``core/activation.py``) is planned too.
 """
 
@@ -56,7 +56,8 @@ class Topology:
     # u-th dual tile d, whose half-shifted row is S[d][l] = f[d*8 + l - 4];
     # row 0 of every chunk is the all-null dual row. chunk_ldual[t, j] is
     # the chunk-local dual row of t + (j>>2, (j>>1)&1, j&1). chunk_dloc
-    # maps chunk_dsrc's rows into positions in chunk_uniq[c].
+    # maps chunk_dsrc's rows into positions in chunk_uniq[c]. All five or
+    # none.
     chunk_uniq: Optional[torch.Tensor] = None  # [nc, U] int32
     chunk_lnbr: Optional[torch.Tensor] = None  # [T, 27] int32
     chunk_dsrc: Optional[torch.Tensor] = None  # [nc, Ud, 8] int32
@@ -105,12 +106,11 @@ def build_topology(
     capacity: Optional[int] = None,
     device: torch.device | str | None = None,
     plans: bool = False,
-    dloc: bool = False,
 ) -> Topology:
     """Build a Topology on ``device`` (default: the CUDA card) from an
     ``[M, 3]`` array of (possibly duplicated) tile coordinates; the tables
     are computed in host numpy. ``plans``: also the chunk plans of the
-    table sampler; ``dloc``: also ``chunk_dloc`` (implies ``plans``)."""
+    table sampler."""
     device = resolve_device(device)
     tile_coords = np.asarray(tile_coords, dtype=np.int32).reshape(-1, 3)
     if tile_coords.size:
@@ -141,8 +141,8 @@ def build_topology(
         found = keys_np[pos_c] == nbr_keys
         nbr[1 : n + 1] = np.where(found, pos_c + 1, 0).astype(np.int32)
     extra = {}
-    if plans or dloc:
-        extra = _plans_np(full_keys, origins, nbr, n, dloc)
+    if plans:
+        extra = _plans_np(full_keys, origins, nbr, n)
     return Topology(
         keys=torch.from_numpy(full_keys).to(device),
         origins=torch.from_numpy(origins).to(device),
@@ -235,14 +235,12 @@ def _dual_local(uq: np.ndarray, dsrc: np.ndarray) -> np.ndarray:
     return dloc
 
 
-def _plans_np(full_keys, origins, nbr, n, dloc: bool) -> dict:
+def _plans_np(full_keys, origins, nbr, n) -> dict:
     cap = full_keys.shape[0]
     uq, ln = _chunk_plan(nbr, cap)
     dsrc, ldual = _dual_plan(origins, full_keys[1:n + 1], cap)
-    out = dict(chunk_uniq=uq, chunk_lnbr=ln, chunk_dsrc=dsrc, chunk_ldual=ldual)
-    if dloc:
-        out["chunk_dloc"] = _dual_local(uq, dsrc)
-    return out
+    return dict(chunk_uniq=uq, chunk_lnbr=ln, chunk_dsrc=dsrc, chunk_ldual=ldual,
+                chunk_dloc=_dual_local(uq, dsrc))
 
 
 def ensure_chunk_plans(topo: Topology) -> Topology:
@@ -251,19 +249,9 @@ def ensure_chunk_plans(topo: Topology) -> Topology:
     if topo.chunk_dsrc is not None:
         return topo
     extra = _plans_np(topo.keys.cpu().numpy(), topo.origins.cpu().numpy(),
-                      topo.nbr.cpu().numpy(), topo.n_active, False)
+                      topo.nbr.cpu().numpy(), topo.n_active)
     return dataclasses.replace(
         topo, **{k: torch.from_numpy(v).to(topo.device) for k, v in extra.items()})
-
-
-def ensure_dual_local(topo: Topology) -> Topology:
-    """``topo`` carrying ``chunk_dloc`` (kernel B11's indirection) and the
-    chunk plans it needs, computed on the host on demand."""
-    if topo.chunk_dloc is not None:
-        return topo
-    topo = ensure_chunk_plans(topo)
-    dloc = _dual_local(topo.chunk_uniq.cpu().numpy(), topo.chunk_dsrc.cpu().numpy())
-    return dataclasses.replace(topo, chunk_dloc=torch.from_numpy(dloc).to(topo.device))
 
 
 def active_mask(topo: Topology) -> torch.Tensor:

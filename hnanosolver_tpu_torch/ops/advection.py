@@ -31,10 +31,10 @@ max|clamp(-u*sdt)|, read on the host (one sync per pass):
   - wide (CFL >= 3.9, or >= 1.9 with an SDF): the nbr-form B1, valid for
     every clamped displacement (the JAX package's 24-window kernel).
 The dual table is ``tables.build_table_dual``, or kernel B11 from
-``tables.build_table`` when ``cuda_tables.COMBINE_TBL`` is on and the
-topology carries ``chunk_dloc``. Tables whose JAX byte model exceeds
-``TABLE_BYTES_BUDGET`` (which the JAX package samples in chunk slices)
-raise. ``BANDS`` counts the passes each branch took.
+``tables.build_table`` when ``cuda_tables.COMBINE_TBL`` is on. Tables
+whose JAX byte model exceeds ``TABLE_BYTES_BUDGET`` (which the JAX package
+samples in chunk slices) raise. ``BANDS`` counts the passes each branch
+took.
 """
 
 from __future__ import annotations
@@ -96,11 +96,11 @@ def _amax(d: torch.Tensor) -> float:
 
 def _dual_table(topo, fields: torch.Tensor) -> torch.Tensor:
     """The chunk dual table of ``fields [nf,T,512]``: B11 from the 27-table
-    when COMBINE_TBL is on and the topology carries chunk_dloc, else the
-    direct gather. Raises above TABLE_BYTES_BUDGET."""
+    when COMBINE_TBL is on, else the direct gather. Raises above
+    TABLE_BYTES_BUDGET."""
     nf = fields.shape[0]
     nc, Ud = topo.chunk_dsrc.shape[:2]
-    comb = cuda_tables.combine_ok(topo)
+    comb = bool(cuda_tables.COMBINE_TBL)
     need = tables.table_bytes(nc, Ud, nf)
     if comb:
         need = max(need, tables.table_bytes(nc, topo.chunk_uniq.shape[1], nf))

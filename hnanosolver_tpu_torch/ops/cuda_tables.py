@@ -20,17 +20,11 @@ from hnanosolver_tpu_torch.core.layout import TILE
 from hnanosolver_tpu_torch.kernels import build
 from hnanosolver_tpu_torch.ops.tables import dual_source
 
-# Build the sampler's dual tables with B11 from the 27-table: True = when
-# the topology carries chunk_dloc, False/None = never (ops/tables.
-# build_table_dual), the JAX package's default.
+# Build the sampler's dual tables with B11 from the 27-table: True = yes,
+# False/None = no (ops/tables.build_table_dual), the JAX package's default.
 COMBINE_TBL: Optional[bool] = None
 
 launches = build.LaunchCount("combine_dual")
-
-
-def combine_ok(topo) -> bool:
-    """True when COMBINE_TBL is on and the topology carries chunk_dloc."""
-    return bool(COMBINE_TBL) and topo.chunk_dloc is not None
 
 
 def _check(tbl27, dloc, nf):

@@ -13,9 +13,9 @@ loops against the JAX package on the CPU.
   by op under ``jax.disable_jit()``: compiling the growing loop's step at
   every new capacity costs XLA far more than running its ops.
   ``halo_lag=1``: on the CPU the JAX pressure solve ignores the lag.
-- ``run_collider``'s grown topology keeps the emitter and the collider's
-  shell at frame f + 1 (the JAX package's keep-tiles), and the tile set
-  the JAX ``expand_for_state`` picks for the same state.
+- ``run_collider`` with its defaults' growth for 2 frames against the JAX
+  package's, op by op: the same tile keys every frame, keeping the emitter
+  and the collider's shell at frame f + 1, and the fields.
 """
 
 import jax
@@ -28,12 +28,14 @@ from hnanosolver_tpu import config as jcfg
 from hnanosolver_tpu.core import activation as jact
 from hnanosolver_tpu.core import topology as jtopo
 from hnanosolver_tpu.fields import FieldState as JState
+from hnanosolver_tpu.models import collider as jcol
 from hnanosolver_tpu.models import plume as jplume
 from hnanosolver_tpu_torch import config as tcfg
 from hnanosolver_tpu_torch import convert
 from hnanosolver_tpu_torch.core import activation as tact
 from hnanosolver_tpu_torch.core import coords as C
 from hnanosolver_tpu_torch.core import topology as ttopo
+from hnanosolver_tpu_torch.fields import COLLISION_FIELD
 from hnanosolver_tpu_torch.models import collider as tcol
 from hnanosolver_tpu_torch.models import plume as tplume
 
@@ -161,10 +163,10 @@ def test_capacity_grows_by_round_capacity_and_never_shrinks(sparse):
 
 def test_growth_carries_the_plans(sparse):
     jt, tt, js, ts = sparse
-    planned = ttopo.ensure_dual_local(tt)
+    planned = ttopo.ensure_chunk_plans(tt)
     tn, _ = tact.expand_for_state(planned, ts, 1e-4, 1, KEEP)
     want = ttopo.build_topology(C.unpack_keys_np(tn.keys[1:tn.n_active + 1].numpy()),
-                                capacity=tn.capacity, device="cpu", dloc=True)
+                                capacity=tn.capacity, device="cpu", plans=True)
     for f in PLANS:
         assert torch.equal(getattr(tn, f), getattr(want, f)), f
     plain, _ = tact.expand_for_state(tt, ts, 1e-4, 1, KEEP)
@@ -204,31 +206,40 @@ def test_run_plume_grows_like_jax():
 
 
 def test_run_collider_keeps_emitter_and_next_shell():
-    """Two growing frames: after frame f the topology holds the emitter's
-    tiles and the collider shell of frame f + 1, and is the tile set the JAX
-    package's expand_for_state picks for the same state."""
+    """Two growing frames from run_collider's default topology against the
+    JAX package's run_collider, op by op: the same tile keys after every
+    frame, holding the emitter's tiles and the collider's shell at frame
+    f + 1 (the JAX package's keep-tiles), and the fields within REL (the
+    SDF, recomputed from positions, within 1e-5 voxels)."""
+    col_kw = dict(center0=(20.0, 30.0, 24.0), velocity=(48.0, 0.0, 0.0), radius=5.0)
+    frames = []  # numpy copies: run_collider donates each state to the next step
+
+    def keep_jax(f, topo, st):
+        frames.append((np.asarray(topo.keys).copy(), np.asarray(st.velocity).copy(),
+                       {k: np.asarray(v).copy() for k, v in st.scalars.items()}))
+
+    with jax.disable_jit():
+        jcol.run_collider(2, jcfg.SolverParams(**PLUME_KW), jplume.PlumeConfig(**CFG_KW),
+                          jcol.ColliderConfig(**col_kw), on_frame=keep_jax)
     params = tcfg.SolverParams(**PLUME_KW)
     cfg = tplume.PlumeConfig(**CFG_KW)
-    col = tcol.ColliderConfig(center0=(20.0, 30.0, 24.0), velocity=(48.0, 0.0, 0.0),
-                              radius=5.0)
+    col = tcol.ColliderConfig(**col_kw)
     seen = []
     tcol.run_collider(2, params, cfg, col, device="cpu",
                       on_frame=lambda f, t, s: seen.append((f, t, s)))
-    emitter = set(C.pack_keys_np(tplume.emitter_tiles(cfg)).tolist())
-    prev_topo = None
-    for f, tt, ts in seen:
-        keys = set(tt.keys[1:tt.n_active + 1].tolist())
+    assert len(seen) == len(frames) == 2
+    emitter = set(C.pack_keys_np(tplume.emitter_tiles(cfg, pad=1)).tolist())
+    for (f, tt, ts), (keys, vel, sc) in zip(seen, frames):
+        np.testing.assert_array_equal(tt.keys.numpy(), keys)
+        active = set(tt.keys[1:tt.n_active + 1].tolist())
         shell = set(C.pack_keys_np(tcol.collider_tiles(col, f + 1, params.dt)).tolist())
-        assert emitter <= keys and shell <= keys
+        assert emitter <= active and shell <= active
         assert tt.capacity <= 2048
-        prev_topo = tt
-    # the same decision by the JAX package, on the last frame's state
-    jt = jtopo.build_topology(C.unpack_keys_np(prev_topo.keys[1:prev_topo.n_active + 1].numpy()),
-                              capacity=prev_topo.capacity)
-    vel, sc = convert.state_to_numpy(seen[-1][2])
-    js = JState(velocity=jnp.asarray(vel), scalars={k: jnp.asarray(v) for k, v in sc.items()})
-    keep = np.concatenate([tplume.emitter_tiles(cfg), tcol.collider_tiles(col, 3, params.dt)])
-    jn, _ = jact.expand_for_state(jt, js, cfg.occupancy_threshold, cfg.dilate_radius, keep)
-    tn, _ = tact.expand_for_state(prev_topo, seen[-1][2], cfg.occupancy_threshold,
-                                  cfg.dilate_radius, keep)
-    _assert_same_topology(tn, jn)
+        np.testing.assert_allclose(ts.velocity.numpy(), vel, rtol=0,
+                                   atol=REL * np.abs(vel).max())
+        assert sorted(ts.scalars) == sorted(sc)
+        for k, v in ts.scalars.items():
+            atol = 1e-5 if k == COLLISION_FIELD else REL * np.abs(sc[k]).max()
+            np.testing.assert_allclose(v.numpy(), sc[k], rtol=0, atol=atol, err_msg=k)
+    start = emitter | set(C.pack_keys_np(tcol.collider_tiles(col, 0, params.dt)).tolist())
+    assert set(seen[-1][1].keys[1:seen[-1][1].n_active + 1].tolist()) - start  # it grew

@@ -66,10 +66,10 @@ BOXES = {"sparse5": _sparse_tiles, "dense16": _dense_tiles, "two_chunks": _two_c
 
 
 def _pair(name):
-    """(JAX topology with chunk_dloc, port topology with all plans)."""
+    """(JAX topology with chunk_dloc, port topology with its plans)."""
     tiles, cap = BOXES[name]()
     jt = jtopo.ensure_dual_local(jtopo.build_topology(tiles, capacity=cap))
-    tt = ttopo.build_topology(tiles, capacity=cap, device="cpu", dloc=True)
+    tt = ttopo.build_topology(tiles, capacity=cap, device="cpu", plans=True)
     return jt, tt
 
 
@@ -88,18 +88,23 @@ def test_chunk_plans_equal_jax(name):
     for f in PLANS:
         np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f)),
                                       err_msg=f)
-    # on demand from a plain topology, and carried across by convert
-    bare = convert.topology_from_numpy(np.asarray(jt.keys), np.asarray(jt.origins),
-                                       np.asarray(jt.nbr), int(jt.n_active), device="cpu")
+    # on demand from a plain topology, and carried across by convert (with
+    # chunk_dloc, or without it as the JAX package builds its plans)
+    args = (np.asarray(jt.keys), np.asarray(jt.origins), np.asarray(jt.nbr), int(jt.n_active))
+    bare = convert.topology_from_numpy(*args, device="cpu")
     assert bare.chunk_dsrc is None and bare.chunk_dloc is None
-    late = ttopo.ensure_dual_local(bare)
+    late = ttopo.ensure_chunk_plans(bare)
     carried = convert.topology_from_numpy(
-        np.asarray(jt.keys), np.asarray(jt.origins), np.asarray(jt.nbr), int(jt.n_active),
-        device="cpu", **{f: np.asarray(getattr(jt, f)) for f in PLANS})
+        *args, device="cpu", **{f: np.asarray(getattr(jt, f)) for f in PLANS})
+    no_dloc = convert.topology_from_numpy(
+        *args, device="cpu", **{f: np.asarray(getattr(jt, f)) for f in PLANS[:4]})
     for f in PLANS:
         assert torch.equal(getattr(late, f), getattr(tt, f)), f
         assert torch.equal(getattr(carried, f), getattr(tt, f)), f
-    assert ttopo.ensure_chunk_plans(tt) is tt and ttopo.ensure_dual_local(tt) is tt
+        assert torch.equal(getattr(no_dloc, f), getattr(tt, f)), f
+    assert ttopo.ensure_chunk_plans(tt) is tt
+    with pytest.raises(TypeError):  # the plans come all or none
+        convert.topology_from_numpy(*args, device="cpu", chunk_dsrc=np.asarray(jt.chunk_dsrc))
 
 
 def test_plain_build_leaves_plans_out():
@@ -107,7 +112,7 @@ def test_plain_build_leaves_plans_out():
     tt = ttopo.build_topology(tiles, device="cpu")
     assert all(getattr(tt, f) is None for f in PLANS)
     planned = ttopo.build_topology(tiles, device="cpu", plans=True)
-    assert planned.chunk_dsrc is not None and planned.chunk_dloc is None
+    assert all(getattr(planned, f) is not None for f in PLANS)  # chunk_dloc with the rest
     assert ttopo.ensure_chunk_plans(planned) is planned
 
 
