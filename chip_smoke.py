@@ -79,6 +79,16 @@ exit). Each phase prints the seconds it took.
      branches taken) vs its plain step and vs the nbr-path step; times of
      B11, the dual B1, the table builds and the table-path pass beside the
      nbr B1 pass
+ 15. the probe kernels PG (cross-row gathers) and PC (bulk asynchronous
+     row copies into shared memory), ports of the JAX package's TPU probes
+     in tools/: every PG form (per-element at 8 rows with reversed indices
+     and at the bench's 4608 rows with random ones, the row form on each of
+     the six face-neighbour rows, also against index_select, the chain at
+     4 and 24 reps on normal and mixed-scale inputs) and every PC variant
+     of the four probe scripts (one block and one per SM) against its plain
+     version, bitwise, with each one's time, bound and library call; then
+     the probe scripts themselves as the probes' own path (counters 0 before,
+     read after): the gather chain and the copy costs per copy
 
 Launch counts come only from the main-path runs (phases 4, 7-14), each
 with the counters set to 0 just before and read just after; launches made
@@ -86,7 +96,10 @@ to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
 step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4 advection
 with the SDF of the config-4 state: the velocity and the scalar pass; B1d
-and B11 one table-path bench step in the narrow band with COMBINE_TBL on):
+and B11 one table-path bench step in the narrow band with COMBINE_TBL on;
+PG one row gather at the bench, PC one launch of probe_dmacost's L = 8,
+n = 512, 8 reps from device memory on one block per SM; their launches are
+those of phase 15's probe-script run, none on the plume path):
 per-launch medians over runs of 10
 back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
@@ -138,7 +151,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
-KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11")
+KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC")
+PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 
 
 def sh(cmd: list[str]) -> str:
@@ -291,9 +305,12 @@ def main() -> int:
     from hnanosolver_tpu_torch.models import collider, fire, plume
     from hnanosolver_tpu_torch.config import SolverParams
     from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
-                                           cuda_pressure, cuda_sample, cuda_stencil, cuda_tables,
-                                           cuda_tail, multigrid, stencil, tables)
+                                           cuda_pressure, cuda_probe, cuda_sample, cuda_stencil,
+                                           cuda_tables, cuda_tail, multigrid, probe, stencil,
+                                           tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
+    from hnanosolver_tpu_torch.tools import (ctas_all, median_ms, probe_dgather,
+                                             probe_dmabisect, probe_dmabisect2, probe_dmacost)
 
     def done(phase: str):
         nonlocal t_phase
@@ -364,6 +381,13 @@ def main() -> int:
                     replaces="hnanosolver_tpu/ops/pallas_bfecc.py:676",
                     counter=cuda_tables.launches,
                     wrap=(cuda_tables, "build_table_dual_combine")),
+        "PG": dict(name="probe_gather", source=src + "probe_gather.cu",
+                   replaces="tools/probe_dgather.py:59, :79, :109",
+                   counter=cuda_probe.launches_gather, wrap=(cuda_probe, "take_rows")),
+        "PC": dict(name="probe_copy", source=src + "probe_copy.cu",
+                   replaces="tools/probe_dmabisect.py:39, :164; tools/probe_dmabisect2.py:59, "
+                            ":81, :113, :149, :184, :222; tools/probe_dmacost.py:89, :134",
+                   counter=cuda_probe.launches_copy, wrap=(cuda_probe, "row_copy")),
     }
     for k in kernels.values():
         k.update(route="cuda", launches=0, max_abs_err=0.0, library_ms=None)
@@ -1174,6 +1198,163 @@ def main() -> int:
     nbr_path()
     del tb, bench_state
     done("14")
+
+    # -- 15. the probe kernels PG and PC -------------------------------------------
+    # PG's and PC's launches are a few us: each time below is per call, a
+    # median over spans of back-to-back calls queued behind a spin
+    # (tools.median_ms), so that the span holds device time and not the
+    # host's launch latency
+    def turns(kernel, plain, batch=10):
+        """(kernel, plain) ms per call, measured plain, kernel, kernel, plain."""
+        p = [median_ms(plain, dev, batch=batch)]
+        k = [median_ms(kernel, dev, batch=batch) for _ in range(2)]
+        p.append(median_ms(plain, dev, batch=batch))
+        return statistics.median(k), statistics.median(p)
+
+    def ms_line(what, k_ms, p_ms, b_ms, lib_ms, lib):
+        bound = "on chip" if b_ms is None else f"{b_ms:.6f} ms"
+        print(f"[15] {what}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms plain, bound {bound}, "
+              f"{lib} {lib_ms:.4f} ms | {card}", flush=True)
+
+    def bytes_ms(nb):
+        return nb / HBM_BYTES_PER_S * 1e3
+
+    nbr6 = probe.face_rows(topo.nbr)
+    xg = torch.from_numpy(rng.standard_normal((T, 512)).astype(np.float32)).to(dev)
+    xm = xg * torch.from_numpy(10.0 ** rng.uniform(-15, 15, (T, 1))).float().to(dev)
+    idx8 = torch.arange(7, -1, -1, dtype=torch.int32, device=dev)[:, None].expand(8, 512)
+    idxr = torch.from_numpy(rng.integers(0, T, (T, 512)).astype(np.int32)).to(dev)
+    for label, x_, idx in (("P4 per-element, 8 rows reversed", xg[:8], idx8.contiguous()),
+                           (f"P4 per-element, {T} rows random", xg, idxr)):
+        check("PG", label, cuda_probe.take_along_rows(x_, idx),
+              cuda_probe.take_along_rows_plain(x_, idx), 0.0, "15")
+        k_ms, p_ms = turns(lambda: cuda_probe.take_along_rows(x_, idx),
+                           lambda: cuda_probe.take_along_rows_plain(x_, idx))
+        i64 = idx.long()
+        lib_ms = median_ms(lambda: torch.gather(x_, 0, i64), dev, batch=10)
+        src_rows = int(torch.unique(idx).numel()) if idx is idxr else 8
+        ms_line(label, k_ms, p_ms, bytes_ms(src_rows * 2048 + 2 * nbytes(idx)), lib_ms, "gather")
+    for d in range(6):
+        got = cuda_probe.take_rows(xg, nbr6[d])
+        check("PG", f"P5 rows, T={T}, face {d}", got, cuda_probe.take_rows_plain(xg, nbr6[d]),
+              0.0, "15")
+        check("PG", f"P5 rows, T={T}, face {d} vs index_select", got,
+              xg.index_select(0, nbr6[d]), 0.0, "15")
+    pg_in = (xg, nbr6[0])
+    pg_bound = bytes_ms(int(torch.unique(nbr6[0]).numel()) * 2048 + nbytes(nbr6[0]) + nbytes(xg))
+    k_ms, p_ms = turns(lambda: cuda_probe.take_rows(*pg_in),
+                       lambda: cuda_probe.take_rows_plain(*pg_in))
+    lib_ms = median_ms(lambda: torch.index_select(xg, 0, nbr6[0]), dev, batch=10)
+    kernels["PG"].update(ms=k_ms, plain_ms=p_ms, bound_ms=pg_bound, bound_by="bytes",
+                         library_ms=lib_ms)
+    ms_line(f"P5 rows, T={T}, face 0 (one launch costs about its bound)", k_ms, p_ms, pg_bound,
+            lib_ms, "index_select")
+    for reps in probe_dgather.REPS:
+        for inp, x_ in (("normal", xg), ("mixed scales", xm)):
+            got = cuda_probe.take_chain(x_, nbr6, reps)
+            check("PG", f"P6 chain, reps {reps}, {inp} ({float((got != x_).float().mean()):.2%}"
+                  f" of values moved)", got, cuda_probe.take_chain_plain(x_, nbr6, reps),
+                  0.0, "15")
+    del xm, idxr
+
+    def copy_bound_ms(x_, kw):
+        """Bytes the copies need over the HBM rate: each source row they
+        read once (the data decides), the row starts, the stage and acc
+        written once; None for the on-chip source."""
+        if kw.get("onchip_rows", 0):
+            return None
+        n = int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
+        L = kw.get("span", 1)
+        first = probe.source_rows(x_.shape[0], kw["rows"][:n], L, 0)
+        used = int(torch.unique(first[:, None] + torch.arange(L, device=dev)).numel()) if n else 0
+        return bytes_ms(used * 2048 + 4 * n + probe.STAGE_ROWS * 2048 + 4 * kw.get("ctas", 1))
+
+    def copy_lib_ms(x_, kw):
+        """index_select of the rows the copies read, into a buffer."""
+        n = int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
+        L = kw.get("span", 1)
+        spans = (probe.source_rows(x_.shape[0], kw["rows"][:max(n, 1)], L,
+                                   kw.get("onchip_rows", 0))[:, None]
+                 + torch.arange(L, device=dev)).reshape(-1)
+        buf = torch.empty(spans.numel(), 512, device=dev)
+        return median_ms(lambda: torch.index_select(x_, 0, spans, out=buf), dev, batch=5)
+
+    xb = probe_dmabisect.source(dev, SEED)
+    xc, rows_c = probe_dmacost.inputs(dev, SEED)
+    count64 = torch.tensor([64], dtype=torch.int32, device=dev)
+    pc_cases = [(name, xb, kw, pick, want) for name, kw, pick, want in
+                probe_dmabisect.cases(xb) + probe_dmabisect2.cases(xb)]
+    pc_cases += [(name, xc, kw, None, None) for name, kw in probe_dmacost.cases(xc, rows_c)]
+    pc_cases.append(("dmacost dynamic count", xc, dict(rows=rows_c, n=0, count=count64), None,
+                     None))
+    for name, x_, kw, pick, want in pc_cases:
+        for g in (1, ctas_all(dev)):
+            kwg = dict(kw, ctas=g)
+            got, plain = cuda_probe.row_copy(x_, **kwg), cuda_probe.row_copy_plain(x_, **kwg)
+            onchip = f", on-chip source {kw['onchip_rows']} rows" if kw.get("onchip_rows") else ""
+            label = f"{name} ({g} block{'s' if g > 1 else ''}{onchip})"
+            check("PC", f"{label} stage", got[0], plain[0], 0.0, "15")
+            check("PC", f"{label} acc", got[1], plain[1], 0.0, "15")
+            if pick is not None:  # v4's and v5's acc: one expected value for every block
+                picked = pick(*got)
+                check("PC", f"{label} vs expected", picked, want.expand_as(picked), 0.0, "15")
+            k_ms, p_ms = turns(lambda: cuda_probe.row_copy(x_, **kwg),
+                               lambda: cuda_probe.row_copy_plain(x_, **kwg), 5)
+            ms_line(label, k_ms, p_ms, copy_bound_ms(x_, kwg), copy_lib_ms(x_, kw),
+                    "index_select")
+    pc_kw = dict(rows=rows_c, n=probe_dmacost.NS[1], span=8, reps=probe_dmacost.REPS,
+                 ctas=ctas_all(dev))
+    k_ms, p_ms = turns(lambda: cuda_probe.row_copy(xc, **pc_kw),
+                       lambda: cuda_probe.row_copy_plain(xc, **pc_kw))
+    kernels["PC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=copy_bound_ms(xc, pc_kw),
+                         bound_by="bytes", library_ms=copy_lib_ms(xc, pc_kw))
+    del xb, xc, rows_c
+
+    # the probes' own path: the four probe scripts, counters 0 before, read after
+    for k in kernels.values():
+        k["counter"].n = 0
+    torch.cuda.synchronize()
+    runs = {}
+    for mod, kw in ((probe_dgather, dict(rounds=PROBE_ROUNDS)), (probe_dmabisect, {}),
+                    (probe_dmabisect2, dict(rounds=PROBE_ROUNDS)),
+                    (probe_dmacost, dict(rounds=PROBE_ROUNDS))):
+        tag = mod.__name__.rsplit(".", 1)[1]
+        runs[tag] = mod.run(seed=SEED, say=lambda line, tag=tag: print(f"[15 {tag}] {line}"),
+                            **kw)
+    torch.cuda.synchronize()
+    counts = {key: k["counter"].n for key, k in kernels.items()}
+    print(f"[15] probe scripts: launches {counts} (PG and PC > 0, no other kernel)", flush=True)
+    if not (counts["PG"] > 0 and counts["PC"] > 0
+            and all(v == 0 for key, v in counts.items() if key not in ("PG", "PC"))):
+        raise AssertionError(f"phase 15: launch counts {counts}")
+    for key in ("PG", "PC"):
+        kernels[key]["launches"] += counts[key]
+    chain = {k: statistics.median(v) for k, v in runs["probe_dgather"]["chain_ms_per_iter"].items()}
+    print(f"[15] P6 chain ms/iter, median of {PROBE_ROUNDS} rounds: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in chain.items())
+          + f"; bound {bytes_ms(6 * nbytes(xg)):.4f} if every gather read HBM (x, "
+            f"{nbytes(xg) / 1e6:.2f} MB, stays in the L2) | {card}", flush=True)
+    per_sm = HBM_BYTES_PER_S / ctas_all(dev)
+    for tag in ("probe_dmabisect2", "probe_dmacost"):
+        for (source, L, g), v in runs[tag]["ns_per_copy"].items():
+            ns = statistics.median(v)
+            rate = L * 2048 / ns  # GB/s a block
+            if source == "onchip":
+                where = "bound: on chip"
+            elif g == 1:
+                where = (f"{rate * 1e9 / per_sm:.1%} of 3.35 TB/s / {ctas_all(dev)}; bound "
+                         f"{bytes_ms(L * 2048) * 1e6:.2f} ns/copy")
+            else:
+                where = (f"{rate * g / 1e3:.2f} TB/s over the blocks; bound "
+                         f"{bytes_ms(L * 2048) * 1e6 / g:.3f} ns/copy over the card")
+            print(f"[15] {tag} {source}, L={L}, {g} block{'s' * (g > 1)}: {ns:.2f} ns/copy a "
+                  f"block (median of {PROBE_ROUNDS} rounds), {rate:.1f} GB/s a block; {where}"
+                  f" | {card}", flush=True)
+        for (L, temp), v in runs[tag]["index_select_ns_per_row"].items():
+            print(f"[15] {tag} index_select, L={L}, L2 {temp}: {statistics.median(v):.2f} "
+                  f"ns/row | {card}", flush=True)
+    del xg, nbr6
+    done("15")
 
     print(card)
     print(json.dumps({"kernels": [

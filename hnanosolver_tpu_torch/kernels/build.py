@@ -50,6 +50,10 @@ SIGNATURES = {
     "hn_rbsor_color": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     "hn_rbsor_fused": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "hn_residual": (_P, _P, _P, _P, _I, _F, _P),
+    "hn_take_along_rows": (_P, _P, _P, _I, _I, _P),
+    "hn_take_rows": (_P, _P, _P, _I, _I, _P),
+    "hn_take_chain": (_P, _P, _P, _I, _I, _P),
+    "hn_row_copy": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
