@@ -88,7 +88,8 @@ exit). Each phase prints the seconds it took.
      of the four probe scripts (one block and one per SM) against its plain
      version, bitwise, with each one's time, bound and library call; then
      the probe scripts themselves as the probes' own path (counters 0 before,
-     read after): the gather chain and the copy costs per copy
+     read after): the gather chain and the copy costs per copy, batched
+     and drained once a rep (issue and drain apart)
 
 Launch counts come only from the main-path runs (phases 4, 7-14), each
 with the counters set to 0 just before and read just after; launches made
@@ -157,34 +158,6 @@ PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 
 def sh(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
-
-
-def cuda_ms(fn, reps: int, batch: int = 1) -> list[float]:
-    """``reps`` samples of the per-call time (ms) of ``fn``, each sample a
-    run of ``batch`` back-to-back calls between two CUDA events."""
-    import torch
-
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b) / batch)
-    return out
-
-
-def paired_ms(kernel, plain, reps: int = 5, batch: int = 10) -> tuple[float, float]:
-    """Median per-call ms of kernel and plain over runs of ``batch`` calls,
-    measured in turns (plain, kernel, kernel, plain) after a warm-up."""
-    kernel(), plain()
-    p = cuda_ms(plain, reps, batch)
-    k = cuda_ms(kernel, reps, batch) + cuda_ms(kernel, reps, batch)
-    p += cuda_ms(plain, reps, batch)
-    return statistics.median(k), statistics.median(p)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -309,8 +282,9 @@ def main() -> int:
                                            cuda_tables, cuda_tail, multigrid, probe, stencil,
                                            tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
-    from hnanosolver_tpu_torch.tools import (ctas_all, median_ms, probe_dgather,
-                                             probe_dmabisect, probe_dmabisect2, probe_dmacost)
+    from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
+    from hnanosolver_tpu_torch.tools import (ctas_all, probe_dgather, probe_dmabisect,
+                                             probe_dmabisect2, probe_dmacost)
 
     def done(phase: str):
         nonlocal t_phase
@@ -513,7 +487,7 @@ def main() -> int:
                                        lambda: k["plain_fn"](*a, **kw))
             else:
                 k["kernel_fn"](*a, **kw)
-                k_ms = statistics.median(cuda_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10))
+                k_ms = statistics.median(time_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10))
                 p_ms = float("nan")
             b_ms, by, moved = bound_ms(key, a, kw, out)
             r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
@@ -676,7 +650,7 @@ def main() -> int:
         plume.plume_step(topo, s, params, cfg)
 
     one_step()
-    step_ms = statistics.median(cuda_ms(one_step, 15))
+    step_ms = statistics.median(time_ms(one_step, 15))
     vups = topo.num_voxels / (step_ms * 1e-3)
     for key, r in time_calls("6", record(one_step, ("B1", "B2", "B3", "B7a", "B7b"))).items():
         kernels[key].update(r)
@@ -711,7 +685,7 @@ def main() -> int:
         plume.plume_step(topo, mg_state, mg_params, cfg, hier)
 
     mg_step()
-    mg_ms = statistics.median(cuda_ms(mg_step, 7))
+    mg_ms = statistics.median(time_ms(mg_step, 7))
     for key, r in time_calls("7", record(mg_step, ("B3", "B5", "B6"))).items():
         if key != "B3":  # B3's row stays the bench RBGS step's
             kernels[key].update(r)
@@ -732,7 +706,7 @@ def main() -> int:
         plume.plume_step(topo, state, par_params, cfg)
 
     par_step()
-    par_ms = statistics.median(cuda_ms(par_step, 5))
+    par_ms = statistics.median(time_ms(par_step, 5))
     kernels["B4"].update(time_calls("8", record(par_step, ("B4",)))["B4"])
     print(f"[8] bench parity-tier step: {par_ms:.3f} ms/step (median of 5) | {card}",
           flush=True)
@@ -769,7 +743,7 @@ def main() -> int:
 
     c5_ms = {}
     for name, p_, h_ in (("MG", c5_mg, c5_hier), ("RBGS-50", c5_rb, ())):
-        c5_ms[name] = statistics.median(cuda_ms(c5_step(p_, h_), 3))
+        c5_ms[name] = statistics.median(time_ms(c5_step(p_, h_), 3))
     # project-only solve on the developed velocity (tools/scale1024_r5.py)
     inv_dx, dx = c5_rb.inv_voxel_size, c5_rb.voxel_size
     div5 = stencil.divergence(c5, st5.velocity, inv_dx)
@@ -882,7 +856,7 @@ def main() -> int:
 
     step_vs_plain("10", c4_step)
     c4_step()
-    c4_ms = statistics.median(cuda_ms(c4_step, 7))
+    c4_ms = statistics.median(time_ms(c4_step, 7))
     time_calls("10", record(c4_step, ("B1", "B2", "B3", "B7a", "B7b")))
     print(f"[10] config-4 step: {c4_ms:.3f} ms/step (median of 7, CUDA events), "
           f"{t4.num_voxels / (c4_ms * 1e-3):.4e} active voxel-updates/s; the collider "
@@ -927,7 +901,7 @@ def main() -> int:
                     vs_plain("11", key, a, kw)
             rk()
             print(f"[11] {tag}: velocity + scalar advection "
-                  f"{statistics.median(cuda_ms(rk, 5)):.3f} ms (median of 5) | {card}",
+                  f"{statistics.median(time_ms(rk, 5)):.3f} ms (median of 5) | {card}",
                   flush=True)
     done("11")
     del t4, st4, vel4, sdf4, sc4, prev
@@ -1157,8 +1131,8 @@ def main() -> int:
             k_ms, p_ms = paired_ms(
                 lambda: cuda_tables.build_table_dual_combine(t27, tb.chunk_dloc, 8),
                 lambda: cuda_tables.build_table_dual_combine_plain(t27, tb.chunk_dloc, 8))
-            t27_ms = statistics.median(cuda_ms(lambda: tables.build_table(tb, f8), 5, 10))
-            dual_ms = statistics.median(cuda_ms(lambda: tables.build_table_dual(tb, f8), 5, 10))
+            t27_ms = statistics.median(time_ms(lambda: tables.build_table(tb, f8), 5, 10))
+            dual_ms = statistics.median(time_ms(lambda: tables.build_table_dual(tb, f8), 5, 10))
             print(f"[{lab}] nf=8 tables: B11 {k_ms:.4f} ms (plain {p_ms:.4f}), build_table "
                   f"{t27_ms:.4f} ms, build_table_dual {dual_ms:.4f} ms ({nbytes(t27) / 1e6:.1f} "
                   f"and {nbytes(tdual) / 1e6:.1f} MB) | {card}", flush=True)
@@ -1185,7 +1159,7 @@ def main() -> int:
                              tb, f8, sdt, 3, None, 1))):
             vmem("B11" in what)
             fn()
-            times[what] = statistics.median(cuda_ms(fn, 5, 5))
+            times[what] = statistics.median(time_ms(fn, 5, 5))
         nbr_path()
         print(f"[{lab}] scalar pass (3 + 5 fields, CFL {cfl}): "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
@@ -1202,15 +1176,8 @@ def main() -> int:
     # -- 15. the probe kernels PG and PC -------------------------------------------
     # PG's and PC's launches are a few us: each time below is per call, a
     # median over spans of back-to-back calls queued behind a spin
-    # (tools.median_ms), so that the span holds device time and not the
-    # host's launch latency
-    def turns(kernel, plain, batch=10):
-        """(kernel, plain) ms per call, measured plain, kernel, kernel, plain."""
-        p = [median_ms(plain, dev, batch=batch)]
-        k = [median_ms(kernel, dev, batch=batch) for _ in range(2)]
-        p.append(median_ms(plain, dev, batch=batch))
-        return statistics.median(k), statistics.median(p)
-
+    # (timing.paired_ms, median_ms), so that the span holds device time and
+    # not the host's launch latency
     def ms_line(what, k_ms, p_ms, b_ms, lib_ms, lib):
         bound = "on chip" if b_ms is None else f"{b_ms:.6f} ms"
         print(f"[15] {what}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms plain, bound {bound}, "
@@ -1228,10 +1195,10 @@ def main() -> int:
                            (f"P4 per-element, {T} rows random", xg, idxr)):
         check("PG", label, cuda_probe.take_along_rows(x_, idx),
               cuda_probe.take_along_rows_plain(x_, idx), 0.0, "15")
-        k_ms, p_ms = turns(lambda: cuda_probe.take_along_rows(x_, idx),
-                           lambda: cuda_probe.take_along_rows_plain(x_, idx))
+        k_ms, p_ms = paired_ms(lambda: cuda_probe.take_along_rows(x_, idx),
+                               lambda: cuda_probe.take_along_rows_plain(x_, idx))
         i64 = idx.long()
-        lib_ms = median_ms(lambda: torch.gather(x_, 0, i64), dev, batch=10)
+        lib_ms = median_ms(lambda: torch.gather(x_, 0, i64), batch=10)
         src_rows = int(torch.unique(idx).numel()) if idx is idxr else 8
         ms_line(label, k_ms, p_ms, bytes_ms(src_rows * 2048 + 2 * nbytes(idx)), lib_ms, "gather")
     for d in range(6):
@@ -1242,9 +1209,9 @@ def main() -> int:
               xg.index_select(0, nbr6[d]), 0.0, "15")
     pg_in = (xg, nbr6[0])
     pg_bound = bytes_ms(int(torch.unique(nbr6[0]).numel()) * 2048 + nbytes(nbr6[0]) + nbytes(xg))
-    k_ms, p_ms = turns(lambda: cuda_probe.take_rows(*pg_in),
-                       lambda: cuda_probe.take_rows_plain(*pg_in))
-    lib_ms = median_ms(lambda: torch.index_select(xg, 0, nbr6[0]), dev, batch=10)
+    k_ms, p_ms = paired_ms(lambda: cuda_probe.take_rows(*pg_in),
+                           lambda: cuda_probe.take_rows_plain(*pg_in))
+    lib_ms = median_ms(lambda: torch.index_select(xg, 0, nbr6[0]), batch=10)
     kernels["PG"].update(ms=k_ms, plain_ms=p_ms, bound_ms=pg_bound, bound_by="bytes",
                          library_ms=lib_ms)
     ms_line(f"P5 rows, T={T}, face 0 (one launch costs about its bound)", k_ms, p_ms, pg_bound,
@@ -1277,10 +1244,10 @@ def main() -> int:
                                    kw.get("onchip_rows", 0))[:, None]
                  + torch.arange(L, device=dev)).reshape(-1)
         buf = torch.empty(spans.numel(), 512, device=dev)
-        return median_ms(lambda: torch.index_select(x_, 0, spans, out=buf), dev, batch=5)
+        return median_ms(lambda: torch.index_select(x_, 0, spans, out=buf), batch=5)
 
-    xb = probe_dmabisect.source(dev, SEED)
-    xc, rows_c = probe_dmacost.inputs(dev, SEED)
+    xb = probe_dmabisect.source(dev)
+    xc, rows_c = probe_dmacost.inputs(dev)
     count64 = torch.tensor([64], dtype=torch.int32, device=dev)
     pc_cases = [(name, xb, kw, pick, want) for name, kw, pick, want in
                 probe_dmabisect.cases(xb) + probe_dmabisect2.cases(xb)]
@@ -1298,14 +1265,14 @@ def main() -> int:
             if pick is not None:  # v4's and v5's acc: one expected value for every block
                 picked = pick(*got)
                 check("PC", f"{label} vs expected", picked, want.expand_as(picked), 0.0, "15")
-            k_ms, p_ms = turns(lambda: cuda_probe.row_copy(x_, **kwg),
-                               lambda: cuda_probe.row_copy_plain(x_, **kwg), 5)
+            k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(x_, **kwg),
+                                   lambda: cuda_probe.row_copy_plain(x_, **kwg), batch=5)
             ms_line(label, k_ms, p_ms, copy_bound_ms(x_, kwg), copy_lib_ms(x_, kw),
                     "index_select")
     pc_kw = dict(rows=rows_c, n=probe_dmacost.NS[1], span=8, reps=probe_dmacost.REPS,
                  ctas=ctas_all(dev))
-    k_ms, p_ms = turns(lambda: cuda_probe.row_copy(xc, **pc_kw),
-                       lambda: cuda_probe.row_copy_plain(xc, **pc_kw))
+    k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(xc, **pc_kw),
+                           lambda: cuda_probe.row_copy_plain(xc, **pc_kw))
     kernels["PC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=copy_bound_ms(xc, pc_kw),
                          bound_by="bytes", library_ms=copy_lib_ms(xc, pc_kw))
     del xb, xc, rows_c
@@ -1319,8 +1286,7 @@ def main() -> int:
                     (probe_dmabisect2, dict(rounds=PROBE_ROUNDS)),
                     (probe_dmacost, dict(rounds=PROBE_ROUNDS))):
         tag = mod.__name__.rsplit(".", 1)[1]
-        runs[tag] = mod.run(seed=SEED, say=lambda line, tag=tag: print(f"[15 {tag}] {line}"),
-                            **kw)
+        runs[tag] = mod.run(say=lambda line, tag=tag: print(f"[15 {tag}] {line}"), **kw)
     torch.cuda.synchronize()
     counts = {key: k["counter"].n for key, k in kernels.items()}
     print(f"[15] probe scripts: launches {counts} (PG and PC > 0, no other kernel)", flush=True)
@@ -1350,6 +1316,15 @@ def main() -> int:
             print(f"[15] {tag} {source}, L={L}, {g} block{'s' * (g > 1)}: {ns:.2f} ns/copy a "
                   f"block (median of {PROBE_ROUNDS} rounds), {rate:.1f} GB/s a block; {where}"
                   f" | {card}", flush=True)
+        for (source, L, g), v in runs[tag].get("one_drain", {}).items():
+            issue = statistics.median(i for i, _ in v)
+            drain = statistics.median(d for _, d in v)
+            batched = statistics.median(runs[tag]["ns_per_copy"][(source, L, g)])
+            per = probe.STAGE_ROWS // L
+            print(f"[15] {tag} {source}, L={L}, {g} block{'s' * (g > 1)}, one drain a rep: "
+                  f"issue {issue:.2f} ns/copy, drain {drain:.1f} ns/rep (medians of "
+                  f"{PROBE_ROUNDS} rounds); issue + drain / {per} = {issue + drain / per:.2f} "
+                  f"ns/copy beside the batched {batched:.2f} | {card}", flush=True)
         for (L, temp), v in runs[tag]["index_select_ns_per_row"].items():
             print(f"[15] {tag} index_select, L={L}, L2 {temp}: {statistics.median(v):.2f} "
                   f"ns/row | {card}", flush=True)

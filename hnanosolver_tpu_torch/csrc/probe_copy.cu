@@ -8,8 +8,9 @@
 //   probe_dmacost.py     make() :89, dyn_kernel :134
 // ops/probe.py::row_copy defines the function and holds the plain version:
 // copy i (0 <= i < n) of every rep writes source rows [s_i, s_i + span)
-// into stage rows [(i * step * span) mod S, ... + span); after each rep,
-// acc += stage[r mod S][r mod 512]. The maps of the probes' variants:
+// into stage rows [(i * step * span) mod S, ... + span) of the S = 64-row
+// stage; after each rep, acc += stage[r mod S][r mod 512]. The maps of the
+// probes' variants:
 //   v0, v4        one copy, rows [0, 8) -> stage [0, 8)
 //   v1 / v1b      one copy of rows[0], span 8 / 1 -> stage row 0
 //   v2, v9        copy i: row rows[i] -> stage row i (64 copies)
@@ -26,7 +27,10 @@
 // them; overlapping slots there end with an unordered writer. Here the
 // copies of a rep go in batches of at most S / span, and a batch completes
 // on the mbarrier before the next one is issued, so every slot ends with
-// its last writer's row (the order ops/probe.py fixes).
+// its last writer's row (the order ops/probe.py fixes). With n <= S / span
+// a rep is one batch, all its copies in flight together and drained once,
+// as on the TPU: the probes time that case beside the batched one, to part
+// the cost of issuing a copy from the cost of a drain.
 //
 // Mechanism, the Hopper counterpart of a DMA descriptor: one thread issues
 // each copy as a 1-D bulk asynchronous copy (TMA),
@@ -54,6 +58,7 @@
 namespace hn {
 
 constexpr int ROW_BYTES = TILE * 4;
+constexpr int S = 64;  // stage rows (ops/probe.py STAGE_ROWS)
 constexpr int COPY_THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;  // dynamic shared memory per block (H100)
 
@@ -110,14 +115,14 @@ __device__ __forceinline__ void fence_async_shared() {
 // the row-start table's ints, padded to 16 bytes
 __host__ __device__ inline int table_ints(int n_rows) { return (n_rows + 3) / 4 * 4; }
 
-inline size_t copy_smem_bytes(int S, int R, int n_rows) {
+inline size_t copy_smem_bytes(int R, int n_rows) {
   return (size_t)(S + R) * ROW_BYTES + 4 * (size_t)table_ints(n_rows) + 16;
 }
 
 __global__ void __launch_bounds__(COPY_THREADS)
 row_copy_kernel(const float* __restrict__ src, int src_rows, const int* __restrict__ rows,
                 int n_rows, const int* __restrict__ count, int n_host, int span, int step,
-                int reps, int S, int R, float4* __restrict__ stage_out, float* __restrict__ acc_out) {
+                int reps, int R, float4* __restrict__ stage_out, float* __restrict__ acc_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* stage = reinterpret_cast<float*>(smem);
   float* onchip = stage + (size_t)S * TILE;
@@ -191,14 +196,14 @@ row_copy_kernel(const float* __restrict__ src, int src_rows, const int* __restri
 
 // src [src_rows, 512] f32; rows [n_rows] i32; count: one i32 on the device
 // (n = count[0] clamped into [0, n_rows]) or null (n = n_host); stage_out
-// [S, 512] f32; acc_out [ctas] f32.
+// [64, 512] f32; acc_out [ctas] f32.
 extern "C" int hn_row_copy(const void* src, int src_rows, const void* rows, int n_rows,
-                           const void* count, int n_host, int span, int step, int reps, int S,
-                           int R, int ctas, void* stage_out, void* acc_out, void* stream) {
-  if (span < 1 || S < span || S % span || n_rows < 1 || n_host < 0 || n_host > n_rows ||
+                           const void* count, int n_host, int span, int step, int reps, int R,
+                           int ctas, void* stage_out, void* acc_out, void* stream) {
+  if (span < 1 || hn::S % span || n_rows < 1 || n_host < 0 || n_host > n_rows ||
       reps < 0 || ctas < 1 || src_rows < span || R < 0 || (R > 0 && (R < span || R > src_rows)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = hn::copy_smem_bytes(S, R, n_rows);
+  const size_t smem = hn::copy_smem_bytes(R, n_rows);
   if (smem > (size_t)hn::MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(hn::row_copy_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -219,7 +224,7 @@ extern "C" int hn_row_copy(const void* src, int src_rows, const void* rows, int 
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, hn::row_copy_kernel, static_cast<const float*>(src), src_rows,
                          static_cast<const int*>(rows), n_rows, static_cast<const int*>(count),
-                         n_host, span, step, reps, S, R, static_cast<float4*>(stage_out),
+                         n_host, span, step, reps, R, static_cast<float4*>(stage_out),
                          static_cast<float*>(acc_out));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -53,7 +53,7 @@ SIGNATURES = {
     "hn_take_along_rows": (_P, _P, _P, _I, _I, _P),
     "hn_take_rows": (_P, _P, _P, _I, _I, _P),
     "hn_take_chain": (_P, _P, _P, _I, _I, _P),
-    "hn_row_copy": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "hn_row_copy": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

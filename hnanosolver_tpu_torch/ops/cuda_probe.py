@@ -87,23 +87,21 @@ def take_chain(x: torch.Tensor, nbr6: torch.Tensor, reps: int) -> torch.Tensor:
 
 
 def row_copy(src: torch.Tensor, rows: torch.Tensor, n: int, span: int = 1, reps: int = 1,
-             step: int = 1, stage_rows: int = probe.STAGE_ROWS, onchip_rows: int = 0,
-             count: Optional[torch.Tensor] = None, ctas: int = 1
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+             step: int = 1, onchip_rows: int = 0, count: Optional[torch.Tensor] = None,
+             ctas: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """PC (P7-P16): :func:`ops.probe.row_copy`, each copy one bulk
     asynchronous copy into shared memory issued by one thread of each of
     ``ctas`` blocks. One launch."""
-    probe.check_copy_args(src, rows, n, span, reps, step, stage_rows, onchip_rows, count, ctas)
+    probe.check_copy_args(src, rows, n, span, reps, step, onchip_rows, count, ctas)
     for name, t in (("src", src), ("rows", rows), ("count", count)):
         if t is not None:
             build.require(t, name, tuple(t.shape), t.dtype, src.device)
     if build.on_cpu(src.device):
-        return row_copy_plain(src, rows, n, span, reps, step, stage_rows, onchip_rows, count,
-                              ctas)
-    stage = torch.empty((stage_rows, TILE), dtype=torch.float32, device=src.device)
+        return row_copy_plain(src, rows, n, span, reps, step, onchip_rows, count, ctas)
+    stage = torch.empty((probe.STAGE_ROWS, TILE), dtype=torch.float32, device=src.device)
     acc = torch.empty(ctas, dtype=torch.float32, device=src.device)
     _launch("hn_row_copy", launches_copy, src.device,
             src.data_ptr(), src.shape[0], rows.data_ptr(), rows.numel(),
-            0 if count is None else count.data_ptr(), n, span, step, reps, stage_rows,
-            onchip_rows, ctas, stage.data_ptr(), acc.data_ptr())
+            0 if count is None else count.data_ptr(), n, span, step, reps, onchip_rows, ctas,
+            stage.data_ptr(), acc.data_ptr())
     return stage, acc

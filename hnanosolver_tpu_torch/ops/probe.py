@@ -23,11 +23,11 @@ Indices must lie in ``[0, rows of x)``: the kernels clamp them into that
 range so that no address outside ``x`` is formed; these versions raise.
 
 PC, :func:`row_copy`: ``n`` copies of ``span`` rows into a stage of
-``stage_rows`` rows, ``reps`` times, and one value read back per rep. The
+``STAGE_ROWS`` (64) rows, ``reps`` times, and one value read back per rep. The
 TPU kernels issue their DMAs onto one semaphore and then drain them, so
 where two copies write the same stage rows the result is unordered there.
 This function fixes the order: within each rep the copies are issued in
-batches of at most ``stage_rows // span``, and a batch completes before
+batches of at most ``STAGE_ROWS // span``, and a batch completes before
 the next one is issued, so every stage row ends with its last writer's
 row.
 """
@@ -76,16 +76,16 @@ def take_chain(x: torch.Tensor, nbr6: torch.Tensor, reps: int) -> torch.Tensor:
     return s
 
 
-def max_onchip_rows(n_rows: int, stage_rows: int = STAGE_ROWS) -> int:
-    """The most source rows one block can hold in shared memory beside a
-    stage of ``stage_rows`` rows, a table of ``n_rows`` row starts and the
-    barrier: :func:`row_copy`'s largest ``onchip_rows``."""
-    return (SMEM_BYTES - stage_rows * ROW_BYTES - 16 * math.ceil(n_rows / 4) - 16) // ROW_BYTES
+def max_onchip_rows(n_rows: int) -> int:
+    """The most source rows one block can hold in shared memory beside the
+    stage, a table of ``n_rows`` row starts and the barrier:
+    :func:`row_copy`'s largest ``onchip_rows``."""
+    return (SMEM_BYTES - STAGE_ROWS * ROW_BYTES - 16 * math.ceil(n_rows / 4) - 16) // ROW_BYTES
 
 
 def check_copy_args(src: torch.Tensor, rows: torch.Tensor, n: int, span: int, reps: int,
-                    step: int, stage_rows: int, onchip_rows: int,
-                    count: Optional[torch.Tensor], ctas: int) -> None:
+                    step: int, onchip_rows: int, count: Optional[torch.Tensor],
+                    ctas: int) -> None:
     """Raise unless the arguments describe copies the kernel makes as
     :func:`row_copy` defines them (shapes, dtypes and the shared memory
     one block has)."""
@@ -96,16 +96,15 @@ def check_copy_args(src: torch.Tensor, rows: torch.Tensor, n: int, span: int, re
                          f"{tuple(rows.shape)}")
     if count is not None and (count.dtype != torch.int32 or count.numel() != 1):
         raise ValueError("count: expected one int32 value")
-    if span < 1 or stage_rows % span or not 0 <= n <= rows.numel() or reps < 0 or ctas < 1:
-        raise ValueError(f"span {span}, stage_rows {stage_rows}, n {n} of {rows.numel()} rows, "
-                         f"reps {reps}, ctas {ctas}")
-    if math.gcd(step, stage_rows // span) != 1:
+    if span < 1 or STAGE_ROWS % span or not 0 <= n <= rows.numel() or reps < 0 or ctas < 1:
+        raise ValueError(f"span {span}, n {n} of {rows.numel()} rows, reps {reps}, ctas {ctas}")
+    if math.gcd(step, STAGE_ROWS // span) != 1:
         # the slots of one batch must be distinct for "last writer" to hold
-        raise ValueError(f"step {step} is not prime to {stage_rows // span} slots")
+        raise ValueError(f"step {step} is not prime to {STAGE_ROWS // span} slots")
     if src.shape[0] < max(span, onchip_rows) or 0 < onchip_rows < span:
         raise ValueError(f"src rows {src.shape[0]}, span {span}, onchip_rows {onchip_rows}")
-    if onchip_rows > max_onchip_rows(rows.numel(), stage_rows):
-        raise ValueError(f"stage {stage_rows} + on-chip {onchip_rows} rows exceed "
+    if onchip_rows > max_onchip_rows(rows.numel()):
+        raise ValueError(f"stage {STAGE_ROWS} + on-chip {onchip_rows} rows exceed "
                          f"{SMEM_BYTES} bytes of shared memory")
 
 
@@ -120,37 +119,36 @@ def source_rows(src_rows: int, rows: torch.Tensor, span: int, onchip_rows: int) 
 
 
 def row_copy(src: torch.Tensor, rows: torch.Tensor, n: int, span: int = 1, reps: int = 1,
-             step: int = 1, stage_rows: int = STAGE_ROWS, onchip_rows: int = 0,
-             count: Optional[torch.Tensor] = None, ctas: int = 1
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stage ``[stage_rows, 512]`` and ``acc`` (float32 ``[ctas]``) of
+             step: int = 1, onchip_rows: int = 0, count: Optional[torch.Tensor] = None,
+             ctas: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stage ``[64, 512]`` and ``acc`` (float32 ``[ctas]``) of
     ``reps`` rounds of copies from ``src [R, 512]``.
 
     Copy ``i`` (``0 <= i < n``; ``n = count[0]`` clamped into
     ``[0, len(rows)]`` when a device-side ``count`` is given) writes source
     rows ``[s_i, s_i + span)`` (:func:`source_rows` of ``rows[i]``) into
-    stage rows ``[(i * step * span) mod stage_rows, ... + span)``. The stage
-    starts at zero; after each rep ``r``, ``acc += stage[r mod stage_rows,
+    stage rows ``[(i * step * span) mod 64, ... + span)``. The stage
+    starts at zero; after each rep ``r``, ``acc += stage[r mod 64,
     r mod 512]``. Every rep repeats the same copies, so the stage is the
     same after each. ``ctas`` blocks each compute the whole function: acc
     holds one value per block.
     """
-    check_copy_args(src, rows, n, span, reps, step, stage_rows, onchip_rows, count, ctas)
+    check_copy_args(src, rows, n, span, reps, step, onchip_rows, count, ctas)
     if count is not None:
         n = min(max(int(count[0]), 0), rows.numel())
     dev = src.device
-    stage = torch.zeros(stage_rows, TILE, dtype=torch.float32, device=dev)
+    stage = torch.zeros(STAGE_ROWS, TILE, dtype=torch.float32, device=dev)
     if n and reps:
         i = torch.arange(n, device=dev)
         k = torch.arange(span, device=dev)
-        dst = (((i * step * span) % stage_rows)[:, None] + k).reshape(-1)
+        dst = (((i * step * span) % STAGE_ROWS)[:, None] + k).reshape(-1)
         srow = (source_rows(src.shape[0], rows[:n], span, onchip_rows)[:, None] + k).reshape(-1)
         # copies later in the order overwrite earlier ones: the last writer wins
-        last = torch.full((stage_rows,), -1, dtype=torch.long, device=dev).scatter_reduce(
+        last = torch.full((STAGE_ROWS,), -1, dtype=torch.long, device=dev).scatter_reduce(
             0, dst, torch.arange(n * span, device=dev), "amax")
         hit = last >= 0
         stage[hit] = src[srow[last[hit]]]
     acc = torch.zeros((), dtype=torch.float32, device=dev)
     for r in range(reps):
-        acc = acc + stage[r % stage_rows, r % TILE]
+        acc = acc + stage[r % STAGE_ROWS, r % TILE]
     return stage, acc.repeat(ctas)

@@ -6,59 +6,24 @@ Each module runs as ``python -m hnanosolver_tpu_torch.tools.<name>``, on
 the CUDA card by default (``--device cpu`` runs the plain versions), and
 nothing runs at import. Every variant is checked against its expected
 value before anything is timed; a difference raises. Times come from CUDA
-events on the card and from the host clock on the CPU, and every timing
-line names its clock.
+events on the card and from the host clock on the CPU
+(``hnanosolver_tpu_torch/timing.py``), and every timing line names its
+clock. The inputs are made from the fixed seed ``SEED``.
 """
 
 from __future__ import annotations
 
 import argparse
-import statistics
-import time
 from typing import Callable, Optional
 
 import torch
 
 L2_FLUSH_BYTES = 128 * 2 ** 20  # more than the H100's 50 MB L2
-# a spin of ~1 ms ahead of each timed span on the card, so that the calls
-# queue behind it and the span holds their device time, not the host's
-# launch latency
-SPIN_CYCLES = 2_000_000
+SEED = 0  # the probes' inputs
 
 
 def clock(dev: torch.device) -> str:
     return "CUDA events" if dev.type == "cuda" else "host clock on the CPU, not a device time"
-
-
-def median_ms(fn: Callable[[], object], dev: torch.device, samples: int = 5,
-              before: Optional[Callable[[], object]] = None, batch: int = 1) -> float:
-    """Median ms of one call of ``fn`` after a warm-up call, each sample
-    ``batch`` back-to-back calls: CUDA events around them on the card,
-    behind a ~1 ms spin so that they run back to back (a span's time is
-    then the device's; the host's launch latency counts only where the
-    host falls behind the spin), the host clock on the CPU. ``before`` runs
-    ahead of each sample, outside the timed span."""
-    fn()
-    out = []
-    for _ in range(samples):
-        if before is not None:
-            before()
-        if dev.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            a.record()
-            for _ in range(batch):
-                fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b) / batch)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(batch):
-                fn()
-            out.append((time.perf_counter() - t0) * 1e3 / batch)
-    return statistics.median(out)
 
 
 def l2_flush(dev: torch.device) -> Optional[Callable[[], object]]:
@@ -86,7 +51,6 @@ def parser(doc: str, timed: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=doc.splitlines()[0])
     p.add_argument("--device", default=None,
                    help="cuda (default: the card; raises without one) or cpu")
-    p.add_argument("--seed", type=int, default=0)
     if timed:
         p.add_argument("--rounds", type=int, default=3, help="timing rounds")
     return p

@@ -17,34 +17,31 @@ Run: python -m hnanosolver_tpu_torch.tools.probe_dgather [--device cpu]
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional, Sequence
-
 import numpy as np
 import torch
 
 from hnanosolver_tpu_torch.cells import CELLS
-from hnanosolver_tpu_torch.core.topology import resolve_device
+from hnanosolver_tpu_torch.core.topology import Topology, resolve_device
 from hnanosolver_tpu_torch.ops import cuda_probe, probe
-from hnanosolver_tpu_torch.tools import clock, max_err, median_ms, parser
+from hnanosolver_tpu_torch.timing import median_ms
+from hnanosolver_tpu_torch.tools import SEED, clock, max_err, parser
 
 REPS = (4, 24)  # the chain's two lengths; the slope is over their difference
 
 
-def run(device=None, seed: int = 0, rounds: int = 3, envelope: Optional[Sequence[int]] = None,
-        say=print) -> dict:
-    """Check and time PG; returns the errors and times (ms) it printed.
-    ``envelope`` replaces the bench cell's plume envelope (a smaller
-    domain)."""
-    dev = resolve_device(device)
-    cell = CELLS["bench"]
-    if envelope is not None:
-        cell = dataclasses.replace(cell, envelope=tuple(envelope))
-    topo = cell.topology(dev)
+def run(device=None, rounds: int = 3, say=print) -> dict:
+    """:func:`measure` at the bench cell's topology."""
+    return measure(CELLS["bench"].topology(resolve_device(device)), rounds, say)
+
+
+def measure(topo: Topology, rounds: int = 3, say=print) -> dict:
+    """Check and time PG on ``topo``'s device; returns the errors and
+    times (ms) it printed."""
+    dev = topo.nbr.device
     T = topo.capacity
     nbr6 = probe.face_rows(topo.nbr)
     x = torch.from_numpy(
-        np.random.default_rng(seed).standard_normal((T, 512), dtype=np.float32)).to(dev)
+        np.random.default_rng(SEED).standard_normal((T, 512), dtype=np.float32)).to(dev)
     say(f"T={T} ({topo.n_active} tiles) on {dev}")
 
     res = {"T": T}
@@ -80,10 +77,10 @@ def run(device=None, seed: int = 0, rounds: int = 3, envelope: Optional[Sequence
     res["row_ms"] = {k: [] for k in rows}
     for r in range(rounds):
         for name, fn in chains.items():
-            lo, hi = (median_ms(lambda k=k: fn(k), dev) for k in REPS)
+            lo, hi = (median_ms(lambda k=k: fn(k), device=dev) for k in REPS)
             res["chain_ms_per_iter"][name].append((hi - lo) / span)
         for name, fn in rows.items():
-            res["row_ms"][name].append(median_ms(fn, dev))
+            res["row_ms"][name].append(median_ms(fn, device=dev))
         say(f"round {r}: 6-gather chain "
             + "  ".join(f"{k}={v[-1]:.4f}" for k, v in res["chain_ms_per_iter"].items())
             + " ms/iter; row gather "
@@ -94,7 +91,7 @@ def run(device=None, seed: int = 0, rounds: int = 3, envelope: Optional[Sequence
 
 def main(argv=None) -> None:
     args = parser(__doc__).parse_args(argv)
-    run(args.device, args.seed, args.rounds)
+    run(args.device, args.rounds)
 
 
 if __name__ == "__main__":

@@ -21,15 +21,15 @@ import torch
 
 from hnanosolver_tpu_torch.core.topology import resolve_device
 from hnanosolver_tpu_torch.ops import cuda_probe, probe
-from hnanosolver_tpu_torch.tools import max_err, parser
+from hnanosolver_tpu_torch.tools import SEED, max_err, parser
 
 T = 512  # source rows
 N = 64  # row starts
 
 
-def source(dev: torch.device, seed: int = 0) -> torch.Tensor:
+def source(dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(
-        np.random.default_rng(seed).standard_normal((T, 512), dtype=np.float32)).to(dev)
+        np.random.default_rng(SEED).standard_normal((T, 512), dtype=np.float32)).to(dev)
 
 
 def cases(x: torch.Tensor) -> list:
@@ -73,14 +73,14 @@ def check(x: torch.Tensor, case_list: list, say=print) -> dict:
     return errs
 
 
-def run(device=None, seed: int = 0, say=print) -> dict:
-    x = source(resolve_device(device), seed)
+def run(device=None, say=print) -> dict:
+    x = source(resolve_device(device))
     return check(x, cases(x), say)
 
 
 def main(argv=None) -> None:
     args = parser(__doc__, timed=False).parse_args(argv)
-    run(args.device, args.seed)
+    run(args.device)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,8 @@ import torch
 
 from hnanosolver_tpu_torch.core.topology import resolve_device
 from hnanosolver_tpu_torch.ops import cuda_probe, probe
-from hnanosolver_tpu_torch.tools import clock, ctas_all, median_ms, parser
+from hnanosolver_tpu_torch.timing import median_ms
+from hnanosolver_tpu_torch.tools import clock, ctas_all, parser
 from hnanosolver_tpu_torch.tools.probe_dmabisect import N, T, check, source
 
 V12_N = 512  # row copies per rep
@@ -59,12 +60,12 @@ def cases(x: torch.Tensor) -> list:
     ]
 
 
-def run(device=None, seed: int = 0, rounds: int = 3, say=print) -> dict:
+def run(device=None, rounds: int = 3, say=print) -> dict:
     """Check v7-v12, then time v12; returns the errors, the ns per row copy
     of each round by (source, L, blocks), as ``probe_dmacost.run``, and
     ``index_select``'s ns per row."""
     dev = resolve_device(device)
-    x = source(dev, seed)
+    x = source(dev)
     res = {"errs": check(x, cases(x), say)}
     big = v12_rows(dev)
     copies = (V12_REPS[1] - V12_REPS[0]) * V12_N
@@ -74,11 +75,11 @@ def run(device=None, seed: int = 0, rounds: int = 3, say=print) -> dict:
         parts = []
         for g in (1, ctas_all(dev)):
             lo, hi = (median_ms(lambda k=k: cuda_probe.row_copy(x, big, V12_N, reps=k, ctas=g),
-                                dev) for k in V12_REPS)
+                                device=dev) for k in V12_REPS)
             ns = (hi - lo) * 1e6 / copies
             res["ns_per_copy"].setdefault(("hbm warm", 1, g), []).append(ns)
             parts.append(f"{g} block{'s' * (g > 1)} {ns:.1f}")
-        lib = median_ms(lambda: torch.index_select(x, 0, big, out=out), dev) * 1e6 / V12_N
+        lib = median_ms(lambda: torch.index_select(x, 0, big, out=out), device=dev) * 1e6 / V12_N
         res["index_select_ns_per_row"].setdefault((1, "warm"), []).append(lib)
         say(f"round {r}: issue+drain ns/row-copy per block: {', '.join(parts)}; "
             f"index_select {lib:.2f} ns/row ({clock(dev)})")
@@ -87,7 +88,7 @@ def run(device=None, seed: int = 0, rounds: int = 3, say=print) -> dict:
 
 def main(argv=None) -> None:
     args = parser(__doc__).parse_args(argv)
-    run(args.device, args.seed, args.rounds)
+    run(args.device, args.rounds)
 
 
 if __name__ == "__main__":

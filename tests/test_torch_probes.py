@@ -502,17 +502,17 @@ def test_probe_cases_equal_their_expected_values(mod):
         assert torch.equal(pick(*probe.row_copy(x, **kw)), want), name
 
 
-def test_probe_scripts_run_on_cpu(capsys):
+def test_probe_scripts_run_on_cpu(dom, capsys):
     probe_dmabisect.main(["--device", "cpu"])
     probe_dmabisect2.main(["--device", "cpu", "--rounds", "1"])
     probe_dmacost.main(["--device", "cpu", "--rounds", "1"])
     probe_dgather.main(["--device", "cpu", "--rounds", "0"])  # the bench domain, checks only
-    res = probe_dgather.run("cpu", rounds=1, envelope=(16, 64))
+    res = probe_dgather.measure(dom[0], rounds=1)  # the timing loop on the small domain
     assert res["T"] == 512 and set(res["chain_ms_per_iter"]) == {"PG", "plain", "torch take6"}
     out = capsys.readouterr().out
     for line in ("v6_preload: OK", "v12: OK", "hbm_L8_n512: max|diff| vs plain=0.0e+00",
                  "T=4608 (4196 tiles)", "chain(reps (4, 24)): max|diff|=0.00e+00",
-                 "host clock on the CPU, not a device time"):
+                 "host clock on the CPU, not a device time", "one drain: issue"):
         assert line in out, line
 
 
