@@ -10,18 +10,20 @@ runs in phases, one line per check, and any failing check raises (non-zero
 exit). Each phase prints the seconds it took.
 
   1. device: nvidia-smi's card name and power limit, torch and CUDA versions
-  2. build the kernels, print the seconds it took
+  2. build the kernels, print the seconds it took and, for every B kernel
+     instance, what ptxas reports (registers, shared memory, spill bytes)
+     with the warps it leaves resident on an SM (kernels/build.py)
   3. each kernel against its plain PyTorch version on the card, inputs from
      a seed: at the bench shapes (4196-tile plume at capacity 4608) B1 in
      velocity and scalar mode with displacements past the clamp, without
      and with a collision SDF (the config-4 sphere; the share of traces it
      rejects is printed and must be > 0), B2 for F = 3 and F = 5 (bitwise),
-     B3 as 10 launches of 5 pairs, B4 both colours with and without an
-     in-domain mask, B6, B7a, B7b, B8 for n = 1, 3, 8 and 11 fields with
-     displacements past the clamp; B5 at T = 2048 with and without a mask
-     (24 iterations); on BASELINE config 5 (1024^3, 269,104 tiles) B3 with
-     mask at level 2 (6,144 rows), B6, B7a and B7b at the fine level
-     (269,312 rows)
+     B3 as 10 launches of 5 pairs (also at a capacity of 7 mod 8 rows), B4
+     both colours with and without an in-domain mask, B6, B7a, B7b, B8 for
+     n = 1, 3, 8 and 11 fields with displacements past the clamp; B5 at
+     T = 2048 with and without a mask (24 iterations); on BASELINE config 5
+     (1024^3, 269,104 tiles) B3 with mask at level 2 (6,144 rows), B3
+     without one, B6, B7a and B7b at the fine level (269,312 rows)
   4. the main path: plume_step for 20 steps from rest on the bench domain
      with the bench SolverParams / PlumeConfig, launch counters reset just
      before and read just after (exactly 2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b
@@ -41,8 +43,9 @@ exit). Each phase prints the seconds it took.
      plain step at this size): 4 RBGS-50 steps to develop the plume, MG
      steps (mg_levels 5) with exact launch counts, a project-only solve
      with both solvers (MG must reach max|r| <= 0.1 * max|div|), ms/step
-     of both, peak device memory; then each kernel call of one MG step
-     against its plain version, and the kernels' times
+     of both, peak device memory; then each kernel call of one MG step and
+     of one RBGS-50 step (B1, B2, B3, B7a, B7b, a kernel at a time) against
+     its plain version, and the kernels' times against their HBM bounds
  10. BASELINE config 4, the moving SDF sphere crossing the bench plume:
      run_collider for 20 frames from rest with exact launch counts (2 B1
      with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b per step); after every frame
@@ -86,10 +89,15 @@ exit). Each phase prints the seconds it took.
      the six face-neighbour rows, also against index_select, the chain at
      4 and 24 reps on normal and mixed-scale inputs) and every PC variant
      of the four probe scripts (one block and one per SM) against its plain
-     version, bitwise, with each one's time, bound and library call; then
+     version, bitwise, with each one's time, bound and library call (one
+     index_select of every row the launch copies: blocks x reps x n x L),
+     and ns a row copied beside index_select's; then
      the probe scripts themselves as the probes' own path (counters 0 before,
      read after): the gather chain and the copy costs per copy, batched
      and drained once a rep (issue and drain apart)
+
+Phases 6 and 9 print B1's and B3's times beside the records from before
+their redesign (``BEFORE_REDESIGN``), and the bench and config-5 steps'.
 
 Launch counts come only from the main-path runs (phases 4, 7-14), each
 with the counters set to 0 just before and read just after; launches made
@@ -106,7 +114,8 @@ back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
 move (each input read once, each output written once; B11 reads each
 distinct table value it copies once) over 3.35 TB/s and
-their f32 operations over 67 TFLOP/s (the H100 SXM data sheet). On the
+their f32 operations over 67 TFLOP/s (the H100 SXM data sheet); PC's library
+time is one index_select of every row its launch copies. On the
 bench domain a launch's operands fit the 50 MB L2 and stay there between
 back-to-back calls, as they largely do in the step, so its HBM bound is
 not a floor on its time; the per-launch lines say where that holds. Only
@@ -154,6 +163,12 @@ L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
 KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC")
 PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
+# Records from before kernels B1 and B3 were redesigned (PERF.md §5-6, NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's: ms a step of the bench
+# and config-5 RBGS-50 steps, and B1's and B3's ms a step of each (config 5:
+# device time from profile_step)
+BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
+                   "bench": {"B1": 0.1861, "B3": 0.4094}, "c5": {"B1": 10.3766, "B3": 20.4623}}
 
 
 def sh(cmd: list[str]) -> str:
@@ -234,11 +249,11 @@ def b11_read_bytes(dloc, nf: int) -> int:
     return int((dloc != 0).sum()) * nf * octant + dloc.shape[0] * nf * 8 * octant
 
 
-def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]:
+def bound_ms(key: str, args: tuple, kwargs: dict, out_bytes: int) -> tuple[float, str, int]:
     """The least time the card could take for one launch: (ms, bound by,
-    bytes moved). Each input is read once and each output written once;
-    B11's reads are the table values its dloc picks (the data decides
-    them): :func:`b11_read_bytes`."""
+    bytes moved). Each input is read once and each output (``out_bytes``)
+    written once; B11's reads are the table values its dloc picks (the data
+    decides them): :func:`b11_read_bytes`."""
     import torch
 
     seen, moved = set(), 0
@@ -248,7 +263,7 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out) -> tuple[float, str, int]
             moved += nbytes(a)
     if key == "B11":  # it reads each distinct 27-table value it copies once
         moved = nbytes(args[1]) + b11_read_bytes(args[1], args[2])
-    moved += nbytes(out)
+    moved += out_bytes
     ops = ops_per_voxel(key, args, kwargs) * rows(key, args) * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
@@ -297,12 +312,12 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     info = build.build()
     build.library()
-    regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
+    res = build.parse_ptxas(info.log)
     print(f"[2] build: {info.seconds:.1f} s -> {info.path.name}"
-          f" ({len(regs)} ptxas register reports; one nvcc per source, no -rdc)",
-          flush=True)
-    for ln in regs:
-        print(f"    ptxas: {ln}")
+          f" ({len(res)} kernel instances; one nvcc per source, no -rdc)", flush=True)
+    for r in res:  # every B kernel instance: its resources and resident warps
+        if r.threads is not None:
+            print(f"[2] {r.line()}", flush=True)
     done("2")
 
     dev = torch.device("cuda")
@@ -444,14 +459,14 @@ def main() -> int:
 
     def record(run, keys) -> list:
         """Run ``run`` once with the wrappers of ``keys`` recording their
-        calls: [key, args, kwargs, result, count] per distinct call (the
-        first one's inputs are kept)."""
+        calls: [key, args, kwargs, output bytes, count] per distinct call
+        (the first one's inputs are kept)."""
         groups = {}
         with contextlib.ExitStack() as stack:
             for key in keys:
                 def rec(*a, _fn=kernels[key]["kernel_fn"], _key=key, **kw):
                     out = _fn(*a, **kw)
-                    groups.setdefault(sig(_key, a, kw), [_key, a, kw, out, 0])[4] += 1
+                    groups.setdefault(sig(_key, a, kw), [_key, a, kw, nbytes(out), 0])[4] += 1
                     return out
                 stack.enter_context(mock.patch.object(*kernels[key]["wrap"], rec))
             run()
@@ -460,9 +475,10 @@ def main() -> int:
 
     def vs_plain(label, key, a, kw):
         """One recorded call through the kernel and through its plain
-        version, each on its own copy of the inputs (B4 updates p in
-        place)."""
+        version (B4, which updates p in place, each on its own copy)."""
         def inputs():
+            if key != "B4":
+                return a
             return [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
 
         k = kernels[key]
@@ -479,7 +495,7 @@ def main() -> int:
         distinct call, times its count. ``plain=False`` times the kernels
         alone."""
         res = {}
-        for key, a, kw, out, count in groups:
+        for key, a, kw, out_bytes, count in groups:
             k = kernels[key]
             vs_plain(label, key, a, kw)
             if plain:
@@ -489,7 +505,7 @@ def main() -> int:
                 k["kernel_fn"](*a, **kw)
                 k_ms = statistics.median(time_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10))
                 p_ms = float("nan")
-            b_ms, by, moved = bound_ms(key, a, kw, out)
+            b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
             r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
             r["ms"] += k_ms * count
             r["plain_ms"] += p_ms * count
@@ -561,6 +577,20 @@ def main() -> int:
         p_k = cuda_pressure.rbsor_lagged(topo.nbr, p_k, div, lag, omega, dx2)
         p_p = cuda_pressure.rbsor_lagged_plain(topo.nbr, p_p, div, lag, omega, dx2)
     check("B3", f"{params.iterations // lag} launches x {lag} pairs", p_k, p_p)
+    # a capacity of 7 mod 8 rows: B3's last block is short, and the +-z
+    # links of the bench tiles break at every place inside its blocks
+    tiles = plume.build_plume_envelope(*bench.envelope)
+    n_t = len(np.unique(tiles, axis=0))
+    t_odd = build_topology(tiles, capacity=n_t + 1 + (6 - n_t) % 8, device=dev)
+    m_odd = active_mask(t_odd)[:, None]
+    d_odd = field(t_odd.capacity, 512, mask=m_odd)
+    p_k = p_p = torch.zeros_like(d_odd)
+    for _ in range(params.iterations // lag):
+        p_k = cuda_pressure.rbsor_lagged(t_odd.nbr, p_k, d_odd, lag, omega, dx2)
+        p_p = cuda_pressure.rbsor_lagged_plain(t_odd.nbr, p_p, d_odd, lag, omega, dx2)
+    check("B3", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8), "
+          f"{params.iterations // lag} launches x {lag} pairs", p_k, p_p)
+    del tiles, t_odd, m_odd, d_odd
     mask = in_domain(T, m)
     p0 = field(T, 512)
     for mk in (None, mask):
@@ -611,6 +641,9 @@ def main() -> int:
     check("B3", f"mask, config-5 level 2 T={lv2.topo.capacity}, 2 launches x 1 pair", p_k, p_p)
     m_c5 = active_mask(c5)[:, None]
     pc, dc = field(c5.capacity, 512, mask=m_c5), field(c5.capacity, 512, mask=m_c5)
+    check("B3", f"config-5 fine T={c5.capacity}, 1 launch x {lag} pairs",
+          cuda_pressure.rbsor_lagged(c5.nbr, pc, dc, lag, omega, dx2),
+          cuda_pressure.rbsor_lagged_plain(c5.nbr, pc, dc, lag, omega, dx2))
     check("B6", f"config-5 fine T={c5.capacity}", cuda_stencil.residual(c5.nbr, pc, dc, 0.5),
           cuda_stencil.residual_plain(c5.nbr, pc, dc, 0.5))
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -654,9 +687,14 @@ def main() -> int:
     vups = topo.num_voxels / (step_ms * 1e-3)
     for key, r in time_calls("6", record(one_step, ("B1", "B2", "B3", "B7a", "B7b"))).items():
         kernels[key].update(r)
-    print(f"[6] step: {step_ms:.3f} ms/step (median of 15, CUDA events), "
-          f"{vups:.4e} active voxel-updates/s, {topo.num_voxels} voxels, "
-          f"{params.iterations} iterations | {card}", flush=True)
+    for key in ("B1", "B3"):
+        r = kernels[key]
+        print(f"[6] {key} {r['name']}: {r['ms']:.4f} ms/step, {r['bound_ms'] / r['ms']:.1%} of its "
+              f"bound {r['bound_ms']:.4f}; before the redesign {BEFORE_REDESIGN['bench'][key]} | "
+              f"{card}", flush=True)
+    print(f"[6] step: {step_ms:.3f} ms/step (median of 15, CUDA events; before the redesign of "
+          f"B1 and B3 {BEFORE_REDESIGN['bench step']}), {vups:.4e} active voxel-updates/s, "
+          f"{topo.num_voxels} voxels, {params.iterations} iterations | {card}", flush=True)
     done("6")
 
     # -- 7. multigrid on the bench domain ----------------------------------------
@@ -769,7 +807,8 @@ def main() -> int:
         del p5
     peak = torch.cuda.max_memory_allocated()
     print(f"[9] config 5 ms/step (median of 3, CUDA events): MG {c5_ms['MG']:.1f}, "
-          f"RBGS-50 {c5_ms['RBGS-50']:.1f}; {c5.num_voxels / (c5_ms['MG'] * 1e-3):.4e} "
+          f"RBGS-50 {c5_ms['RBGS-50']:.1f} (before the redesign of B1 and B3 "
+          f"{BEFORE_REDESIGN['c5 RBGS-50 step']}); {c5.num_voxels / (c5_ms['MG'] * 1e-3):.4e} "
           f"(MG) and {c5.num_voxels / (c5_ms['RBGS-50'] * 1e-3):.4e} (RBGS) active "
           f"voxel-updates/s; peak device memory {peak / 2**30:.2f} GiB | {card}", flush=True)
     if not rmax["MG"] <= C5_RMAX_OVER_DIV0 * div0:
@@ -777,6 +816,18 @@ def main() -> int:
                              f"div0 {div0}")
     # after the peak is read: the plain versions' temporaries are not the step's
     time_calls("9", record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6", "B7a", "B7b")), plain=False)
+    # the RBGS-50 step's kernels at their true HBM bounds, a kernel at a time
+    # (the recorded inputs of all five and a plain version's temporaries
+    # would not fit the card together)
+    rb5 = {}
+    for key in ("B1", "B2", "B3", "B7a", "B7b"):
+        torch.cuda.empty_cache()
+        rb5.update(time_calls("9 RBGS-50", record(c5_step(c5_rb, ()), (key,)), plain=False))
+    for key in ("B1", "B3"):
+        print(f"[9] {key} at config 5, RBGS-50: {rb5[key]['ms']:.4f} ms/step, "
+              f"{rb5[key]['bound_ms'] / rb5[key]['ms']:.1%} of its bound "
+              f"{rb5[key]['bound_ms']:.4f}; before the redesign {BEFORE_REDESIGN['c5'][key]} | "
+              f"{card}", flush=True)
     del c5, st5, c5_hier, lv2, div5
     torch.cuda.empty_cache()
     done("9")
@@ -1224,27 +1275,38 @@ def main() -> int:
                   0.0, "15")
     del xm, idxr
 
+    def copy_n(kw) -> int:
+        return int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
+
+    def rows_copied(kw) -> int:
+        """Rows one launch copies: ctas x reps x n x L."""
+        return kw.get("ctas", 1) * kw.get("reps", 1) * copy_n(kw) * kw.get("span", 1)
+
+    def copy_spans(x_, kw):
+        """The source row of every row one round of copies reads (n x L)."""
+        n, L = copy_n(kw), kw.get("span", 1)
+        return (probe.source_rows(x_.shape[0], kw["rows"][:n], L, kw.get("onchip_rows", 0))
+                [:, None] + torch.arange(L, device=dev)).reshape(-1)
+
     def copy_bound_ms(x_, kw):
         """Bytes the copies need over the HBM rate: each source row they
         read once (the data decides), the row starts, the stage and acc
-        written once; None for the on-chip source."""
+        written once; None for the on-chip source. (Every copy's bytes,
+        rows_copied x 2 KB, over the HBM rate would be no least time: the
+        copies re-read rows the L2 holds.)"""
         if kw.get("onchip_rows", 0):
             return None
-        n = int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
-        L = kw.get("span", 1)
-        first = probe.source_rows(x_.shape[0], kw["rows"][:n], L, 0)
-        used = int(torch.unique(first[:, None] + torch.arange(L, device=dev)).numel()) if n else 0
-        return bytes_ms(used * 2048 + 4 * n + probe.STAGE_ROWS * 2048 + 4 * kw.get("ctas", 1))
+        used = int(torch.unique(copy_spans(x_, kw)).numel())
+        return bytes_ms(used * 2048 + 4 * copy_n(kw) + probe.STAGE_ROWS * 2048
+                        + 4 * kw.get("ctas", 1))
 
     def copy_lib_ms(x_, kw):
-        """index_select of the rows the copies read, into a buffer."""
-        n = int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
-        L = kw.get("span", 1)
-        spans = (probe.source_rows(x_.shape[0], kw["rows"][:max(n, 1)], L,
-                                   kw.get("onchip_rows", 0))[:, None]
-                 + torch.arange(L, device=dev)).reshape(-1)
-        buf = torch.empty(spans.numel(), 512, device=dev)
-        return median_ms(lambda: torch.index_select(x_, 0, spans, out=buf), batch=5)
+        """One index_select of every row the launch copies (rows_copied:
+        one round's n x L rows for each block and rep), into a buffer."""
+        reps = kw.get("ctas", 1) * kw.get("reps", 1)
+        idx = copy_spans(x_, kw).repeat(reps)
+        buf = torch.empty(idx.numel(), 512, device=dev)
+        return median_ms(lambda: torch.index_select(x_, 0, idx, out=buf), batch=5)
 
     xb = probe_dmabisect.source(dev)
     xc, rows_c = probe_dmacost.inputs(dev)
@@ -1267,14 +1329,26 @@ def main() -> int:
                 check("PC", f"{label} vs expected", picked, want.expand_as(picked), 0.0, "15")
             k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(x_, **kwg),
                                    lambda: cuda_probe.row_copy_plain(x_, **kwg), batch=5)
-            ms_line(label, k_ms, p_ms, copy_bound_ms(x_, kwg), copy_lib_ms(x_, kw),
-                    "index_select")
+            lib_ms = copy_lib_ms(x_, kwg) if rows_copied(kwg) else float("nan")
+            ms_line(label, k_ms, p_ms, copy_bound_ms(x_, kwg), lib_ms, "index_select")
+            if rows_copied(kwg):
+                print(f"[15] {label}: {rows_copied(kwg)} rows copied a launch; ns a row copied: "
+                      f"PC {k_ms * 1e6 / rows_copied(kwg):.4f}, index_select "
+                      f"{lib_ms * 1e6 / rows_copied(kwg):.4f} | {card}", flush=True)
     pc_kw = dict(rows=rows_c, n=probe_dmacost.NS[1], span=8, reps=probe_dmacost.REPS,
                  ctas=ctas_all(dev))
     k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(xc, **pc_kw),
                            lambda: cuda_probe.row_copy_plain(xc, **pc_kw))
+    lib_ms = copy_lib_ms(xc, pc_kw)
     kernels["PC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=copy_bound_ms(xc, pc_kw),
-                         bound_by="bytes", library_ms=copy_lib_ms(xc, pc_kw))
+                         bound_by="bytes", library_ms=lib_ms)
+    print(f"[15] PC JSON launch (L {pc_kw['span']}, n {pc_kw['n']}, {pc_kw['reps']} reps, "
+          f"{pc_kw['ctas']} blocks: {rows_copied(pc_kw)} rows copied): {k_ms:.4f} ms, "
+          f"{k_ms * 1e6 / rows_copied(pc_kw):.4f} ns a row copied; index_select of as many "
+          f"rows {lib_ms:.4f} ms, {lib_ms * 1e6 / rows_copied(pc_kw):.4f} ns a row; bound "
+          f"{kernels['PC']['bound_ms']:.6f} ms (each source row once), "
+          f"{bytes_ms(rows_copied(pc_kw) * 2048):.4f} for every row copied over the HBM "
+          f"rate | {card}", flush=True)
     del xb, xc, rows_c
 
     # the probes' own path: the four probe scripts, counters 0 before, read after

@@ -13,7 +13,7 @@
 // the dual form is its use_dual instance (the 16^3 window on the dual
 // table) in the modes "both", "back" and "fwd".
 //
-// Per voxel x of tile t (one thread per voxel, one 512-thread block per tile):
+// Per voxel x of tile t:
 //   d   = clamp(-u(x) * sdt, +-lim)                 back trace
 //   phiF_f = trilinear(field f, x + d)   for f in [0, nb)
 //   d2  = clamp(d + phiF_{0..2} * sdt, +-lim)       re-trace from u(back)
@@ -35,72 +35,144 @@
 // What bounds it on the H100: memory. Each voxel reads its nb fields once
 // and writes 2*(nb - f_lo) outputs (72 B/voxel in scalar mode with 5
 // scalars); its 16*nb corner reads fall inside 27 neighbouring tile rows
-// (nbr form) or 8 dual rows (dual form) and are served by L1/L2. The simple
-// design: stage the tile's 27 nbr (or 8 ldual) entries in shared memory,
-// read corners through the read-only cache (__ldg), keep all per-field sums
-// in registers (NB is a template parameter), no shared-memory staging of
-// field data yet.
+// (nbr form) or 8 dual rows (dual form) and are served by L1/L2. Both forms
+// stage the tile's 27 nbr (or 8 ldual) entries in shared memory and read
+// corners through the read-only cache (__ldg), per-field sums in registers
+// (NB is a template parameter).
+//
+// The nbr form is the one on the main path. A voxel's gathers form two
+// dependent rounds (8*nb corner loads, the re-trace, 8*(nb - f_lo) more),
+// so one voxel a thread left one chain of loads in flight a thread. Here a
+// thread carries V voxels (c and c + 512/V of its tile, so that every
+// warp-wide load still covers 32 consecutive voxels) through each phase
+// together, and samples the velocity first: the re-trace needs only u at
+// the back trace, so its clamp and probe come before the scalar samples,
+// and the back and forward scalar samples of all V voxels are then
+// independent chains. V = 2 in blocks of 256 threads, or V = 1 in blocks
+// of 512 where the SDF probes add two samples a voxel; __launch_bounds__
+// caps the registers at 64 a thread, so that 32 warps stay resident on an
+// SM. Each field of each voxel still goes through trilinear.cuh::sample with
+// the same arguments, so each result is the same float as before, bitwise.
+// The dual form runs the same body at one voxel a thread.
 #include "trilinear.cuh"
 
 namespace hn {
 
-// The fused pair (back sample, re-trace, forward sample) from the back
-// displacement d; fc reads the fields, sc the SDF (HAS_SDF only).
-template <int NB, int FLO, bool HAS_SDF, class Corners>
-__device__ __forceinline__ void fused_pair(const Corners& fc, const Corners& sc, int cx,
-                                           int cy, int cz, float dx, float dy, float dz,
-                                           float sdt, float lim, float* __restrict__ out,
-                                           size_t plane, size_t self) {
+// The nbr form's launch shape: V voxels a thread, blocks of TILE / V threads
+// (a tile), 2 * V blocks resident an SM (64 registers a thread, 32 warps).
+// V = 2, or 1 with the SDF probes: their two extra samples a voxel make a
+// thread of two voxels spill.
+template <bool HAS_SDF>
+struct NbrShape {
+  static constexpr int V = HAS_SDF ? 1 : 2;
+  static constexpr int THREADS = TILE / V;
+  static constexpr int MIN_BLOCKS = 2 * V;
+};
+
+// The fused pairs (back sample, re-trace, forward sample) of V voxels from
+// their back displacements d, phase by phase across the V voxels; fc reads
+// the fields, sc the SDF (HAS_SDF only). Voxel v is (cx[v], cy[v], cz[v])
+// of its tile and writes out[j * plane + self[v]].
+template <int V, int NB, int FLO, bool HAS_SDF, class Corners>
+__device__ __forceinline__ void fused_pairs(const Corners& fc, const Corners& sc,
+                                            const int (&cx)[V], const int (&cy)[V],
+                                            const int (&cz)[V], float (&dx)[V],
+                                            float (&dy)[V], float (&dz)[V], float sdt,
+                                            float lim, float* __restrict__ out, size_t plane,
+                                            const size_t (&self)[V]) {
   if constexpr (HAS_SDF) {
-    float probe[1];
-    sample<0, 1>(sc, cx, cy, cz, dx, dy, dz, probe);
-    if (probe[0] < 0.0f) dx = dy = dz = 0.0f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float probe[1];
+      sample<0, 1>(sc, cx[v], cy[v], cz[v], dx[v], dy[v], dz[v], probe);
+      if (probe[0] < 0.0f) dx[v] = dy[v] = dz[v] = 0.0f;
+    }
   }
 
-  float back[NB];
-  sample<0, NB>(fc, cx, cy, cz, dx, dy, dz, back);
-  float d2x = clampf(add(dx, mul(back[0], sdt)), -lim, lim);
-  float d2y = clampf(add(dy, mul(back[1], sdt)), -lim, lim);
-  float d2z = clampf(add(dz, mul(back[2], sdt)), -lim, lim);
+  // the velocity at the back trace first: the re-trace needs only it
+  float uv[V][3];
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    sample<0, 3>(fc, cx[v], cy[v], cz[v], dx[v], dy[v], dz[v], uv[v]);
+  float d2x[V], d2y[V], d2z[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    d2x[v] = clampf(add(dx[v], mul(uv[v][0], sdt)), -lim, lim);
+    d2y[v] = clampf(add(dy[v], mul(uv[v][1], sdt)), -lim, lim);
+    d2z[v] = clampf(add(dz[v], mul(uv[v][2], sdt)), -lim, lim);
+  }
   if constexpr (HAS_SDF) {
-    float probe[1];
-    sample<0, 1>(sc, cx, cy, cz, d2x, d2y, d2z, probe);
-    if (probe[0] < 0.0f) {
-      d2x = dx;
-      d2y = dy;
-      d2z = dz;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float probe[1];
+      sample<0, 1>(sc, cx[v], cy[v], cz[v], d2x[v], d2y[v], d2z[v], probe);
+      if (probe[0] < 0.0f) {
+        d2x[v] = dx[v];
+        d2y[v] = dy[v];
+        d2z[v] = dz[v];
+      }
     }
   }
   constexpr int NO = NB - FLO;
-  float fwd[NO];
-  sample<FLO, NB>(fc, cx, cy, cz, d2x, d2y, d2z, fwd);
+  float back[V][NO], fwd[V][NO];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if constexpr (FLO == 0) {
+#pragma unroll
+      for (int j = 0; j < NO; ++j) back[v][j] = uv[v][j];
+    } else {
+      sample<FLO, NB>(fc, cx[v], cy[v], cz[v], dx[v], dy[v], dz[v], back[v]);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    sample<FLO, NB>(fc, cx[v], cy[v], cz[v], d2x[v], d2y[v], d2z[v], fwd[v]);
 
 #pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    out[j * plane + self] = back[FLO + j];
-    out[(NO + j) * plane + self] = fwd[j];
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      out[j * plane + self[v]] = back[v][j];
+      out[(NO + j) * plane + self[v]] = fwd[v][j];
+    }
   }
 }
 
+// The back displacement clamp(-u * sdt, +-lim) of voxel `self` from the
+// velocity rows (3 planes `plane` floats apart).
+__device__ __forceinline__ void back_disp(const float* __restrict__ vel, size_t plane,
+                                          size_t self, float sdt, float lim, float& dx,
+                                          float& dy, float& dz) {
+  dx = clampf(mul(-vel[self], sdt), -lim, lim);
+  dy = clampf(mul(-vel[plane + self], sdt), -lim, lim);
+  dz = clampf(mul(-vel[2 * plane + self], sdt), -lim, lim);
+}
+
 template <int NB, int FLO, bool HAS_SDF>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(NbrShape<HAS_SDF>::THREADS, NbrShape<HAS_SDF>::MIN_BLOCKS)
 bfecc_sample_kernel(const float* __restrict__ fields, const float* __restrict__ sdf,
                     const int* __restrict__ nbr, float* __restrict__ out, int T, float sdt,
                     float lim) {
   __shared__ int snbr[27];
   const int t = blockIdx.x;
-  const int c = threadIdx.x;
-  if (c < 27) snbr[c] = nbr[(size_t)t * 27 + c];
+  if (threadIdx.x < 27) snbr[threadIdx.x] = nbr[(size_t)t * 27 + threadIdx.x];
   __syncthreads();
 
+  constexpr int V = NbrShape<HAS_SDF>::V;
   const size_t plane = (size_t)T * TILE;
-  const size_t self = (size_t)t * TILE + c;
-  const float dx = clampf(mul(-fields[self], sdt), -lim, lim);
-  const float dy = clampf(mul(-fields[plane + self], sdt), -lim, lim);
-  const float dz = clampf(mul(-fields[2 * plane + self], sdt), -lim, lim);
-  fused_pair<NB, FLO, HAS_SDF>(NbrCorners{fields, plane, snbr}, NbrCorners{sdf, plane, snbr},
-                               c >> 6, (c >> 3) & 7, c & 7, dx, dy, dz, sdt, lim, out, plane,
-                               self);
+  int cx[V], cy[V], cz[V];
+  size_t self[V];
+  float dx[V], dy[V], dz[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c = threadIdx.x + v * NbrShape<HAS_SDF>::THREADS;
+    cx[v] = c >> 6, cy[v] = (c >> 3) & 7, cz[v] = c & 7;
+    self[v] = (size_t)t * TILE + c;
+    back_disp(fields, plane, self[v], sdt, lim, dx[v], dy[v], dz[v]);
+  }
+  fused_pairs<V, NB, FLO, HAS_SDF>(NbrCorners{fields, plane, snbr},
+                                   NbrCorners{sdf, plane, snbr}, cx, cy, cz, dx, dy, dz, sdt,
+                                   lim, out, plane, self);
 }
 
 // Dual form, mode "both". tbl [nc, Ud*nf, 512] with nf = NB (+1: the SDF
@@ -119,13 +191,13 @@ bfecc_dual_kernel(const float* __restrict__ tbl, const int* __restrict__ ldual,
   constexpr int NF = NB + (HAS_SDF ? 1 : 0);
   const float* chunk = tbl + (size_t)(t / C) * Ud * NF * TILE;
   const size_t plane = (size_t)T * TILE;
-  const size_t self = (size_t)t * TILE + c;
-  const float dx = clampf(mul(-vel[self], sdt), -lim, lim);
-  const float dy = clampf(mul(-vel[plane + self], sdt), -lim, lim);
-  const float dz = clampf(mul(-vel[2 * plane + self], sdt), -lim, lim);
-  fused_pair<NB, FLO, HAS_SDF>(DualCorners{chunk, NF, sdual},
-                               DualCorners{chunk + NB * TILE, NF, sdual}, c >> 6, (c >> 3) & 7,
-                               c & 7, dx, dy, dz, sdt, lim, out, plane, self);
+  const int cx[1] = {c >> 6}, cy[1] = {(c >> 3) & 7}, cz[1] = {c & 7};
+  const size_t self[1] = {(size_t)t * TILE + c};
+  float dx[1], dy[1], dz[1];
+  back_disp(vel, plane, self[0], sdt, lim, dx[0], dy[0], dz[0]);
+  fused_pairs<1, NB, FLO, HAS_SDF>(DualCorners{chunk, NF, sdual},
+                                   DualCorners{chunk + NB * TILE, NF, sdual}, cx, cy, cz, dx,
+                                   dy, dz, sdt, lim, out, plane, self);
 }
 
 // Dual form, modes "back" (FROM_VEL: d = clamp(-vd * sdt)) and "fwd" (d =
@@ -160,9 +232,11 @@ template <int NB, int FLO>
 static cudaError_t launch(const float* fields, const float* sdf, const int* nbr, float* out,
                           int T, float sdt, float lim, cudaStream_t s) {
   if (sdf == nullptr)
-    bfecc_sample_kernel<NB, FLO, false><<<T, TILE, 0, s>>>(fields, sdf, nbr, out, T, sdt, lim);
+    bfecc_sample_kernel<NB, FLO, false><<<T, NbrShape<false>::THREADS, 0, s>>>(
+        fields, sdf, nbr, out, T, sdt, lim);
   else
-    bfecc_sample_kernel<NB, FLO, true><<<T, TILE, 0, s>>>(fields, sdf, nbr, out, T, sdt, lim);
+    bfecc_sample_kernel<NB, FLO, true><<<T, NbrShape<true>::THREADS, 0, s>>>(
+        fields, sdf, nbr, out, T, sdt, lim);
   return cudaGetLastError();
 }
 

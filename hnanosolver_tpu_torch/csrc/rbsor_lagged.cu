@@ -12,83 +12,208 @@
 // with the six neighbours added in the order +x -x +y -y +z -z. In-tile
 // neighbours are fresh; cross-tile face values are taken once per launch
 // from the launch-start p (lagged halo) and stay fixed for the K pairs.
-//
-// One 512-thread block per tile; p's tile lives in shared memory for the
-// whole launch and a __syncthreads() separates half-sweeps (a colour reads
-// only the other colour's cells, so one barrier per half-sweep suffices).
 // The kernel reads p_in and writes p_out, never in place: blocks run in any
 // order, and in place a block could read face planes a neighbour had
 // already updated, where the lagged semantics gather them before the launch.
 //
+// What bounds it on the H100: memory. A launch must read p and div once
+// and write p once (12 B a voxel); the 2K half-sweeps run on chip. The
+// design keeps every voxel busy and every load in full sectors:
+//   - One warp a tile, G tiles a block. A lane owns two (x, y) columns of
+//     8 z values in registers: column A at x = xa with xa + y even and
+//     column B at xa ^ 1 (xa + y odd), so in every half-sweep each lane
+//     updates 4 voxels of each column (A's colour-c voxels have z parity c,
+//     B's 1 - c: compile-time indices once the colour loop is unrolled).
+//     p and div load, and p_out stores, as float4 pairs.
+//   - The x/y neighbours are other lanes' columns, exchanged through a
+//     shared copy of the tile that carries a ring of halo columns: 10 x 10
+//     columns (x, y in [-1, 8]), each split by z parity into two float4
+//     (z even, z odd). A half-sweep reads the other colour, which lies in
+//     the same parity half as the lane's own colour, from its four x/y
+//     neighbour columns (four 16-byte loads; the 8 lanes of a quarter warp,
+//     y = 0..7, hit 8 different bank groups) and writes its own colour's
+//     half back. It writes only its colour and reads only the other, so one
+//     __syncwarp per half-sweep is exact, and no tile waits on another.
+//   - The ring holds the lagged +-x and +-y faces: one neighbour column (8
+//     contiguous floats, two float4) per lane, four faces of 8 columns.
+//   - +-z faces: with sorted keys nbr[t, +z] is t + 1 or 0 and nbr[t, -z]
+//     is t - 1 or 0 (the key's low bits are tz). Each tile writes its
+//     launch-start z = 0 and z = 7 planes to shared memory before one
+//     __syncthreads; a tile whose z neighbour is its block neighbour reads
+//     the face there (still the launch-start values, as the lagged halo
+//     asks), any other reads p_in as before. The invariant only decides
+//     where a value is read from, never which value.
+// The sum runs through common.cuh's round-to-nearest intrinsics in the
+// plain version's order, so the result is bitwise that of
+// ops/cuda_pressure.py::rbsor_lagged_plain.
+//
 // Optional in-domain mask [T, 512] (the multigrid coarse levels, JAX's
 // voxel-granular porg): a voxel whose mask is not > 0 never updates; the
 // caller zeroes those voxels of p once before the first launch, as
-// solve_pressure_lagged does. Without a mask (null) every voxel of every
-// row updates, through the same code as before the mask existed (the
-// template's MASKED = false instance). So the null and padding rows are
-// updated too, and they stay 0 only because they enter at 0, their div is
-// 0 and their nbr entries are all 0: every cross-tile face read of theirs
-// is a read of the null row, which stays 0 for the same reasons.
-//
-// What bounds it on the H100: memory. A launch reads p and div once (8 B per
-// voxel), the six face planes of the neighbours (6*64*4 B per tile, mostly
-// L2 hits) and writes p once (4 B per voxel); the 2K half-sweeps run in
-// shared memory. The bench's 50 iterations at K = 5 are 10 launches.
+// solve_pressure_lagged does (the MASKED = true instance). Without a mask
+// (null) every voxel of every row updates. So the null and padding rows
+// are updated too, and they stay 0 only because they enter at 0, their div
+// is 0 and their nbr entries are all 0: every cross-tile face read of
+// theirs is a read of the null row, which stays 0 for the same reasons.
 #include "common.cuh"
 
 namespace hn {
 
+// tiles a block, one warp each (G = 8 ran as fast on the H100; 4 makes
+// smaller blocks and a smaller tail)
+constexpr int G = 4;
+constexpr int RING = 10;                  // columns a side of a tile's shared copy
+constexpr int HALF_STRIDE = RING * RING;  // float4 between the z-even and z-odd halves
+constexpr unsigned FULL = 0xffffffffu;
+
+// float4 index of column (x, y), x and y in [-1, 8], in parity half 0
+__device__ __forceinline__ int ring(int x, int y) { return (x + 1) * RING + (y + 1); }
+
+__device__ __forceinline__ void load_col(const float* __restrict__ src, float* v) {
+  const float4 lo = *reinterpret_cast<const float4*>(src);
+  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+__device__ __forceinline__ void store_col(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// column v (8 z values) into the tile's shared copy at ring index r
+__device__ __forceinline__ void put_col(float4* st, int r, const float* v) {
+  st[r] = make_float4(v[0], v[2], v[4], v[6]);
+  st[HALF_STRIDE + r] = make_float4(v[1], v[3], v[5], v[7]);
+}
+
+// One half-sweep of column (x, y) whose colour lies at z parity O: the
+// four x/y neighbours from the shared copy (their other colour is in half O
+// too), the z neighbours from the column itself or the lagged faces zp
+// (above z = 7) and zm (below z = 0).
+template <bool MASKED, int O>
+__device__ __forceinline__ void update_column(float4* st, int x, int y, float* v,
+                                              const float* r, float zp, float zm,
+                                              unsigned in_dom, float omega) {
+  const float4* h = st + O * HALF_STRIDE;
+  const float4 px = h[ring(x + 1, y)], mx = h[ring(x - 1, y)];
+  const float4 py = h[ring(x, y + 1)], my = h[ring(x, y - 1)];
+  const float fpx[4] = {px.x, px.y, px.z, px.w}, fmx[4] = {mx.x, mx.y, mx.z, mx.w};
+  const float fpy[4] = {py.x, py.y, py.z, py.w}, fmy[4] = {my.x, my.y, my.z, my.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int z = 2 * j + O;
+    if (MASKED && !((in_dom >> z) & 1u)) continue;
+    float sum = add(fpx[j], fmx[j]);
+    sum = add(sum, fpy[j]);
+    sum = add(sum, fmy[j]);
+    sum = add(sum, z == 7 ? zp : v[z == 7 ? z : z + 1]);
+    sum = add(sum, z == 0 ? zm : v[z == 0 ? z : z - 1]);
+    const float pgs = mul(sub(sum, r[z]), 1.0f / 6.0f);
+    v[z] = add(v[z], mul(omega, sub(pgs, v[z])));
+  }
+  st[O * HALF_STRIDE + ring(x, y)] = make_float4(v[O], v[O + 2], v[O + 4], v[O + 6]);
+}
+
+// 64 registers a thread (8 blocks, 32 warps an SM); the masked instance
+// needs 80 not to spill (6 blocks)
 template <bool MASKED>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(G * 32, MASKED ? 6 : 8)
 rbsor_lagged_kernel(const float* __restrict__ p_in, const float* __restrict__ div,
                     const int* __restrict__ nbr, const float* __restrict__ mask,
-                    float* __restrict__ p_out, int K, float omega, float dx2) {
-  __shared__ float s[TILE];
-  const int t = blockIdx.x;
-  const int c = threadIdx.x;
-  const size_t self = (size_t)t * TILE + c;
-  const int cx = c >> 6, cy = (c >> 3) & 7, cz = c & 7;
-  const int* nb = nbr + (size_t)t * 27;
+                    float* __restrict__ p_out, int T, int K, float omega, float dx2) {
+  __shared__ float4 tiles[G][2 * HALF_STRIDE];
+  __shared__ float zplane[G][2][64];  // launch-start z = 0 and z = 7 planes
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * G + g;
+  const bool active = t < T;  // the tail block's extra warps only meet the barrier
+  const int y = lane & 7;
+  const int xa = 2 * (lane >> 3) + (y & 1), xb = xa ^ 1;
+  float4* st = tiles[g];
 
-  float p = p_in[self];
-  s[c] = p;
-  // lagged cross-tile face values: the neighbour row's voxel on the
-  // touching plane (coordinate wrapped mod 8); only boundary ones are used
-  const float fpx = (cx == 7) ? p_in[(size_t)nb[D_PX] * TILE + c - 448] : 0.0f;
-  const float fmx = (cx == 0) ? p_in[(size_t)nb[D_MX] * TILE + c + 448] : 0.0f;
-  const float fpy = (cy == 7) ? p_in[(size_t)nb[D_PY] * TILE + c - 56] : 0.0f;
-  const float fmy = (cy == 0) ? p_in[(size_t)nb[D_MY] * TILE + c + 56] : 0.0f;
-  const float fpz = (cz == 7) ? p_in[(size_t)nb[D_PZ] * TILE + c - 7] : 0.0f;
-  const float fmz = (cz == 0) ? p_in[(size_t)nb[D_MZ] * TILE + c + 7] : 0.0f;
-  const float rhs = mul(div[self], dx2);
-  const float sixth = 1.0f / 6.0f;
-  const int parity = (cx + cy + cz) & 1;
-  const bool in_dom = !MASKED || mask[self] > 0.0f;
+  float a[8], b[8], ra[8], rb[8];
+  unsigned ma = 0xffu, mb = 0xffu;
+  int npz = 0, nmz = 0;
+  if (active) {
+    const size_t row = (size_t)t * TILE;
+    const int nb = lane < 27 ? nbr[(size_t)t * 27 + lane] : 0;
+    const int npx = __shfl_sync(FULL, nb, D_PX), nmx = __shfl_sync(FULL, nb, D_MX);
+    const int npy = __shfl_sync(FULL, nb, D_PY), nmy = __shfl_sync(FULL, nb, D_MY);
+    npz = __shfl_sync(FULL, nb, D_PZ);
+    nmz = __shfl_sync(FULL, nb, D_MZ);
+    const int ca = xa * 64 + y * 8, cb = xb * 64 + y * 8;
+    load_col(p_in + row + ca, a);
+    load_col(p_in + row + cb, b);
+    load_col(div + row + ca, ra);
+    load_col(div + row + cb, rb);
+#pragma unroll
+    for (int z = 0; z < 8; ++z) ra[z] = mul(ra[z], dx2), rb[z] = mul(rb[z], dx2);
+    if (MASKED) {
+      float m[8];
+      ma = mb = 0u;
+      load_col(mask + row + ca, m);
+#pragma unroll
+      for (int z = 0; z < 8; ++z) ma |= (m[z] > 0.0f ? 1u : 0u) << z;
+      load_col(mask + row + cb, m);
+#pragma unroll
+      for (int z = 0; z < 8; ++z) mb |= (m[z] > 0.0f ? 1u : 0u) << z;
+    }
+    put_col(st, ring(xa, y), a);
+    put_col(st, ring(xb, y), b);
+    zplane[g][0][xa * 8 + y] = a[0], zplane[g][1][xa * 8 + y] = a[7];
+    zplane[g][0][xb * 8 + y] = b[0], zplane[g][1][xb * 8 + y] = b[7];
+    // the lagged +-x / +-y faces: lane -> (face, i), one neighbour column
+    // (x = 0 or 7 for the x faces, y = 0 or 7 for the y faces) into the ring
+    const int face = lane >> 3, i = lane & 7;
+    const int src = face == 0 ? npx : face == 1 ? nmx : face == 2 ? npy : nmy;
+    const int scol = face == 0 ? i * 8 : face == 1 ? 448 + i * 8 : face == 2 ? i * 64 : i * 64 + 56;
+    const int dst = face == 0 ? ring(8, i) : face == 1 ? ring(-1, i) : face == 2 ? ring(i, 8)
+                                                                                   : ring(i, -1);
+    float h[8];
+    load_col(p_in + (size_t)src * TILE + scol, h);
+    put_col(st, dst, h);
+  }
   __syncthreads();
+  if (!active) return;
+
+  // the lagged +-z faces, from the block neighbour's launch-start plane
+  // where nbr points at it, else from p_in
+  float zpa, zpb, zma, zmb;
+  if (npz == t + 1 && g + 1 < G) {
+    zpa = zplane[g + 1][0][xa * 8 + y];
+    zpb = zplane[g + 1][0][xb * 8 + y];
+  } else {
+    const float* q = p_in + (size_t)npz * TILE + y * 8;
+    zpa = q[xa * 64];
+    zpb = q[xb * 64];
+  }
+  if (nmz == t - 1 && g > 0) {
+    zma = zplane[g - 1][1][xa * 8 + y];
+    zmb = zplane[g - 1][1][xb * 8 + y];
+  } else {
+    const float* q = p_in + (size_t)nmz * TILE + y * 8 + 7;
+    zma = q[xa * 64];
+    zmb = q[xb * 64];
+  }
 
   for (int k = 0; k < K; ++k) {
-    for (int color = 0; color < 2; ++color) {
-      if (parity == color && in_dom) {
-        float sum = (cx == 7) ? fpx : s[cx == 7 ? c : c + 64];
-        sum = add(sum, (cx == 0) ? fmx : s[cx == 0 ? c : c - 64]);
-        sum = add(sum, (cy == 7) ? fpy : s[cy == 7 ? c : c + 8]);
-        sum = add(sum, (cy == 0) ? fmy : s[cy == 0 ? c : c - 8]);
-        sum = add(sum, (cz == 7) ? fpz : s[cz == 7 ? c : c + 1]);
-        sum = add(sum, (cz == 0) ? fmz : s[cz == 0 ? c : c - 1]);
-        const float pgs = mul(sub(sum, rhs), sixth);
-        p = add(p, mul(omega, sub(pgs, p)));
-        s[c] = p;
-      }
-      __syncthreads();
-    }
+    update_column<MASKED, 0>(st, xa, y, a, ra, zpa, zma, ma, omega);
+    update_column<MASKED, 1>(st, xb, y, b, rb, zpb, zmb, mb, omega);
+    __syncwarp();
+    update_column<MASKED, 1>(st, xa, y, a, ra, zpa, zma, ma, omega);
+    update_column<MASKED, 0>(st, xb, y, b, rb, zpb, zmb, mb, omega);
+    __syncwarp();
   }
-  p_out[self] = p;
+  const size_t row = (size_t)t * TILE;
+  store_col(p_out + row + xa * 64 + y * 8, a);
+  store_col(p_out + row + xb * 64 + y * 8, b);
 }
 
 }  // namespace hn
 
-// p_in, div, p_out: [T, 512] f32 (p_out must not alias p_in); nbr [T, 27] i32;
-// mask [T, 512] f32 or null (every voxel in the domain).
+// p_in, div, p_out: [T, 512] f32, 16-byte aligned (float4 loads; p_out must
+// not alias p_in); nbr [T, 27] i32; mask [T, 512] f32 or null (every voxel
+// in the domain), 16-byte aligned.
 extern "C" int hn_rbsor_lagged(const void* p_in, const void* div, const void* nbr,
                                const void* mask, void* p_out, int T, int K, float omega,
                                float dx2, void* stream) {
@@ -99,9 +224,12 @@ extern "C" int hn_rbsor_lagged(const void* p_in, const void* div, const void* nb
   const float* m = static_cast<const float*>(mask);
   float* po = static_cast<float*>(p_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (T + hn::G - 1) / hn::G;
   if (m == nullptr)
-    hn::rbsor_lagged_kernel<false><<<T, hn::TILE, 0, s>>>(pi, d, n, m, po, K, omega, dx2);
+    hn::rbsor_lagged_kernel<false><<<blocks, hn::G * 32, 0, s>>>(pi, d, n, m, po, T, K, omega,
+                                                                 dx2);
   else
-    hn::rbsor_lagged_kernel<true><<<T, hn::TILE, 0, s>>>(pi, d, n, m, po, K, omega, dx2);
+    hn::rbsor_lagged_kernel<true><<<blocks, hn::G * 32, 0, s>>>(pi, d, n, m, po, T, K, omega,
+                                                                dx2);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ launch of a process, from the sources in the checkout only, into
 ``build/hnanosolver_tpu_torch/`` at the repo root. The library's file name
 carries a hash of the sources and the flags, so an edit to any source
 rebuilds; ``nvcc.log`` beside it keeps the compiler's output (``-Xptxas
--v``: registers, shared memory, spills).
+-v``: registers, shared memory, spills), which :func:`parse_ptxas` reads
+back per kernel instance with the warps each leaves resident on an SM.
 
 Each C entry takes device pointers, ints and floats plus the CUDA stream,
 launches on that stream and returns ``cudaGetLastError()``; the Python
@@ -23,9 +24,11 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -57,6 +60,42 @@ SIGNATURES = {
 }
 
 
+# H100 SM limits for the resident-warp count (CUDA occupancy rules for
+# sm_90): registers are allocated per warp in units of 256, shared memory per
+# block plus 1 KB the runtime reserves, out of 228 KB an SM
+SM_REGISTERS = 65_536
+SM_WARPS = 64
+SM_BLOCKS = 32
+SM_SHARED = 228 * 1024
+BLOCK_SHARED_RESERVED = 1024
+REG_ALLOC_UNIT = 256
+# threads a block of each kernel, as its launch in csrc/ sets them
+# (bfecc_sample_kernel: block_threads)
+BLOCK_THREADS = {
+    "bfecc_dual_kernel": 512,
+    "sample_dual_kernel": 512,
+    "bfecc_tail_kernel": 512,
+    "combine_dual_kernel": 512,
+    "rbsor_lagged_kernel": 128,  # rbsor_lagged.cu: G * 32
+    "rbsor_color_kernel": 256,
+    "rbsor_fused_kernel": 256,
+    "residual_kernel": 512,
+    "sample_at_kernel": 512,
+    "divergence_kernel": 512,
+    "subtract_gradient_kernel": 512,
+}
+
+
+def block_threads(instance: str) -> Optional[int]:
+    """Threads a block of a kernel instance (``name<args>``), None if not
+    listed. bfecc_sample.cu's NbrShape: 512 with the SDF probes (its last
+    template argument), else 256."""
+    kernel, _, args = instance.partition("<")
+    if kernel == "bfecc_sample_kernel":
+        return 512 if args.rstrip(">").endswith("true") else 256
+    return BLOCK_THREADS.get(kernel)
+
+
 @dataclasses.dataclass
 class LaunchCount:
     """Kernel launches made by one wrapper (only where it launches)."""
@@ -70,6 +109,82 @@ class BuildInfo:
     path: Path
     seconds: float  # 0.0 when the library was already built
     log: str
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelResources:
+    """One kernel instance's resources as ``ptxas -v`` reports them."""
+
+    name: str  # the kernel with its template arguments, e.g. rbsor_lagged_kernel<false>
+    registers: int
+    shared: int  # static shared memory, bytes
+    spill_stores: int
+    spill_loads: int
+    threads: Optional[int]  # threads a block (block_threads), None if not listed
+
+    def resident_warps(self) -> Optional[int]:
+        """Warps of whole blocks an SM holds at once, the least of the
+        register, shared-memory, warp and block limits."""
+        if self.threads is None:
+            return None
+        warps = -(-self.threads // 32)
+        per_warp = -(-self.registers * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+        blocks = min(SM_WARPS // warps, SM_BLOCKS,
+                     (SM_REGISTERS // per_warp) // warps if per_warp else SM_BLOCKS,
+                     SM_SHARED // (self.shared + BLOCK_SHARED_RESERVED))
+        return blocks * warps
+
+    def line(self) -> str:
+        warps = self.resident_warps()
+        resident = "?" if warps is None else f"{warps}/{SM_WARPS}"
+        return (f"{self.name}: {self.registers} regs, {self.shared} B smem, spills "
+                f"{self.spill_stores}/{self.spill_loads} B (store/load), {self.threads} threads "
+                f"a block -> {resident} resident warps an SM")
+
+
+_TEMPLATE_ARG = re.compile(r"L([bij])(n?)(\d+)E")
+
+
+def demangle(symbol: str) -> str:
+    """``_ZN2hn19rbsor_lagged_kernelILb0EEEv...`` -> ``rbsor_lagged_kernel<false>``:
+    the name after the namespace and its bool/int template arguments (enough
+    for this library's kernels; another symbol comes back as it is)."""
+    m = re.match(r"_Z(?:N2hn)?(\d+)", symbol)
+    if not m:
+        return symbol
+    start = m.end()
+    name = symbol[start:start + int(m.group(1))]
+    rest = symbol[start + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args = []
+    for kind, neg, val in _TEMPLATE_ARG.findall(rest[1:rest.index("EE") + 2]):
+        v = int(val) * (-1 if neg else 1)
+        args.append(("false", "true")[v] if kind == "b" else str(v))
+    return f"{name}<{', '.join(args)}>"
+
+
+def parse_ptxas(log: str) -> list[KernelResources]:
+    """Every kernel instance of a ``-Xptxas -v`` log: registers, static
+    shared memory and spill bytes, and its block size (:func:`block_threads`)."""
+    out, name, spills = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spills = demangle(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name is not None:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(KernelResources(
+                name, int(m.group(1)), int(smem.group(1)) if smem else 0, *spills,
+                block_threads(name)))
+            name = None
+    return out
 
 
 def _sources() -> list[Path]:
@@ -166,6 +281,15 @@ def require(t, name: str, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def require_aligned(tensors, name: str, align: int) -> None:
+    """Raise unless every tensor (None skipped) starts on an ``align``-byte
+    boundary (a kernel's vector loads assume it)."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name}: a tensor starts at {t.data_ptr():#x}, not on a "
+                             f"{align}-byte boundary")
+
+
 def on_cpu(device) -> bool:
     """True for a CPU tensor (plain version); False for a CUDA tensor
     (kernel); raises for any other device."""
@@ -174,3 +298,13 @@ def on_cpu(device) -> bool:
     if device.type == "cuda":
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+if __name__ == "__main__":
+    # python -m hnanosolver_tpu_torch.kernels.build [NVCC_LOG]: the resource
+    # report of a build log (default: this checkout's, building it first)
+    import sys
+
+    text = Path(sys.argv[1]).read_text() if len(sys.argv) > 1 else build().log
+    for r in parse_ptxas(text):
+        print(r.line())

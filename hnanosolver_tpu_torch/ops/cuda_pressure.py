@@ -72,6 +72,7 @@ def rbsor_lagged(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor,
         raise ValueError(f"pairs must be >= 1, got {pairs}")
     if build.on_cpu(p.device):
         return rbsor_lagged_plain(nbr, p, div, pairs, omega, dx2, mask)
+    build.require_aligned((p, div, mask), "rbsor_lagged", 16)  # float4 loads
     out = torch.empty_like(p)
     with torch.cuda.device(p.device):
         code = build.library().hn_rbsor_lagged(
