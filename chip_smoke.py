@@ -12,18 +12,25 @@ exit). Each phase prints the seconds it took.
   1. device: nvidia-smi's card name and power limit, torch and CUDA versions
   2. build the kernels, print the seconds it took and, for every B kernel
      instance, what ptxas reports (registers, shared memory, spill bytes)
-     with the warps it leaves resident on an SM (kernels/build.py)
+     with the warps it leaves resident on an SM (kernels/build.py), and B5's
+     launch shape at each T it solves on the main paths and at its
+     threshold (cluster size, threads, tiles a block, shared bytes)
   3. each kernel against its plain PyTorch version on the card, inputs from
      a seed: at the bench shapes (4196-tile plume at capacity 4608) B1 in
      velocity and scalar mode with displacements past the clamp, without
      and with a collision SDF (the config-4 sphere; the share of traces it
      rejects is printed and must be > 0), B2 for F = 3 and F = 5 (bitwise),
      B3 as 10 launches of 5 pairs (also at a capacity of 7 mod 8 rows), B4
-     both colours with and without an in-domain mask, B6, B7a, B7b, B8 for
-     n = 1, 3, 8 and 11 fields with displacements past the clamp; B5 at
-     T = 2048 with and without a mask (24 iterations); on BASELINE config 5
-     (1024^3, 269,104 tiles) B3 with mask at level 2 (6,144 rows), B3
-     without one, B6, B7a and B7b at the fine level (269,312 rows)
+     both colours with and without an in-domain mask, B6 at dx 0.5 and 0.3
+     (also at the capacity of 7 mod 8 rows), B7a, B7b, B8 for n = 1, 3, 8
+     and 11 fields with displacements past the clamp; on BASELINE config 5
+     (1024^3, 269,104 tiles) B3 with mask and B6 on masked inputs at level 2
+     (6,144 rows), B3 without one, B6, B7a and B7b at the fine level
+     (269,312 rows); B5 bitwise at config 5's levels 3-5 (1024 rows in the
+     grid form, 128 and 32 in the cluster form), at CLUSTER_ROWS (the
+     cluster form's largest T), CLUSTER_ROWS + 1 and 2048 (the grid form),
+     with and without a mask, for 0, 2 and 24 iterations, and the cluster
+     form where the null row is not 0
   4. the main path: plume_step for 20 steps from rest on the bench domain
      with the bench SolverParams / PlumeConfig, launch counters reset just
      before and read just after (exactly 2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b
@@ -36,7 +43,11 @@ exit). Each phase prints the seconds it took.
      version's and its bound
   7. the multigrid path on the bench domain (mg_levels 2, 2 V-cycles, FMG):
      MG_STEPS steps from the developed state with exact launch counts, one
-     step kernels vs plain, each kernel call of one step vs plain, timings
+     step kernels vs plain, each kernel call of one step vs plain (B5, B6
+     bitwise), timings; B5's and B6's ms a step beside their bound and
+     their records from before the redesign; B5's us a half-sweep and a
+     launch at each T of the step, fitted from 2 and 24 iterations on the
+     recorded inputs, in each form that holds T
   8. one bench step in the "parity" precision tier (halo_lag 1: 100 B4
      colour sweeps), kernels vs plain, each B4 call vs plain, B4's time
   9. BASELINE config 5 at full size, steps through the kernels only (no
@@ -45,7 +56,9 @@ exit). Each phase prints the seconds it took.
      with both solvers (MG must reach max|r| <= 0.1 * max|div|), ms/step
      of both, peak device memory; then each kernel call of one MG step and
      of one RBGS-50 step (B1, B2, B3, B7a, B7b, a kernel at a time) against
-     its plain version, and the kernels' times against their HBM bounds
+     its plain version, and the kernels' times against their HBM bounds;
+     B5's and B6's MG ms a step beside their records, and B5's fits as in
+     phase 7
  10. BASELINE config 4, the moving SDF sphere crossing the bench plume:
      run_collider for 20 frames from rest with exact launch counts (2 B1
      with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b per step); after every frame
@@ -97,7 +110,8 @@ exit). Each phase prints the seconds it took.
      and drained once a rep (issue and drain apart)
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
-their redesign (``BEFORE_REDESIGN``), and the bench and config-5 steps'.
+their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, and the
+bench and config-5 steps'.
 
 Launch counts come only from the main-path runs (phases 4, 7-14), each
 with the counters set to 0 just before and read just after; launches made
@@ -154,7 +168,7 @@ SEED = 0
 # B1's forward sample sits at a re-traced position whose ulp error is
 # multiplied by the field's gradient.
 TOL_B1 = 1e-5  # max abs err / max |ref|
-TOL_B3 = 1e-5  # max abs err / max |ref|, 10 launches of 5 pairs (also B4-B6)
+TOL_B3 = 1e-5  # max abs err / max |ref|, 10 launches of 5 pairs (also B4; B2, B5, B6: 0)
 TOL_STEP = 1e-4  # per field, one full step from the developed state
 C5_RMAX_OVER_DIV0 = 0.1  # SCALE_r05.md's convergence criterion
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
@@ -163,12 +177,17 @@ L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
 KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC")
 PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
-# Records from before kernels B1 and B3 were redesigned (PERF.md §5-6, NVIDIA
-# H100 80GB HBM3 at 700 W), printed beside this run's: ms a step of the bench
-# and config-5 RBGS-50 steps, and B1's and B3's ms a step of each (config 5:
-# device time from profile_step)
+# Records from before kernels were redesigned (PERF.md §5-6, NVIDIA H100 80GB
+# HBM3 at 700 W), printed beside this run's: ms a step of the bench and
+# config-5 RBGS-50 steps and B1's and B3's ms a step of each (config 5:
+# device time from profile_step); B5's and B6's ms a step of the bench and
+# config-5 MG steps and the config-5 MG step's ms, as chip_smoke measured
+# them before B5 and B6 were redesigned
 BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
-                   "bench": {"B1": 0.1861, "B3": 0.4094}, "c5": {"B1": 10.3766, "B3": 20.4623}}
+                   "bench": {"B1": 0.1861, "B3": 0.4094}, "c5": {"B1": 10.3766, "B3": 20.4623},
+                   "bench MG": {"B5": 0.6590, "B6": 0.0684},
+                   "c5 MG": {"B5": 1.731, "B6": 4.767}, "c5 MG step": 155.1}
+B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main paths
 
 
 def sh(cmd: list[str]) -> str:
@@ -298,7 +317,7 @@ def main() -> int:
                                            tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
     from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
-    from hnanosolver_tpu_torch.tools import (ctas_all, probe_dgather, probe_dmabisect,
+    from hnanosolver_tpu_torch.tools import (b5_cost, ctas_all, probe_dgather, probe_dmabisect,
                                              probe_dmabisect2, probe_dmacost)
 
     def done(phase: str):
@@ -318,6 +337,17 @@ def main() -> int:
     for r in res:  # every B kernel instance: its resources and resident warps
         if r.threads is not None:
             print(f"[2] {r.line()}", flush=True)
+    for T_ in sorted(set(B5_LEVELS) | {cuda_pressure.CLUSTER_ROWS,
+                                       cuda_pressure.CLUSTER_ROWS + 1}):  # B5's launches
+        sh_ = cuda_pressure.fused_shape(T_)
+        if sh_.form == "cluster":
+            print(f"[2] B5 at T={T_}: one cluster of {sh_.cluster} blocks x {sh_.threads} threads "
+                  f"(rbsor_cluster_kernel: a thread a column, {sh_.tiles_per_block} tiles a "
+                  f"block, {sh_.smem} B of dynamic shared memory a block, one block an SM)",
+                  flush=True)
+        else:
+            print(f"[2] B5 at T={T_}: the grid form (rbsor_fused_kernel, {sh_.threads}-thread "
+                  "blocks, at most 4 resident an SM, grid barriers)", flush=True)
     done("2")
 
     dev = torch.device("cuda")
@@ -485,9 +515,9 @@ def main() -> int:
         got, want = k["kernel_fn"](*inputs(), **kw), k["plain_fn"](*inputs(), **kw)
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
+        tol = TOL_B1 if key in ("B1", "B8", "B1d") else 0.0 if key in ("B5", "B6") else TOL_B3
         for g, w in zip(got, want):
-            check(key, f"main-path call {call_label(key, a)}", g, w,
-                  TOL_B1 if key in ("B1", "B8", "B1d") else TOL_B3, label)
+            check(key, f"main-path call {call_label(key, a)}", g, w, tol, label)
 
     def time_calls(label: str, groups: list, plain: bool = True) -> dict:
         """Each recorded call against its plain version on the same inputs,
@@ -502,8 +532,7 @@ def main() -> int:
                 k_ms, p_ms = paired_ms(lambda: k["kernel_fn"](*a, **kw),
                                        lambda: k["plain_fn"](*a, **kw))
             else:
-                k["kernel_fn"](*a, **kw)
-                k_ms = statistics.median(time_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10))
+                k_ms = median_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10)  # behind the spin
                 p_ms = float("nan")
             b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
             r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
@@ -521,6 +550,36 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} plain, bound {r['bound_ms']:.4f} ({r['bound_by']})"
                   f" | {card}", flush=True)
         return res
+
+    def fit_b5(label: str, groups: list):
+        """B5's us a half-sweep and a launch, fitted from 2 and 24 iterations
+        (tools/b5_cost.fit), in each form that holds T, at each T of a path's
+        recorded calls, on their inputs."""
+        seen = set()
+        for key, a, kw, _, _ in groups:
+            T_ = a[0].shape[0]
+            if key != "B5" or T_ in seen:
+                continue
+            seen.add(T_)
+            parts = []
+            for form in ("cluster", "grid"):
+                if form == "cluster" and T_ > cuda_pressure.CLUSTER_CAPACITY:
+                    continue
+                half, launch = b5_cost.fit(b5_cost.form_solver(form, a[0], a[1], kw.get("mask"),
+                                                               a[3], a[4]))
+                parts.append(f"{form} form {half:.3f} us a half-sweep, {launch:.3f} us a launch")
+            print(f"[{label}] B5 T={T_} ({cuda_pressure.fused_shape(T_).form} form on the path): "
+                  + "; ".join(parts) + f" (the grid form is the design before the redesign) | "
+                  f"{card}", flush=True)
+
+    def redesigned(label: str, path: str, res: dict):
+        """B5's and B6's ms a step of a path beside their bound and their
+        records from before the redesign."""
+        for key in ("B5", "B6"):
+            r = res[key]
+            print(f"[{label}] {key} {kernels[key]['name']}, {path} step: {r['ms']:.4f} ms/step, "
+                  f"{r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f}; before the "
+                  f"redesign {BEFORE_REDESIGN[path][key]} | {card}", flush=True)
 
     # -- 3. kernels vs plain versions ------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -590,6 +649,10 @@ def main() -> int:
         p_p = cuda_pressure.rbsor_lagged_plain(t_odd.nbr, p_p, d_odd, lag, omega, dx2)
     check("B3", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8), "
           f"{params.iterations // lag} launches x {lag} pairs", p_k, p_p)
+    # B6's tail block too: G = 4 tiles a block, so 7 mod 8 rows leave it 3
+    check("B6", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8)",
+          cuda_stencil.residual(t_odd.nbr, p_k, d_odd, 0.5),
+          cuda_stencil.residual_plain(t_odd.nbr, p_k, d_odd, 0.5), 0.0)
     del tiles, t_odd, m_odd, d_odd
     mask = in_domain(T, m)
     p0 = field(T, 512)
@@ -599,8 +662,9 @@ def main() -> int:
             want = cuda_pressure.rbsor_color_plain(topo.nbr, pk, div, color, omega, dx2, mk)
             cuda_pressure.rbsor_color(topo.nbr, pk, div, color, omega, dx2, mk)
             check("B4", f"colour {color}, {'mask' if mk is not None else 'no mask'}", pk, want)
-    check("B6", f"bench T={T}", cuda_stencil.residual(topo.nbr, p0, div, 0.5),
-          cuda_stencil.residual_plain(topo.nbr, p0, div, 0.5))
+    for dx_ in (0.5, 0.3):  # an exact and an inexact dx^2
+        check("B6", f"bench T={T}, dx {dx_}", cuda_stencil.residual(topo.nbr, p0, div, dx_),
+              cuda_stencil.residual_plain(topo.nbr, p0, div, dx_), 0.0)
     for inv_dx in (params.inv_voxel_size, 1.0 / 0.3):  # an exact and an inexact scale
         check("B7a", f"bench T={T}, inv_dx {inv_dx:.4f}",
               cuda_stencil.divergence(topo.nbr, vel, inv_dx),
@@ -618,20 +682,45 @@ def main() -> int:
               f"displacements at the clamp", cuda_sample.sample_at(topo.nbr, fn, dd),
               cuda_sample.sample_at_plain(topo.nbr, fn, dd), TOL_B1)
     del dd, allf, fn
-    t5 = build_topology(plume.build_plume_envelope(40, 256), capacity=2048, device=dev)
-    m5 = active_mask(t5)[:, None]
-    d5, k5 = field(2048, 512, mask=m5), in_domain(2048, m5)
-    for mk in (None, k5):
-        check("B5", f"T=2048, 24 iterations, {'mask' if mk is not None else 'no mask'}",
-              cuda_pressure.rbsor_fused(t5.nbr, d5, 24, omega, dx2, mask=mk),
-              cuda_pressure.rbsor_fused_plain(t5.nbr, d5, 24, omega, dx2, mask=mk))
-    del t5, m5, d5, k5
-
     # BASELINE config 5: the domain and its hierarchy (reused in phase 9)
     c5 = CELLS["c5"].topology(dev)
     c5_mg = CELLS["c5-mg"].params
     c5_hier = multigrid.hierarchy_for(c5, c5_mg)
     lv2 = c5_hier[1]
+
+    # B5 in both forms at every level it solves on the main paths (config 5's
+    # levels 3-5: 1024 rows in the grid form, 128 and 32 in the cluster form,
+    # with their masks), at the cluster form's largest T (CLUSTER_ROWS), at
+    # that T + 1 and at 2048 in the grid form; with and without a mask, from
+    # a p0 that is non-zero outside it, 0, 2 and 24 iterations
+    b5_cases = [(lv.topo, lv.mask, 4 ** k * dx2)
+                for k, lv in enumerate(c5_hier, 1) if lv.topo.capacity in B5_LEVELS]
+    tiles = np.unique(plume.build_plume_envelope(40, 256), axis=0)
+    for cap in (cuda_pressure.CLUSTER_ROWS, cuda_pressure.CLUSTER_ROWS + 1, 2048):
+        t5 = build_topology(tiles[:cap - 2], capacity=cap, device=dev)
+        b5_cases.append((t5, active_mask(t5)[:, None], dx2))
+    for t5, m5, dx2_ in b5_cases:
+        T5 = t5.capacity
+        d5, k5, p05 = field(T5, 512, mask=m5), in_domain(T5, m5), field(T5, 512, mask=m5)
+        for mk in (None, k5):
+            for it in (0, 2, 24):
+                check("B5", f"T={T5} ({cuda_pressure.fused_shape(T5).form} form), {it} "
+                      f"iterations, {'mask' if mk is not None else 'no mask'}",
+                      cuda_pressure.rbsor_fused(t5.nbr, d5, it, omega, dx2_, p0=p05, mask=mk),
+                      cuda_pressure.rbsor_fused_plain(t5.nbr, d5, it, omega, dx2_, p0=p05,
+                                                      mask=mk), 0.0)
+    # the cluster form where the null row is not +0 (p0 and div random on
+    # every row, the null and padding rows too): its reads of row 0 then go
+    # to block 0's shared memory instead of a local zero tile
+    t5 = next(lv.topo for lv in c5_hier if lv.topo.capacity <= cuda_pressure.CLUSTER_ROWS)
+    every = torch.ones((t5.capacity, 1), device=dev)
+    d5, p05 = field(t5.capacity, 512, mask=every), field(t5.capacity, 512, mask=every)
+    for mk in (None, in_domain(t5.capacity, every)):
+        check("B5", f"T={t5.capacity} (cluster form), a null row not 0, 24 iterations, "
+              f"{'mask' if mk is not None else 'no mask'}",
+              cuda_pressure.rbsor_fused(t5.nbr, d5, 24, omega, dx2, p0=p05, mask=mk),
+              cuda_pressure.rbsor_fused_plain(t5.nbr, d5, 24, omega, dx2, p0=p05, mask=mk), 0.0)
+    del b5_cases, tiles, t5, m5, d5, k5, p05, every
     d2 = field(lv2.topo.capacity, 512, mask=lv2.mask)
     p_k = p_p = torch.zeros_like(d2)
     for _ in range(2):
@@ -639,13 +728,16 @@ def main() -> int:
         p_p = cuda_pressure.rbsor_lagged_plain(lv2.topo.nbr, p_p, d2, 1, omega, 4 * dx2,
                                                lv2.mask)
     check("B3", f"mask, config-5 level 2 T={lv2.topo.capacity}, 2 launches x 1 pair", p_k, p_p)
+    check("B6", f"config-5 level 2 T={lv2.topo.capacity}, masked p and div, dx 1.0",
+          cuda_stencil.residual(lv2.topo.nbr, p_k, d2, 1.0),
+          cuda_stencil.residual_plain(lv2.topo.nbr, p_k, d2, 1.0), 0.0)
     m_c5 = active_mask(c5)[:, None]
     pc, dc = field(c5.capacity, 512, mask=m_c5), field(c5.capacity, 512, mask=m_c5)
     check("B3", f"config-5 fine T={c5.capacity}, 1 launch x {lag} pairs",
           cuda_pressure.rbsor_lagged(c5.nbr, pc, dc, lag, omega, dx2),
           cuda_pressure.rbsor_lagged_plain(c5.nbr, pc, dc, lag, omega, dx2))
     check("B6", f"config-5 fine T={c5.capacity}", cuda_stencil.residual(c5.nbr, pc, dc, 0.5),
-          cuda_stencil.residual_plain(c5.nbr, pc, dc, 0.5))
+          cuda_stencil.residual_plain(c5.nbr, pc, dc, 0.5), 0.0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     vc = torch.randn((3, c5.capacity, 512), generator=gen, device=dev) * m_c5
     check("B7a", f"config-5 fine T={c5.capacity}", cuda_stencil.divergence(c5.nbr, vc, 1 / 0.3),
@@ -724,9 +816,12 @@ def main() -> int:
 
     mg_step()
     mg_ms = statistics.median(time_ms(mg_step, 7))
-    for key, r in time_calls("7", record(mg_step, ("B3", "B5", "B6"))).items():
-        if key != "B3":  # B3's row stays the bench RBGS step's
-            kernels[key].update(r)
+    groups = record(mg_step, ("B3", "B5", "B6"))
+    res7 = time_calls("7", groups)
+    for key in ("B5", "B6"):  # B3's row stays the bench RBGS step's
+        kernels[key].update(res7[key])
+    redesigned("7", "bench MG", res7)
+    fit_b5("7", groups)
     print(f"[7] bench MG step: {mg_ms:.3f} ms/step (median of 7, CUDA events) vs RBGS-50 "
           f"{step_ms:.3f} | {card}", flush=True)
     done("7")
@@ -806,7 +901,8 @@ def main() -> int:
               f"8.598 -> MG 0.792)", flush=True)
         del p5
     peak = torch.cuda.max_memory_allocated()
-    print(f"[9] config 5 ms/step (median of 3, CUDA events): MG {c5_ms['MG']:.1f}, "
+    print(f"[9] config 5 ms/step (median of 3, CUDA events): MG {c5_ms['MG']:.1f} (before the "
+          f"redesign of B5 and B6 {BEFORE_REDESIGN['c5 MG step']}), "
           f"RBGS-50 {c5_ms['RBGS-50']:.1f} (before the redesign of B1 and B3 "
           f"{BEFORE_REDESIGN['c5 RBGS-50 step']}); {c5.num_voxels / (c5_ms['MG'] * 1e-3):.4e} "
           f"(MG) and {c5.num_voxels / (c5_ms['RBGS-50'] * 1e-3):.4e} (RBGS) active "
@@ -815,7 +911,10 @@ def main() -> int:
         raise AssertionError(f"phase 9: MG max|r| {rmax['MG']} > {C5_RMAX_OVER_DIV0} * "
                              f"div0 {div0}")
     # after the peak is read: the plain versions' temporaries are not the step's
-    time_calls("9", record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6", "B7a", "B7b")), plain=False)
+    groups = record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6", "B7a", "B7b"))
+    redesigned("9", "c5 MG", time_calls("9", groups, plain=False))
+    fit_b5("9", groups)
+    del groups
     # the RBGS-50 step's kernels at their true HBM bounds, a kernel at a time
     # (the recorded inputs of all five and a plain version's temporaries
     # would not fit the card together)

@@ -18,31 +18,22 @@
 //
 // What bounds it on the H100: memory. A launch must read p and div once
 // and write p once (12 B a voxel); the 2K half-sweeps run on chip. The
-// design keeps every voxel busy and every load in full sectors:
-//   - One warp a tile, G tiles a block. A lane owns two (x, y) columns of
-//     8 z values in registers: column A at x = xa with xa + y even and
-//     column B at xa ^ 1 (xa + y odd), so in every half-sweep each lane
-//     updates 4 voxels of each column (A's colour-c voxels have z parity c,
-//     B's 1 - c: compile-time indices once the colour loop is unrolled).
-//     p and div load, and p_out stores, as float4 pairs.
-//   - The x/y neighbours are other lanes' columns, exchanged through a
-//     shared copy of the tile that carries a ring of halo columns: 10 x 10
-//     columns (x, y in [-1, 8]), each split by z parity into two float4
-//     (z even, z odd). A half-sweep reads the other colour, which lies in
-//     the same parity half as the lane's own colour, from its four x/y
-//     neighbour columns (four 16-byte loads; the 8 lanes of a quarter warp,
-//     y = 0..7, hit 8 different bank groups) and writes its own colour's
-//     half back. It writes only its colour and reads only the other, so one
-//     __syncwarp per half-sweep is exact, and no tile waits on another.
-//   - The ring holds the lagged +-x and +-y faces: one neighbour column (8
-//     contiguous floats, two float4) per lane, four faces of 8 columns.
-//   - +-z faces: with sorted keys nbr[t, +z] is t + 1 or 0 and nbr[t, -z]
-//     is t - 1 or 0 (the key's low bits are tz). Each tile writes its
-//     launch-start z = 0 and z = 7 planes to shared memory before one
-//     __syncthreads; a tile whose z neighbour is its block neighbour reads
-//     the face there (still the launch-start values, as the lagged halo
-//     asks), any other reads p_in as before. The invariant only decides
-//     where a value is read from, never which value.
+// design keeps every voxel busy and every load in full sectors
+// (tile_ring.cuh): one warp a tile, G tiles a block, a lane holding two
+// (x, y) columns of 8 z values in registers, A with xa + y even and B at
+// xa ^ 1, so in every half-sweep each lane updates 4 voxels of each column
+// (A's colour-c voxels have z parity c, B's 1 - c: compile-time indices
+// once the colour loop is unrolled); p and div load, and p_out stores, as
+// float4 pairs.
+//   - The x/y neighbours are other lanes' columns, exchanged through the
+//     tile's shared copy, whose ring holds the lagged +-x and +-y faces. A
+//     half-sweep reads the other colour, which lies in the same parity half
+//     as the lane's own colour, from its four x/y neighbour columns (four
+//     16-byte loads) and writes its own colour's half back. It writes only
+//     its colour and reads only the other, so one __syncwarp per half-sweep
+//     is exact, and no tile waits on another.
+//   - The lagged +-z faces come from the block neighbour's launch-start
+//     plane where nbr points at it, else from p_in.
 // The sum runs through common.cuh's round-to-nearest intrinsics in the
 // plain version's order, so the result is bitwise that of
 // ops/cuda_pressure.py::rbsor_lagged_plain.
@@ -55,37 +46,9 @@
 // are updated too, and they stay 0 only because they enter at 0, their div
 // is 0 and their nbr entries are all 0: every cross-tile face read of
 // theirs is a read of the null row, which stays 0 for the same reasons.
-#include "common.cuh"
+#include "tile_ring.cuh"
 
 namespace hn {
-
-// tiles a block, one warp each (G = 8 ran as fast on the H100; 4 makes
-// smaller blocks and a smaller tail)
-constexpr int G = 4;
-constexpr int RING = 10;                  // columns a side of a tile's shared copy
-constexpr int HALF_STRIDE = RING * RING;  // float4 between the z-even and z-odd halves
-constexpr unsigned FULL = 0xffffffffu;
-
-// float4 index of column (x, y), x and y in [-1, 8], in parity half 0
-__device__ __forceinline__ int ring(int x, int y) { return (x + 1) * RING + (y + 1); }
-
-__device__ __forceinline__ void load_col(const float* __restrict__ src, float* v) {
-  const float4 lo = *reinterpret_cast<const float4*>(src);
-  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-}
-
-__device__ __forceinline__ void store_col(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// column v (8 z values) into the tile's shared copy at ring index r
-__device__ __forceinline__ void put_col(float4* st, int r, const float* v) {
-  st[r] = make_float4(v[0], v[2], v[4], v[6]);
-  st[HALF_STRIDE + r] = make_float4(v[1], v[3], v[5], v[7]);
-}
 
 // One half-sweep of column (x, y) whose colour lies at z parity O: the
 // four x/y neighbours from the shared copy (their other colour is in half O
@@ -127,74 +90,39 @@ rbsor_lagged_kernel(const float* __restrict__ p_in, const float* __restrict__ di
   const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * G + g;
   const bool active = t < T;  // the tail block's extra warps only meet the barrier
-  const int y = lane & 7;
-  const int xa = 2 * (lane >> 3) + (y & 1), xb = xa ^ 1;
   float4* st = tiles[g];
 
   float a[8], b[8], ra[8], rb[8];
   unsigned ma = 0xffu, mb = 0xffu;
-  int npz = 0, nmz = 0;
+  ZFaces zf;
+  const LaneCols c(lane);
+  const FaceRows f(nbr, active ? t : 0, lane);
   if (active) {
     const size_t row = (size_t)t * TILE;
-    const int nb = lane < 27 ? nbr[(size_t)t * 27 + lane] : 0;
-    const int npx = __shfl_sync(FULL, nb, D_PX), nmx = __shfl_sync(FULL, nb, D_MX);
-    const int npy = __shfl_sync(FULL, nb, D_PY), nmy = __shfl_sync(FULL, nb, D_MY);
-    npz = __shfl_sync(FULL, nb, D_PZ);
-    nmz = __shfl_sync(FULL, nb, D_MZ);
-    const int ca = xa * 64 + y * 8, cb = xb * 64 + y * 8;
-    load_col(p_in + row + ca, a);
-    load_col(p_in + row + cb, b);
-    load_col(div + row + ca, ra);
-    load_col(div + row + cb, rb);
+    load_col(p_in + row + c.ca(), a);
+    load_col(p_in + row + c.cb(), b);
+    load_col(div + row + c.ca(), ra);
+    load_col(div + row + c.cb(), rb);
 #pragma unroll
     for (int z = 0; z < 8; ++z) ra[z] = mul(ra[z], dx2), rb[z] = mul(rb[z], dx2);
     if (MASKED) {
       float m[8];
       ma = mb = 0u;
-      load_col(mask + row + ca, m);
+      load_col(mask + row + c.ca(), m);
 #pragma unroll
       for (int z = 0; z < 8; ++z) ma |= (m[z] > 0.0f ? 1u : 0u) << z;
-      load_col(mask + row + cb, m);
+      load_col(mask + row + c.cb(), m);
 #pragma unroll
       for (int z = 0; z < 8; ++z) mb |= (m[z] > 0.0f ? 1u : 0u) << z;
     }
-    put_col(st, ring(xa, y), a);
-    put_col(st, ring(xb, y), b);
-    zplane[g][0][xa * 8 + y] = a[0], zplane[g][1][xa * 8 + y] = a[7];
-    zplane[g][0][xb * 8 + y] = b[0], zplane[g][1][xb * 8 + y] = b[7];
-    // the lagged +-x / +-y faces: lane -> (face, i), one neighbour column
-    // (x = 0 or 7 for the x faces, y = 0 or 7 for the y faces) into the ring
-    const int face = lane >> 3, i = lane & 7;
-    const int src = face == 0 ? npx : face == 1 ? nmx : face == 2 ? npy : nmy;
-    const int scol = face == 0 ? i * 8 : face == 1 ? 448 + i * 8 : face == 2 ? i * 64 : i * 64 + 56;
-    const int dst = face == 0 ? ring(8, i) : face == 1 ? ring(-1, i) : face == 2 ? ring(i, 8)
-                                                                                   : ring(i, -1);
-    float h[8];
-    load_col(p_in + (size_t)src * TILE + scol, h);
-    put_col(st, dst, h);
+    stage_tile(st, zplane[g], p_in, f, c, lane, a, b);
+    zf.from_p(g, t, p_in, f, c);  // the lagged +-z faces: the launch-start values
   }
   __syncthreads();
   if (!active) return;
-
-  // the lagged +-z faces, from the block neighbour's launch-start plane
-  // where nbr points at it, else from p_in
-  float zpa, zpb, zma, zmb;
-  if (npz == t + 1 && g + 1 < G) {
-    zpa = zplane[g + 1][0][xa * 8 + y];
-    zpb = zplane[g + 1][0][xb * 8 + y];
-  } else {
-    const float* q = p_in + (size_t)npz * TILE + y * 8;
-    zpa = q[xa * 64];
-    zpb = q[xb * 64];
-  }
-  if (nmz == t - 1 && g > 0) {
-    zma = zplane[g - 1][1][xa * 8 + y];
-    zmb = zplane[g - 1][1][xb * 8 + y];
-  } else {
-    const float* q = p_in + (size_t)nmz * TILE + y * 8 + 7;
-    zma = q[xa * 64];
-    zmb = q[xb * 64];
-  }
+  zf.from_planes(zplane, g, c);
+  const int xa = c.xa, xb = c.xb, y = c.y;
+  const float zpa = zf.pa, zpb = zf.pb, zma = zf.ma, zmb = zf.mb;
 
   for (int k = 0; k < K; ++k) {
     update_column<MASKED, 0>(st, xa, y, a, ra, zpa, zma, ma, omega);

@@ -51,11 +51,13 @@ SIGNATURES = {
     "hn_sample_at": (_P, _P, _P, _P, _I, _I, _P),
     "hn_rbsor_lagged": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "hn_rbsor_color": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
-    "hn_rbsor_fused": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "hn_rbsor_fused": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _P),
     "hn_residual": (_P, _P, _P, _P, _I, _F, _P),
     "hn_take_along_rows": (_P, _P, _P, _I, _I, _P),
     "hn_take_rows": (_P, _P, _P, _I, _I, _P),
     "hn_take_chain": (_P, _P, _P, _I, _I, _P),
+    "hn_grid_sync_loop": (_I, _I, _I, _P),
+    "hn_cluster_sync_loop": (_I, _I, _I, _P),
     "hn_row_copy": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
@@ -79,7 +81,10 @@ BLOCK_THREADS = {
     "rbsor_lagged_kernel": 128,  # rbsor_lagged.cu: G * 32
     "rbsor_color_kernel": 256,
     "rbsor_fused_kernel": 256,
-    "residual_kernel": 512,
+    # rbsor_fused.cu's cluster form: a warp a tile, one block an SM;
+    # ops/cuda_pressure.py's fused_shape sets 32-512 threads by T (at most)
+    "rbsor_cluster_kernel": 512,
+    "residual_kernel": 128,  # residual.cu: G * 32
     "sample_at_kernel": 512,
     "divergence_kernel": 512,
     "subtract_gradient_kernel": 512,

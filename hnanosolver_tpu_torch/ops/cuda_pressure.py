@@ -9,7 +9,9 @@
   per-colour launch.
 - B5 ``rbsor_fused`` (``csrc/rbsor_fused.cu``): the whole textbook solve
   in one launch, for T <= ``MAX_FUSED_ROWS``; counterpart of
-  ``solve_pressure_fused``.
+  ``solve_pressure_fused``. Its launch shape (:func:`fused_shape`): one
+  thread-block cluster holding the level in shared memory for T <=
+  ``CLUSTER_ROWS``, else a cooperative grid.
 
 Each takes an optional in-domain ``mask [T,512]`` (multigrid coarse
 levels): voxels where it is not > 0 never update. On a CPU tensor a
@@ -18,6 +20,8 @@ raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -30,6 +34,23 @@ from hnanosolver_tpu_torch.ops.shifts import (
 # runs as B3 blocks or B4 sweeps. Read at call time by ops/pressure.py.
 MAX_FUSED_ROWS = 2_048
 _COOPERATIVE_LAUNCH_TOO_LARGE = 82  # cudaErrorCooperativeLaunchTooLarge
+_CLUSTER_NOT_RESIDENT = -1  # hn_rbsor_fused: cudaOccupancyMaxActiveClusters gave 0
+
+# B5's cluster form (csrc/rbsor_fused.cu): one cluster of at most 16 blocks
+# (the non-portable cluster size), a thread a column (64 a tile) and at most
+# 16 tiles a block (1024 threads), each block holding its tiles' p, a null
+# row and the tiles' six neighbour addresses in shared memory
+MAX_CLUSTER = 16
+MAX_TILES_PER_BLOCK = 16
+MAX_BLOCK_SMEM = 232_448  # the H100's most a block (227 KB): the shapes stay far below
+CLUSTER_TILE_BYTES = TILE * 4 + 6 * 8
+CLUSTER_CAPACITY = MAX_CLUSTER * MAX_TILES_PER_BLOCK  # the largest T it can hold
+# The largest T solved by the cluster form; above it the grid form. Measured
+# (tools/b5_cost.py's threshold sweep, NVIDIA H100): the cluster form's
+# launches of 2 and of 24 iterations both beat the grid form's at every T
+# swept up to 224, and its 2-iteration launch lost at 256
+CLUSTER_ROWS = 224
+GRID_THREADS = 256  # the grid form's blocks (rbsor.cuh::HALF)
 
 launches_lagged = build.LaunchCount("rbsor_lagged")
 launches_color = build.LaunchCount("rbsor_color")
@@ -134,6 +155,50 @@ def rbsor_color_plain(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor, col
 
 # -- B5 ----------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class FusedShape:
+    """B5's launch shape for T tiles. ``cluster`` 0 is the grid form (a
+    cooperative grid of ``threads``-thread blocks sized on the card, tiles
+    taken with a grid stride); else one cluster of ``cluster`` blocks, block
+    b owning tiles [b * tiles_per_block, (b + 1) * tiles_per_block), a
+    thread a column, with ``smem`` bytes of dynamic shared memory."""
+
+    T: int
+    cluster: int
+    tiles_per_block: int
+    threads: int
+    smem: int
+
+    @property
+    def form(self) -> str:
+        return "cluster" if self.cluster else "grid"
+
+    def args(self) -> tuple:
+        return self.cluster, self.tiles_per_block, self.threads, self.smem
+
+
+def fused_shape(T: int, form: str | None = None) -> FusedShape:
+    """B5's launch shape: the cluster form for T <= ``CLUSTER_ROWS``, else
+    the grid form (``form`` forces one; the cluster form raises where it
+    cannot hold T). Cluster: C the least power of two >= min(T, 16), tpb =
+    ceil(T / C) tiles a block, a thread a column, shared memory the tiles, a
+    null row and the tables. ``hn_rbsor_fused`` checks the same rule."""
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    form = form or ("cluster" if T <= CLUSTER_ROWS else "grid")
+    if form == "grid":
+        return FusedShape(T, 0, 0, GRID_THREADS, 0)
+    if form != "cluster":
+        raise ValueError(f"form must be 'cluster' or 'grid', got {form!r}")
+    if T > CLUSTER_CAPACITY:
+        raise ValueError(f"T={T} does not fit one cluster (at most {CLUSTER_CAPACITY} tiles)")
+    C = 1
+    while C < min(T, MAX_CLUSTER):
+        C *= 2
+    tpb = -(-T // C)
+    return FusedShape(T, C, tpb, tpb * 64, tpb * CLUSTER_TILE_BYTES + TILE * 4)
+
+
 def rbsor_fused(nbr: torch.Tensor, div: torch.Tensor, iterations: int, omega: float,
                 dx2: float, p0: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -146,14 +211,26 @@ def rbsor_fused(nbr: torch.Tensor, div: torch.Tensor, iterations: int, omega: fl
         raise ValueError(f"iterations must be >= 0, got {iterations}")
     if build.on_cpu(div.device):
         return rbsor_fused_plain(nbr, div, iterations, omega, dx2, p0, mask)
+    return _launch_fused(fused_shape(T), nbr, div, iterations, omega, dx2, p0, mask)
+
+
+def _launch_fused(shape: FusedShape, nbr, div, iterations, omega, dx2, p0, mask):
+    """One B5 launch in ``shape``; raises where the card refuses it (never
+    another form or the plain version)."""
+    build.require_aligned((p0, div, mask), "rbsor_fused", 16)  # float4 loads
     out = torch.empty_like(div)
     with torch.cuda.device(div.device):
         code = build.library().hn_rbsor_fused(
             p0.data_ptr(), div.data_ptr(), nbr.data_ptr(), _ptr(mask), out.data_ptr(),
-            T, int(iterations), float(omega), float(dx2), build.stream_ptr(div.device))
+            shape.T, int(iterations), float(omega), float(dx2), *shape.args(),
+            build.stream_ptr(div.device))
     if code == _COOPERATIVE_LAUNCH_TOO_LARGE:
-        raise RuntimeError(f"rbsor_fused: grid of T={T} tiles not co-resident (a bug in "
+        raise RuntimeError(f"rbsor_fused: grid of T={shape.T} tiles not co-resident (a bug in "
                            "the grid sizing: it is capped at the occupancy limit)")
+    if code == _CLUSTER_NOT_RESIDENT:
+        raise RuntimeError(f"rbsor_fused: the card holds no cluster of {shape.cluster} blocks "
+                           f"x {shape.threads} threads with {shape.smem} B of shared memory "
+                           "each (cudaOccupancyMaxActiveClusters = 0)")
     build.check(code, "rbsor_fused")
     launches_fused.n += 1
     return out

@@ -17,7 +17,8 @@ frames at config 4). Per cell it prints:
   (how long the host needs to issue the step's work);
 - device ms/step and busy share: the kernels' device time per step from
   ``torch.profiler`` over STEPS steps, over the wall time of that window;
-- the kernels with the most device time per step, with launches per step.
+- the kernels with the most device time per step, with launches per step,
+  and every other kernel of the port's own (``csrc/``) that ran.
 """
 
 from __future__ import annotations
@@ -95,8 +96,11 @@ def profile_cell(name: str) -> None:
           f"{statistics.median(enqueue):.3f} ms/step | profiled: wall {wall:.3f} ms/step, "
           f"device {dev_ms:.3f} ms/step, busy share {dev_ms / wall:.3f}, "
           f"{sum(c for _, _, c in ev) / STEPS:.0f} kernels/step | {card}", flush=True)
-    for key, us, count in ev[:TOP]:
-        print(f"[{name}]   {us / STEPS:9.1f} us/step  x{count / STEPS:6.1f}  {key[:110]}")
+    # the TOP kernels with the most device time, then every other kernel of
+    # the port's own (csrc/, namespace hn) that ran, so each has its line
+    for i, (key, us, count) in enumerate(ev):
+        if i < TOP or "hn::" in key:
+            print(f"[{name}]   {us / STEPS:9.1f} us/step  x{count / STEPS:6.1f}  {key[:110]}")
 
 
 def main() -> None:

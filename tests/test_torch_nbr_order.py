@@ -1,10 +1,11 @@
-"""The z order of the port's neighbour table, which kernel B3 relies on
-(``csrc/rbsor_lagged.cu``): the packed key's low bits are the tile's z
-coordinate and the keys are sorted, so for every row t ``nbr[t, +z]`` is
-``t + 1`` or 0 (absent) and ``nbr[t, -z]`` is ``t - 1`` or 0. B3 takes a
-tile's +-z faces from its block neighbour's shared-memory plane where the
-table points at it, and from device memory elsewhere; the invariant decides
-how many faces stay on chip, never which value is read.
+"""The z order of the port's neighbour table, which kernels B3 and B6 rely
+on (``csrc/tile_ring.cuh``, shared by ``rbsor_lagged.cu`` and
+``residual.cu``): the packed key's low bits are the tile's z coordinate and
+the keys are sorted, so for every row t ``nbr[t, +z]`` is ``t + 1`` or 0
+(absent) and ``nbr[t, -z]`` is ``t - 1`` or 0. B3 and B6 take a tile's +-z
+faces from its block neighbour's shared-memory plane where the table points
+at it, and from device memory elsewhere; the invariant decides how many
+faces stay on chip, never which value is read.
 
 Checked on every kind of topology the solver steps: the bench plume and
 config 4's fixed topologies (``cells.py``, shrunk envelopes), one grown by
@@ -25,7 +26,7 @@ from hnanosolver_tpu_torch.ops import multigrid
 from hnanosolver_tpu_torch.ops.shifts import d_of
 
 D_PZ, D_MZ = d_of((0, 0, 1)), d_of((0, 0, -1))
-B3_TILES_A_BLOCK = 4  # csrc/rbsor_lagged.cu: G
+B3_TILES_A_BLOCK = 4  # csrc/tile_ring.cuh: G (B3 and B6)
 
 
 def _bench():

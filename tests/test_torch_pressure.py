@@ -262,7 +262,8 @@ def test_b3_wrapper_rejects_bad_input(dom, bad):
 
 
 @pytest.mark.parametrize("bad", ["b4_color", "b4_mask_shape", "b5_iterations",
-                                 "b5_mask_dtype", "b6_shape", "b6_device"])
+                                 "b5_mask_dtype", "b5_shape", "b5_p0_shape", "b6_shape",
+                                 "b6_device"])
 def test_b4_b5_b6_wrappers_reject_bad_input(dom, bad):
     _, tt, div, mask, _ = dom
     d = torch.from_numpy(div)
@@ -274,6 +275,9 @@ def test_b4_b5_b6_wrappers_reject_bad_input(dom, bad):
         "b5_iterations": lambda: tcp.rbsor_fused(tt.nbr, d, -1, OMEGA, DX * DX),
         "b5_mask_dtype": lambda: tcp.rbsor_fused(tt.nbr, d, 2, OMEGA, DX * DX,
                                                  mask=m.double()),
+        "b5_shape": lambda: tcp.rbsor_fused(tt.nbr, d[:, :256].contiguous(), 2, OMEGA,
+                                            DX * DX),
+        "b5_p0_shape": lambda: tcp.rbsor_fused(tt.nbr, d, 2, OMEGA, DX * DX, p0=p[:32]),
         "b6_shape": lambda: tcs.residual(tt.nbr, p[:, :64], d, DX),
         "b6_device": lambda: tcs.residual(tt.nbr, p.to("meta"), d, DX),
     }[bad]
