@@ -55,14 +55,22 @@ def build_table_dual_combine(tbl27: torch.Tensor, dloc: torch.Tensor, nf: int) -
     return out
 
 
+def combine_index(dloc: torch.Tensor, nf: int) -> torch.Tensor:
+    """[nc, Ud*nf*512] int64: the position in chunk c's flattened 27-table
+    of every value of its dual table (row u*nf + f, column l: row
+    ``dloc[c, u, j(l)]*nf + f`` at column ``l ^ 292``)."""
+    nc, Ud = dloc.shape[:2]
+    j, src = dual_source(dloc.device)
+    rows = dloc.long()[:, :, j]  # [nc, Ud, 512]
+    f = torch.arange(nf, device=dloc.device)
+    idx = (rows[:, :, None, :] * nf + f[None, None, :, None]) * TILE + src  # [nc, Ud, nf, 512]
+    return idx.reshape(nc, -1)
+
+
 def build_table_dual_combine_plain(tbl27: torch.Tensor, dloc: torch.Tensor,
                                    nf: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`build_table_dual_combine`."""
+    """Plain PyTorch version of :func:`build_table_dual_combine`: one
+    ``torch.gather`` over :func:`combine_index`."""
     nc, Unf = tbl27.shape[:2]
-    Ud = dloc.shape[1]
-    j, src = dual_source(tbl27.device)
-    rows = dloc.long()[:, :, j]  # [nc, Ud, 512]
-    f = torch.arange(nf, device=tbl27.device)
-    idx = (rows[:, :, None, :] * nf + f[None, None, :, None]) * TILE + src  # [nc, Ud, nf, 512]
-    out = torch.gather(tbl27.reshape(nc, Unf * TILE), 1, idx.reshape(nc, -1))
-    return out.reshape(nc, Ud * nf, 8, 64)
+    out = torch.gather(tbl27.reshape(nc, Unf * TILE), 1, combine_index(dloc, nf))
+    return out.reshape(nc, dloc.shape[1] * nf, 8, 64)
