@@ -89,12 +89,18 @@ exit). Each phase prints the seconds it took.
      developed state, the velocity scaled into each band (narrow, mixed,
      wide), COMBINE_TBL off and on: build_topology's host seconds with and
      without the chunk plans (bench and config 5); B11 vs its plain version
-     and bitwise vs build_table_dual; the dual B1 ("both" with and without
-     the SDF, "back", "fwd") vs its plain version and bitwise vs the nbr B1
-     and B8; one step per band and switch as a main path (launches from the
-     branches taken) vs its plain step and vs the nbr-path step; times of
-     B11, the dual B1, the table builds and the table-path pass beside the
-     nbr B1 pass
+     and bitwise vs build_table_dual; the dual B1 (B1d: "both" at both
+     passes with and without the SDF, "back" and "fwd" at both passes) vs
+     its plain version and bitwise vs the nbr B1 and B8, at the bench, on a
+     one-chunk topology of 102 rows and on two chunks whose second is mostly
+     padding rows; one step per band and switch as a main path (launches
+     from the branches taken) vs its plain step and vs the nbr-path step;
+     times of B11 (beside its library call, one torch.gather over the index
+     of its plain version), B1d's launches alone (beside its wrapper, which
+     checks the window with one host sync, and beside the records of the
+     design before it, BEFORE_REDESIGN) in the narrow step and the mixed
+     band's back and fwd launches, the table builds and the table-path pass
+     beside the nbr B1 pass
  15. the probe kernels PG (cross-row gathers) and PC (bulk asynchronous
      row copies into shared memory), ports of the JAX package's TPU probes
      in tools/: every PG form (per-element at 8 rows with reversed indices
@@ -110,8 +116,8 @@ exit). Each phase prints the seconds it took.
      and drained once a rep (issue and drain apart)
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
-their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, and the
-bench and config-5 steps'.
+their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
+14 B1d's, and the bench and config-5 steps'.
 
 Launch counts come only from the main-path runs (phases 4, 7-14), each
 with the counters set to 0 just before and read just after; launches made
@@ -127,9 +133,13 @@ per-launch medians over runs of 10
 back-to-back calls at the inputs recorded from one such step, times that
 step's launches. ``bound_ms`` is the larger of the bytes the calls must
 move (each input read once, each output written once; B11 reads each
-distinct table value it copies once) over 3.35 TB/s and
-their f32 operations over 67 TFLOP/s (the H100 SXM data sheet); PC's library
-time is one index_select of every row its launch copies. On the
+distinct table value it copies once, B1d the dual rows its ldual names, once
+a chunk, in the fields its mode samples: tools/b1d_cost.read_bytes) over
+3.35 TB/s and their f32 operations over 67 TFLOP/s (the H100 SXM data
+sheet); B1d's time is its launches alone (its wrapper's host check of the
+window is printed apart); B11's library time is one torch.gather of the
+27-table over a precomputed index, PC's one index_select of every row its
+launch copies. On the
 bench domain a launch's operands fit the 50 MB L2 and stay there between
 back-to-back calls, as they largely do in the step, so its HBM bound is
 not a floor on its time; the per-launch lines say where that holds. Only
@@ -186,7 +196,12 @@ PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
                    "bench": {"B1": 0.1861, "B3": 0.4094}, "c5": {"B1": 10.3766, "B3": 20.4623},
                    "bench MG": {"B5": 0.6590, "B6": 0.0684},
-                   "c5 MG": {"B5": 1.731, "B6": 4.767}, "c5 MG step": 155.1}
+                   "c5 MG": {"B5": 1.731, "B6": 4.767}, "c5 MG step": 155.1,
+                   # B1d's launches alone (tools/b1d_cost.py on the design before, ms):
+                   # the narrow step's two, the mixed band's back and fwd
+                   "table": {"narrow B1d": 0.1809, "mixed back nb=3": 0.0426,
+                             "mixed fwd nb=3": 0.0416, "mixed back nb=8": 0.0826,
+                             "mixed fwd nb=8": 0.0559}}
 B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main paths
 
 
@@ -218,9 +233,7 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
     if key == "B11":
         return 0.0  # a copy
     if key == "B1d":
-        nb, f_lo = args[4], args[5]
-        mode = args[6] if len(args) > 6 else kwargs.get("mode", "both")
-        sdf = args[7] if len(args) > 7 else kwargs.get("has_sdf", False)
+        nb, f_lo, mode, sdf = b1d_mode(args, kwargs)
         if mode == "fwd":
             return float(sample(nb - f_lo))
         if mode == "back":
@@ -248,7 +261,17 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
     return 9.0  # B6
 
 
+def b1d_mode(args: tuple, kwargs: dict) -> tuple:
+    """(nb, f_lo, mode, has_sdf) of a recorded B1d call."""
+    mode = args[6] if len(args) > 6 else kwargs.get("mode", "both")
+    sdf = args[7] if len(args) > 7 else kwargs.get("has_sdf", False)
+    return args[4], args[5], mode, sdf
+
+
 def call_label(key: str, args: tuple) -> str:
+    if key == "B1d":
+        nb, f_lo, mode, sdf = b1d_mode(args, {})
+        return f"T={rows(key, args)} {mode} nb={nb} f_lo={f_lo}{' + SDF' if sdf else ''}"
     return f"nc={args[0].shape[0]} nf={args[2]}" if key == "B11" else f"T={rows(key, args)}"
 
 
@@ -282,6 +305,10 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out_bytes: int) -> tuple[float
             moved += nbytes(a)
     if key == "B11":  # it reads each distinct 27-table value it copies once
         moved = nbytes(args[1]) + b11_read_bytes(args[1], args[2])
+    if key == "B1d":  # the dual rows its ldual names, the fields its mode samples
+        from hnanosolver_tpu_torch.tools.b1d_cost import read_bytes
+
+        moved += read_bytes(args[0], args[1], *b1d_mode(args, kwargs)) - nbytes(args[0])
     moved += out_bytes
     ops = ops_per_voxel(key, args, kwargs) * rows(key, args) * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -317,8 +344,8 @@ def main() -> int:
                                            tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
     from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
-    from hnanosolver_tpu_torch.tools import (b5_cost, ctas_all, probe_dgather, probe_dmabisect,
-                                             probe_dmabisect2, probe_dmacost)
+    from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, probe_dgather,
+                                             probe_dmabisect, probe_dmabisect2, probe_dmacost)
 
     def done(phase: str):
         nonlocal t_phase
@@ -408,6 +435,19 @@ def main() -> int:
                             ":81, :113, :149, :184, :222; tools/probe_dmacost.py:89, :134",
                    counter=cuda_probe.launches_copy, wrap=(cuda_probe, "row_copy")),
     }
+    # B1d's wrapper checks the window on the host (one sync) before it
+    # launches: its time is the launch alone (b1d_cost.kernel_call), the
+    # wrapper's printed beside it. B11's library call: one torch.gather of
+    # the 27-table over the index its plain version builds, built beforehand.
+    kernels["B1d"]["launch"] = lambda a, kw: b1d_cost.kernel_call(*a, **kw)
+
+    def b11_gather(a, kw):
+        idx = cuda_tables.combine_index(a[1], a[2])
+        flat = a[0].reshape(a[0].shape[0], -1)
+        out = torch.empty(idx.shape, device=flat.device)
+        return lambda: torch.gather(flat, 1, idx, out=out)
+
+    kernels["B11"]["library"] = b11_gather
     for k in kernels.values():
         k.update(route="cuda", launches=0, max_abs_err=0.0, library_ms=None)
         mod, attr = k["wrap"]
@@ -528,11 +568,11 @@ def main() -> int:
         for key, a, kw, out_bytes, count in groups:
             k = kernels[key]
             vs_plain(label, key, a, kw)
+            launch = k["launch"](a, kw) if "launch" in k else lambda: k["kernel_fn"](*a, **kw)
             if plain:
-                k_ms, p_ms = paired_ms(lambda: k["kernel_fn"](*a, **kw),
-                                       lambda: k["plain_fn"](*a, **kw))
+                k_ms, p_ms = paired_ms(launch, lambda: k["plain_fn"](*a, **kw))
             else:
-                k_ms = median_ms(lambda: k["kernel_fn"](*a, **kw), 5, 10)  # behind the spin
+                k_ms = median_ms(launch, 5, 10)  # behind the spin
                 p_ms = float("nan")
             b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
             r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
@@ -540,15 +580,27 @@ def main() -> int:
             r["plain_ms"] += p_ms * count
             r["bound_ms"] += b_ms * count
             r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms * count
+            extra = ""
+            if "launch" in k:  # the wrapper with its host work, as the path calls it
+                w_ms = median_ms(lambda: k["kernel_fn"](*a, **kw), 10, 10)
+                r["wrapper_ms"] = r.get("wrapper_ms", 0.0) + w_ms * count
+                extra += f", {w_ms:.4f} ms through the wrapper"
+            if "library" in k:
+                l_ms = median_ms(k["library"](a, kw), 10, 10)
+                r["library_ms"] = r.get("library_ms", 0.0) + l_ms * count
+                extra += f", {l_ms:.4f} ms library"
             in_l2 = " (operands fit the L2: HBM bound)" if moved <= L2_BYTES else ""
             print(f"[{label}] {key} {call_label(key, a)} x{count}/step: {k_ms:.4f} ms kernel,"
-                  f" {p_ms:.4f} ms plain, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB)"
-                  f"{in_l2} per launch | {card}", flush=True)
+                  f" {p_ms:.4f} ms plain{extra}, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} "
+                  f"MB){in_l2} per launch | {card}", flush=True)
         for key, r in res.items():
             r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get) if r["bound_by"] else "bytes"
+            extra = "".join(f", {r[x]:.4f} {x[:-3]}" for x in ("wrapper_ms", "library_ms")
+                            if x in r)
             print(f"[{label}] {key} {kernels[key]['name']}: {r['ms']:.4f} ms/step kernel vs "
-                  f"{r['plain_ms']:.4f} plain, bound {r['bound_ms']:.4f} ({r['bound_by']})"
-                  f" | {card}", flush=True)
+                  f"{r['plain_ms']:.4f} plain{extra}, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of the kernel's time) | "
+                  f"{card}", flush=True)
         return res
 
     def fit_b5(label: str, groups: list):
@@ -1222,7 +1274,43 @@ def main() -> int:
     def nbr_path():
         advection.INTERP, cuda_tables.COMBINE_TBL = None, None
 
-    narrow_step = None
+    def dual_checks(lab, topo_, tb_, vb, f8, sdf=None):
+        """B1d's split modes at both passes ("back" of the velocity and of
+        all eight fields, "fwd" of the velocity and of the five scalars)
+        and, given an SDF, "both" at both passes with and without it: each
+        vs its plain version and bitwise vs the nbr B1 / B8."""
+        ld = tb_.chunk_ldual
+        d = torch.clamp(-vb * sdt, -lim, lim)
+        for fields, fl in ((vb, 0), (f8, 3)):
+            nb_ = fields.shape[0]
+            tv = tables.build_table_dual(tb_, fields)
+            got = cuda_bfecc.bfecc_sample_dual(tv, ld, vb, sdt, nb_, 0, "back")
+            check("B1d", f"back nb={nb_} vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
+                tv, ld, vb, sdt, nb_, 0, "back"), TOL_B1, lab)
+            check("B1d", f"back nb={nb_} vs B8", got, cuda_sample.sample_at(topo_.nbr, fields, d),
+                  0.0, lab)
+            d2 = torch.clamp(d + got[:3] * sdt, -3.85, 3.85)
+            got = cuda_bfecc.bfecc_sample_dual(tv, ld, d2, sdt, nb_, fl, "fwd")
+            check("B1d", f"fwd nb={nb_} f_lo={fl} vs plain", got,
+                  cuda_bfecc.bfecc_sample_dual_plain(tv, ld, d2, sdt, nb_, fl, "fwd"), TOL_B1, lab)
+            check("B1d", f"fwd nb={nb_} f_lo={fl} vs B8", got,
+                  cuda_sample.sample_at(topo_.nbr, fields[fl:].contiguous(), d2), 0.0, lab)
+            if sdf is None:
+                continue
+            for g_ in (None, sdf):
+                tv = tables.build_table_dual(tb_, fields if g_ is None else
+                                             torch.cat([fields, g_[None]]))
+                got = cuda_bfecc.bfecc_sample_dual(tv, ld, vb, sdt, nb_, fl, "both",
+                                                   g_ is not None)
+                want = cuda_bfecc.bfecc_sample_dual_plain(tv, ld, vb, sdt, nb_, fl, "both",
+                                                          g_ is not None)
+                ref = cuda_bfecc.bfecc_sample(topo_.nbr, fields, sdt, fl, g_)
+                tag = f"both f_lo={fl}{' + SDF' if g_ is not None else ''}"
+                for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
+                    check("B1d", f"{tag} {part} vs plain", g, w, TOL_B1, lab)
+                    check("B1d", f"{tag} {part} vs nbr B1", g, r, 0.0, lab)
+
+    band_steps = {}
     for band, cfl in BANDS:
         vb = (vel0 * (cfl / cfl0)).contiguous()
         sb = FieldState(velocity=vb, scalars=sc0)
@@ -1248,10 +1336,11 @@ def main() -> int:
                   f"{', '.join(parts)} (tol {TOL_STEP:g})", flush=True)
             if not worst <= TOL_STEP:
                 raise AssertionError(f"phase {label}: vs the nbr path {worst} > {TOL_STEP}")
-            if band == "narrow" and comb:
-                def narrow_step(tb=tb, sb=sb):
+            if band in ("narrow", "mixed") and comb:
+                def band_step(tb=tb, sb=sb):
                     vmem(True)
                     plume.plume_step(tb, sb, params, cfg)
+                band_steps[band] = band_step
         # the kernels at this band's inputs (scalar pass: velocity + 5 scalars)
         lab = f"14 {band}"
         if band == "narrow":
@@ -1270,14 +1359,17 @@ def main() -> int:
                 for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
                     check("B1d", f"both f_lo={fl} {part} vs plain", g, w, TOL_B1, lab)
                     check("B1d", f"both f_lo={fl} {part} vs nbr B1", g, r, 0.0, lab)
-            ts = tables.build_table_dual(tb, torch.cat([f8, sdf3[None]]))
-            got = cuda_bfecc.bfecc_sample_dual(ts, tb.chunk_ldual, vb, sdt, 8, 3, "both", True)
-            want = cuda_bfecc.bfecc_sample_dual_plain(ts, tb.chunk_ldual, vb, sdt, 8, 3, "both",
-                                                      True)
-            ref = cuda_bfecc.bfecc_sample(topo.nbr, f8, sdt, 3, sdf3)
-            for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
-                check("B1d", f"both + SDF {part} vs plain", g, w, TOL_B1, lab)
-                check("B1d", f"both + SDF {part} vs nbr B1", g, r, 0.0, lab)
+            for fl, fields in ((0, vb), (3, f8)):
+                nb_ = fields.shape[0]
+                ts = tables.build_table_dual(tb, torch.cat([fields, sdf3[None]]))
+                got = cuda_bfecc.bfecc_sample_dual(ts, tb.chunk_ldual, vb, sdt, nb_, fl, "both",
+                                                   True)
+                want = cuda_bfecc.bfecc_sample_dual_plain(ts, tb.chunk_ldual, vb, sdt, nb_, fl,
+                                                          "both", True)
+                ref = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, fl, sdf3)
+                for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
+                    check("B1d", f"both f_lo={fl} + SDF {part} vs plain", g, w, TOL_B1, lab)
+                    check("B1d", f"both f_lo={fl} + SDF {part} vs nbr B1", g, r, 0.0, lab)
             k_ms, p_ms = paired_ms(
                 lambda: cuda_tables.build_table_dual_combine(t27, tb.chunk_dloc, 8),
                 lambda: cuda_tables.build_table_dual_combine_plain(t27, tb.chunk_dloc, 8))
@@ -1288,19 +1380,7 @@ def main() -> int:
                   f"and {nbytes(tdual) / 1e6:.1f} MB) | {card}", flush=True)
             del t27, b11, tdual, ts
         elif band == "mixed":
-            tv = tables.build_table_dual(tb, f8)
-            d = torch.clamp(-vb * sdt, -lim, lim)
-            got = cuda_bfecc.bfecc_sample_dual(tv, tb.chunk_ldual, vb, sdt, 8, 0, "back")
-            check("B1d", "back vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
-                tv, tb.chunk_ldual, vb, sdt, 8, 0, "back"), TOL_B1, lab)
-            check("B1d", "back vs B8", got, cuda_sample.sample_at(topo.nbr, f8, d), 0.0, lab)
-            d2 = torch.clamp(d + got[:3] * sdt, -3.85, 3.85)
-            got = cuda_bfecc.bfecc_sample_dual(tv, tb.chunk_ldual, d2, sdt, 8, 3, "fwd")
-            check("B1d", "fwd vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
-                tv, tb.chunk_ldual, d2, sdt, 8, 3, "fwd"), TOL_B1, lab)
-            check("B1d", "fwd vs B8", got,
-                  cuda_sample.sample_at(topo.nbr, f8[3:].contiguous(), d2), 0.0, lab)
-            del tv, d, d2
+            dual_checks(lab, topo, tb, vb, f8)
         # the scalar pass: the table path against the nbr-form B1
         times = {}
         for what, fn in (("nbr B1", lambda: cuda_bfecc.bfecc_sample(topo.nbr, f8, sdt, 3)),
@@ -1315,10 +1395,42 @@ def main() -> int:
               + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
               + f" (with the host CFL read and the table builds) | {card}", flush=True)
         del f8, vb, sb, out_v, out_n
-    groups = record(narrow_step, ("B1d", "B11"))
+    # B1d on small topologies: one chunk of 102 rows (below 512), and two
+    # chunks whose second is mostly padding rows; a plane SDF through each
+    for name, tiles, cap in (
+            ("102 rows", np.array([(x, y, z) for x in range(5) for y in range(5)
+                                   for z in range(5)])[:101], 102),
+            ("two chunks, padding", np.array([(x, y, z) for x in range(9) for y in range(9)
+                                              for z in range(8)]), 1024)):
+        ts_ = topology_mod.build_topology(tiles, capacity=cap, device=dev, plans=True)
+        ms_ = active_mask(ts_)[:, None]
+        vs_ = field(3, cap, 512, scale=1.8 / sdt / 4.0, mask=ms_).clamp(-1.8 / sdt, 1.8 / sdt)
+        fs_ = torch.cat([vs_, field(5, cap, 512, mask=ms_)]).contiguous()
+        py_ = positions_flat(ts_)[1].to(torch.float32)
+        sdf_ = (py_ - float(py_[ms_[:, 0] > 0].median())) * ms_
+        dual_checks(f"14 {name}", ts_, ts_, vs_.contiguous(), fs_, sdf_)
+    del ts_, ms_, vs_, fs_, sdf_
+    groups = record(band_steps["narrow"], ("B1d", "B11"))
     nbr_path()
-    for key, r in time_calls("14", groups).items():
+    res14 = time_calls("14", groups)
+    for key, r in res14.items():
         kernels[key].update(r)
+    before = BEFORE_REDESIGN["table"]
+    r = res14["B1d"]
+    print(f"[14] B1d narrow step, its two launches alone: {r['ms']:.4f} ms "
+          f"({r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f}), "
+          f"{r['wrapper_ms']:.4f} through the wrapper; the design before: "
+          f"{before['narrow B1d']} alone | {card}", flush=True)
+    mixed = record(band_steps["mixed"], ("B1d",))
+    nbr_path()
+    for key, a, kw, out_bytes, count in mixed:
+        nb_, fl_, mode_, _ = b1d_mode(a, kw)
+        vs_plain("14 mixed", key, a, kw)
+        k_ms = median_ms(b1d_cost.kernel_call(*a, **kw), 10, 10)
+        b_ms = bound_ms(key, a, kw, out_bytes)[0]
+        print(f"[14 mixed] B1d {mode_} nb={nb_} f_lo={fl_} x{count}/step: {k_ms:.4f} ms alone "
+              f"(bound {b_ms:.4f}); the design before: {before[f'mixed {mode_} nb={nb_}']} | "
+              f"{card}", flush=True)
     nbr_path()
     del tb, bench_state
     done("14")

@@ -35,12 +35,12 @@
 // What bounds it on the H100: memory. Each voxel reads its nb fields once
 // and writes 2*(nb - f_lo) outputs (72 B/voxel in scalar mode with 5
 // scalars); its 16*nb corner reads fall inside 27 neighbouring tile rows
-// (nbr form) or 8 dual rows (dual form).
+// (nbr form) or 8 dual rows (dual form) and are served by L1/L2. Both forms
+// stage the tile's 27 nbr (or 8 ldual) entries in shared memory and read
+// corners through the read-only cache (__ldg), per-field sums in registers
+// (NB is a template parameter).
 //
-// The nbr form is the one on the main path. It stages the tile's 27 nbr
-// entries in shared memory and reads corners through the read-only cache
-// (__ldg), per-field sums in registers (NB is a template parameter). A
-// voxel's gathers form two dependent rounds (8*nb corner loads, the
+// A voxel's gathers form two dependent rounds (8*nb corner loads, the
 // re-trace, 8*(nb - f_lo) more), so one voxel a thread left one chain of
 // loads in flight a thread. Here a thread carries V voxels (c and c + 512/V
 // of its tile, so that every warp-wide load still covers 32 consecutive
@@ -50,25 +50,31 @@
 // V voxels are then independent chains. V = 2 in blocks of 256 threads, or
 // V = 1 in blocks of 512 where the SDF probes add two samples a voxel;
 // __launch_bounds__ caps the registers at 64 a thread, so that 32 warps stay
-// resident on an SM. Each field of each voxel still goes through
+// resident on an SM. The dual form's mode "both" runs the same body in the
+// same shape; its split modes ("back", "fwd": one sample a field) carry V = 4
+// voxels a thread where they sample at most three fields, else V = 2
+// (PassShape). Each field of each voxel still goes through
 // trilinear.cuh::sample with the same arguments, so each result is the same
 // float as before, bitwise.
 //
-// The dual form's table is three times the L2 at the bench (154.5 MB for
-// the scalar pass), and a chunk's neighbouring tiles share half their dual
-// rows, each dual row of a field one contiguous 2 KB block of the table. So
-// it stages a group of tiles' distinct dual rows in shared memory a field at
-// a time by bulk asynchronous copies and samples from there (below, "the
-// dual form").
-#include "bulk_copy.cuh"
+// The dual form was also built the other way, as a staged kernel: a block
+// of G tiles deduping its dual rows and streaming them through shared memory
+// by bulk asynchronous copies. It lost to this shape at every launch shape
+// tried (PERF.md, section 6): one field a copy ran at the copy engine's rate of
+// ~60 ns a 2 KB copy an SM, three fields a copy left too few warps resident
+// beside the stages, and its per-field corner sums cost more instructions
+// than the gathers they replaced. The table is three times the L2 at the
+// bench, yet with the table in the L2 a launch is only 13-25% faster: the
+// gathers' latency and issue, not HBM, are what bound it.
 #include "trilinear.cuh"
 
 namespace hn {
 
-// The nbr form's launch shape: V voxels a thread, blocks of TILE / V threads
-// (a tile), 2 * V blocks resident an SM (64 registers a thread, 32 warps).
-// V = 2, or 1 with the SDF probes: their two extra samples a voxel make a
-// thread of two voxels spill.
+// The launch shape of the nbr form and of the dual form's mode "both": V
+// voxels a thread, blocks of TILE / V threads (a tile), 2 * V blocks
+// resident an SM (64 registers a thread, 32 warps). V = 2, or 1 with the
+// SDF probes: their two extra samples a voxel make a thread of two voxels
+// spill.
 template <bool HAS_SDF>
 struct NbrShape {
   static constexpr int V = HAS_SDF ? 1 : 2;
@@ -182,309 +188,85 @@ bfecc_sample_kernel(const float* __restrict__ fields, const float* __restrict__ 
                                    lim, out, plane, self);
 }
 
-// -- the dual form -------------------------------------------------------------
-//
-// A block takes G consecutive tiles of one chunk (G = 1 or 2; the last
-// group of a chunk may be short) and DUAL_V = 1 voxel a thread: G * 512
-// threads. Its prologue (warp 0) reads the
-// group's 8 G ldual entries and dedupes them into slots in the order of
-// their first occurrence (ops/cuda_bfecc.py::dual_group_plan is its plain
-// version): slot[8 g + j] is the slot of tile g's dual row j, row[r] the
-// chunk dual row in slot r; the null row 0 is staged like any other.
-//
-// The fields then go through a ring of S stages in dynamic shared memory,
-// a run of at most DUAL_RUN = 3 consecutive fields a stage: a dual row's
-// fields lie side by side in the table, so a run of every slot's row is one
-// bulk copy a row (up to 6 KB), issued by warp 0's lanes onto the stage's
-// mbarrier. The next S - 1 runs are in flight while one is sampled; a stage
-// is refilled after a block barrier that ends its reads, and a run that
-// the stage already holds (the step S back staged the same run) is not
-// copied again. (One field a copy, 2 KB, was tried first: the copies then
-// ran at the bulk copy engine's rate of ~60 ns a copy an SM and the kernel
-// lost to the __ldg form; PERF.md, PR 8.) The runs of mode "both": the SDF
-// at d where there is one, u at d, the re-trace d2 and its probe, then the
-// scalars at d and at d2 in runs of three (velocity mode: u again at d2).
-// The split modes sample their n fields at one position in runs of three.
-//
-// Each voxel's corners are located once a position (DualPos: their eight
-// stage offsets and the floor/frac weights) and every corner is read from
-// shared memory; each field is summed over its eight corners in (di, dj,
-// dk) order with trilinear.cuh::sample's weights, so every output is the
-// same float as before, bitwise.
-
-constexpr int DUAL_V = 1;                     // voxels a thread
-constexpr int DUAL_THREADS = TILE / DUAL_V;   // threads a tile
-constexpr int DUAL_RUN = 3;                   // fields a stage at most
-constexpr int DUAL_MAX_G = 2;                 // tiles a block at most
-constexpr int DUAL_MAX_S = 4;                 // stages at most
-constexpr int DUAL_MAX_SMEM = 200 * 1024;     // the stages' dynamic shared memory at most
-
-__host__ __device__ inline size_t dual_smem(int G, int S) {
-  return (size_t)S * 8 * G * DUAL_RUN * ROW_BYTES;
-}
-
-inline bool dual_shape_ok(int G, int S) {
-  return (G == 1 || G == 2) && S >= 1 && S <= DUAL_MAX_S &&
-         dual_smem(G, S) <= (size_t)DUAL_MAX_SMEM;
-}
-
-// A dual-form block's shared state beside its stages.
-struct DualGroup {
-  int slot[8 * DUAL_MAX_G];  // slot of each of the group's ldual entries
-  int row[8 * DUAL_MAX_G];   // chunk dual row in each slot
-  uint64_t bar[DUAL_MAX_S];  // stage s's copies complete on bar[s]
-  int nrows;                 // distinct dual rows of the group
+// The dual form's split modes' launch shape: V voxels a thread, blocks of
+// TILE / V threads (a tile), 2 * V blocks resident an SM (32 warps at 64
+// registers a thread). V = 4 for at most three fields, else 2: the faster
+// of V = 1, 2 and 4 at the bench's three- and eight-field launches
+// (tools/b1d_cost.py); at five fields V = 2 was ~2% slower than V = 1.
+template <int N>
+struct PassShape {
+  static constexpr int V = N <= 3 ? 4 : 2;
+  static constexpr int THREADS = TILE / V;
+  static constexpr int MIN_BLOCKS = 2 * V;
 };
 
-// One sample position of one voxel: its eight corners' offsets into a
-// stage (slot * DUAL_RUN * 512 + column, field 0 of the run) and weights,
-// computed once and kept for every field sampled there.
-struct DualPos {
-  float w[8];
-  int off[8];
-};
-
-__device__ __forceinline__ DualPos dual_pos(int cx, int cy, int cz, float dx, float dy,
-                                            float dz, const int* slot8) {
-  DualPos p;
-  const float lx = add((float)cx, dx);
-  const float ly = add((float)cy, dy);
-  const float lz = add((float)cz, dz);
-  const float bx = floorf(lx), by = floorf(ly), bz = floorf(lz);
-  const float fx = sub(lx, bx), fy = sub(ly, by), fz = sub(lz, bz);
-  const float ix = sub(1.0f, fx), iy = sub(1.0f, fy), iz = sub(1.0f, fz);
-  const int ibx = (int)bx, iby = (int)by, ibz = (int)bz;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int di = k >> 2, dj = (k >> 1) & 1, dk = k & 1;
-    p.w[k] = mul(mul(di ? fx : ix, dj ? fy : iy), dk ? fz : iz);
-    const int px = ibx + di + 4, py = iby + dj + 4, pz = ibz + dk + 4;
-    const int j = (px >> 3) * 4 + (py >> 3) * 2 + (pz >> 3);
-    p.off[k] = slot8[j] * (DUAL_RUN * TILE) + (px & 7) * 64 + (py & 7) * 8 + (pz & 7);
-  }
-  return p;
-}
-
-// One field at one position (field i of the run in the stage at
-// stage + i * TILE): trilinear.cuh's sum.
-__device__ __forceinline__ float dual_sample(const float* stage, const DualPos& p) {
-  float acc = mul(stage[p.off[0]], p.w[0]);
-#pragma unroll
-  for (int k = 1; k < 8; ++k) acc = add(acc, mul(stage[p.off[k]], p.w[k]));
-  return acc;
-}
-
-// The block's group (its chunk, first tile and ntile <= G tiles) and the
-// prologue: warp 0 dedupes the group's ldual entries into slots and
-// initialises the stage barriers; ends with a block barrier.
-__device__ __forceinline__ void dual_prologue(DualGroup& grp, const int* __restrict__ ldual,
-                                              int C, int G, int S, int& chunk, int& t0,
-                                              int& ntile) {
-  const int gpc = (C + G - 1) / G;  // groups a chunk
-  chunk = blockIdx.x / gpc;
-  const int first = (blockIdx.x % gpc) * G;
-  t0 = chunk * C + first;
-  ntile = min(G, C - first);
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const bool valid = lane < 8 * ntile;
-    const int x = valid ? ldual[(size_t)t0 * 8 + lane] : -1;
-    const uint32_t peers = __match_any_sync(0xffffffffu, x);
-    const int leader = __ffs(peers) - 1;  // the first entry holding x
-    const uint32_t firsts = __ballot_sync(0xffffffffu, valid && leader == lane);
-    const int slot = __popc(firsts & ((1u << leader) - 1u));
-    if (valid) grp.slot[lane] = slot;
-    if (valid && leader == lane) grp.row[slot] = x;
-    if (lane == 0) grp.nrows = __popc(firsts);
-    if (lane < S) mbar_init(smem_addr(&grp.bar[lane]));
-  }
-  __syncthreads();
-}
-
-// A run of n consecutive table fields from `first`, packed as first * 8 + n.
-__device__ __forceinline__ int run(int first, int n) { return first * 8 + n; }
-
-// K runs through the ring: run_of(k) is step k's run, consume(k, stage)
-// samples it. Once the loops are unrolled K and each step's kind are
-// constants; S is not.
-template <int K, class RunOf, class Consume>
-__device__ __forceinline__ void dual_steps(DualGroup& grp, float* stages, int G, int S,
-                                           const float* chunk_tbl, int nf, RunOf run_of,
-                                           Consume consume) {
-  const int lane = threadIdx.x;  // warp 0's lanes issue the copies
-  const int nrows = grp.nrows;
-  auto reused = [&](int k) { return k >= S && run_of(k) == run_of(k - S); };
-  auto stage = [&](int k) { return stages + (size_t)(k % S) * 8 * G * DUAL_RUN * TILE; };
-  auto issue = [&](int k) {
-    if (threadIdx.x >= 32 || reused(k)) return;
-    const int r = run_of(k);
-    const uint32_t bytes = (uint32_t)(r & 7) * ROW_BYTES;
-    const uint32_t bar = smem_addr(&grp.bar[k % S]);
-    if (lane == 0) mbar_expect(bar, (uint32_t)nrows * bytes);
-    __syncwarp();
-    if (lane < nrows)
-      copy_from_global(smem_addr(stage(k) + (size_t)lane * DUAL_RUN * TILE),
-                       chunk_tbl + ((size_t)grp.row[lane] * nf + (r >> 3)) * TILE, bytes, bar);
-  };
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (k < S) issue(k);
-  uint32_t phase = 0;  // bit s: the parity of stage s's next completion
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (!reused(k)) {
-      const int s = k % S;
-      mbar_wait(smem_addr(&grp.bar[s]), (phase >> s) & 1u);
-      phase ^= 1u << s;
-    }
-    consume(k, stage(k));
-    if (k + S < K && !reused(k + S)) {
-      fence_async_shared();  // this thread's reads of the stage before its refill
-      __syncthreads();
-      issue(k + S);
-    }
-  }
-}
-
-// The runs of mode "both": [the SDF at d], u at d, [the SDF at d2], then
-// the outputs' fields f_lo.. in runs of DUAL_RUN (velocity mode: u).
+// Dual form, mode "both". tbl [nc, Ud*nf, 512] with nf = NB (+1: the SDF
+// last); tile t belongs to chunk t / C. B1's body in its shape.
 template <int NB, int FLO, bool HAS_SDF>
-struct BothRuns {
-  static constexpr int U = HAS_SDF ? 1 : 0;                    // u at d
-  static constexpr int R0 = U + 1 + (HAS_SDF ? 1 : 0);         // the first output run
-  static constexpr int NO = NB - FLO;                          // outputs a position
-  static constexpr int K = R0 + (NO + DUAL_RUN - 1) / DUAL_RUN;
-  __device__ static int at(int k) {
-    if (HAS_SDF && (k == 0 || k == U + 1)) return run(NB, 1);
-    if (k == U) return run(0, 3);
-    return run(FLO + (k - R0) * DUAL_RUN, min(DUAL_RUN, NO - (k - R0) * DUAL_RUN));
-  }
-};
-
-// Mode "both". tbl [nc, Ud*NF, 512] with NF = NB (+1: the SDF last); the
-// block's tiles belong to its chunk.
-template <int NB, int FLO, bool HAS_SDF>
-__global__ void __launch_bounds__(DUAL_THREADS * DUAL_MAX_G)
+__global__ void __launch_bounds__(NbrShape<HAS_SDF>::THREADS, NbrShape<HAS_SDF>::MIN_BLOCKS)
 bfecc_dual_kernel(const float* __restrict__ tbl, const int* __restrict__ ldual,
                   const float* __restrict__ vel, float* __restrict__ out, int T, int C, int Ud,
-                  float sdt, float lim, int G, int S) {
-  __shared__ DualGroup grp;
-  extern __shared__ __align__(128) float stages[];
-  int chunk, t0, ntile;
-  dual_prologue(grp, ldual, C, G, S, chunk, t0, ntile);
+                  float sdt, float lim) {
+  __shared__ int sdual[8];
+  const int t = blockIdx.x;
+  if (threadIdx.x < 8) sdual[threadIdx.x] = ldual[(size_t)t * 8 + threadIdx.x];
+  __syncthreads();
 
-  using Runs = BothRuns<NB, FLO, HAS_SDF>;
   constexpr int NF = NB + (HAS_SDF ? 1 : 0);
-  constexpr int V = DUAL_V;
-  const int g = threadIdx.x / DUAL_THREADS;
-  const bool live = g < ntile;
-  const int* slot8 = grp.slot + 8 * g;
+  constexpr int V = NbrShape<HAS_SDF>::V;
+  const float* chunk = tbl + (size_t)(t / C) * Ud * NF * TILE;
   const size_t plane = (size_t)T * TILE;
   int cx[V], cy[V], cz[V];
   size_t self[V];
   float dx[V], dy[V], dz[V];
-  DualPos pd[V], pd2[V];
-  if (live) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int c = threadIdx.x % DUAL_THREADS + v * DUAL_THREADS;
-      cx[v] = c >> 6, cy[v] = (c >> 3) & 7, cz[v] = c & 7;
-      self[v] = (size_t)(t0 + g) * TILE + c;
-      back_disp(vel, plane, self[v], sdt, lim, dx[v], dy[v], dz[v]);
-      pd[v] = dual_pos(cx[v], cy[v], cz[v], dx[v], dy[v], dz[v], slot8);
-    }
+  for (int v = 0; v < V; ++v) {
+    const int c = threadIdx.x + v * NbrShape<HAS_SDF>::THREADS;
+    cx[v] = c >> 6, cy[v] = (c >> 3) & 7, cz[v] = c & 7;
+    self[v] = (size_t)t * TILE + c;
+    back_disp(vel, plane, self[v], sdt, lim, dx[v], dy[v], dz[v]);
   }
-  auto consume = [&](int k, const float* st) {
-    if (!live) return;
-    if (HAS_SDF && k == 0) {  // the probe at d: a trace into the solid stays home
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        if (dual_sample(st, pd[v]) < 0.0f) {
-          dx[v] = dy[v] = dz[v] = 0.0f;
-          pd[v] = dual_pos(cx[v], cy[v], cz[v], 0.0f, 0.0f, 0.0f, slot8);
-        }
-    } else if (k == Runs::U) {  // u at d, then the re-trace
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        float u[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          u[j] = dual_sample(st + j * TILE, pd[v]);
-          if (FLO == 0) out[j * plane + self[v]] = u[j];
-        }
-        const float ex = clampf(add(dx[v], mul(u[0], sdt)), -lim, lim);
-        const float ey = clampf(add(dy[v], mul(u[1], sdt)), -lim, lim);
-        const float ez = clampf(add(dz[v], mul(u[2], sdt)), -lim, lim);
-        pd2[v] = dual_pos(cx[v], cy[v], cz[v], ex, ey, ez, slot8);
-      }
-    } else if (HAS_SDF && k == Runs::U + 1) {  // the probe at d2: back to d
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        if (dual_sample(st, pd2[v]) < 0.0f) pd2[v] = pd[v];
-    } else {  // outputs j0.. : field FLO + j at d (scalar mode) and at d2
-      const int j0 = (k - Runs::R0) * DUAL_RUN;
-#pragma unroll
-      for (int i = 0; i < DUAL_RUN; ++i) {
-        if (j0 + i >= Runs::NO) break;
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if (FLO != 0) out[(j0 + i) * plane + self[v]] = dual_sample(st + i * TILE, pd[v]);
-          out[(Runs::NO + j0 + i) * plane + self[v]] = dual_sample(st + i * TILE, pd2[v]);
-        }
-      }
-    }
-  };
-  dual_steps<Runs::K>(grp, stages, G, S, tbl + (size_t)chunk * Ud * NF * TILE, NF,
-                      [](int k) { return Runs::at(k); }, consume);
+  fused_pairs<V, NB, FLO, HAS_SDF>(DualCorners{chunk, NF, sdual},
+                                   DualCorners{chunk + NB * TILE, NF, sdual}, cx, cy, cz, dx,
+                                   dy, dz, sdt, lim, out, plane, self);
 }
 
-// Modes "back" (FROM_VEL: d = clamp(-vd * sdt)) and "fwd" (d = vd): fields
-// [lo, lo + N) of a table of nf fields sampled at x + d, in runs of
-// DUAL_RUN.
+// Dual form, modes "back" (FROM_VEL: d = clamp(-vd * sdt)) and "fwd" (d =
+// vd): fields [lo, lo + N) of a table of nf fields sampled at x + d, the V
+// voxels' samples independent chains.
 template <int N, bool FROM_VEL>
-__global__ void __launch_bounds__(DUAL_THREADS * DUAL_MAX_G)
+__global__ void __launch_bounds__(PassShape<N>::THREADS, PassShape<N>::MIN_BLOCKS)
 sample_dual_kernel(const float* __restrict__ tbl, const int* __restrict__ ldual,
                    const float* __restrict__ vd, float* __restrict__ out, int T, int C, int Ud,
-                   int nf, int lo, float sdt, float lim, int G, int S) {
-  __shared__ DualGroup grp;
-  extern __shared__ __align__(128) float stages[];
-  int chunk, t0, ntile;
-  dual_prologue(grp, ldual, C, G, S, chunk, t0, ntile);
+                   int nf, int lo, float sdt, float lim) {
+  __shared__ int sdual[8];
+  const int t = blockIdx.x;
+  if (threadIdx.x < 8) sdual[threadIdx.x] = ldual[(size_t)t * 8 + threadIdx.x];
+  __syncthreads();
 
-  constexpr int V = DUAL_V;
-  constexpr int K = (N + DUAL_RUN - 1) / DUAL_RUN;
-  const int g = threadIdx.x / DUAL_THREADS;
-  const bool live = g < ntile;
+  constexpr int V = PassShape<N>::V;
+  const float* chunk = tbl + (size_t)(t / C) * Ud * nf * TILE + (size_t)lo * TILE;
   const size_t plane = (size_t)T * TILE;
-  size_t self[V];
-  DualPos pd[V];
-  if (live) {
+  float acc[V][N];
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int c = threadIdx.x % DUAL_THREADS + v * DUAL_THREADS;
-      self[v] = (size_t)(t0 + g) * TILE + c;
-      float dx = vd[self[v]], dy = vd[plane + self[v]], dz = vd[2 * plane + self[v]];
-      if constexpr (FROM_VEL) {
-        dx = clampf(mul(-dx, sdt), -lim, lim);
-        dy = clampf(mul(-dy, sdt), -lim, lim);
-        dz = clampf(mul(-dz, sdt), -lim, lim);
-      }
-      pd[v] = dual_pos(c >> 6, (c >> 3) & 7, c & 7, dx, dy, dz, grp.slot + 8 * g);
+  for (int v = 0; v < V; ++v) {
+    const int c = threadIdx.x + v * PassShape<N>::THREADS;
+    const size_t self = (size_t)t * TILE + c;
+    float dx = vd[self], dy = vd[plane + self], dz = vd[2 * plane + self];
+    if constexpr (FROM_VEL) {
+      dx = clampf(mul(-dx, sdt), -lim, lim);
+      dy = clampf(mul(-dy, sdt), -lim, lim);
+      dz = clampf(mul(-dz, sdt), -lim, lim);
     }
+    sample<0, N>(DualCorners{chunk, nf, sdual}, c >> 6, (c >> 3) & 7, c & 7, dx, dy, dz,
+                 acc[v]);
   }
-  dual_steps<K>(
-      grp, stages, G, S, tbl + (size_t)chunk * Ud * nf * TILE, nf,
-      [lo](int k) { return run(lo + k * DUAL_RUN, min(DUAL_RUN, N - k * DUAL_RUN)); },
-      [&](int k, const float* st) {
-        if (!live) return;
 #pragma unroll
-        for (int i = 0; i < DUAL_RUN; ++i) {
-          if (k * DUAL_RUN + i >= N) break;
+  for (int v = 0; v < V; ++v) {
+    const size_t self = (size_t)t * TILE + threadIdx.x + v * PassShape<N>::THREADS;
 #pragma unroll
-          for (int v = 0; v < V; ++v)
-            out[(k * DUAL_RUN + i) * plane + self[v]] = dual_sample(st + i * TILE, pd[v]);
-        }
-      });
+    for (int j = 0; j < N; ++j) out[j * plane + self] = acc[v][j];
+  }
 }
 
 template <int NB, int FLO>
@@ -499,46 +281,30 @@ static cudaError_t launch(const float* fields, const float* sdf, const int* nbr,
   return cudaGetLastError();
 }
 
-// The dual form's launch: nc * ceil(C / G) blocks of G * 256 threads and
-// S stages of 8 G rows of DUAL_RUN fields in dynamic shared memory; the
-// instance's limit on dynamic shared memory is raised once a process.
-template <class Kernel, class... Args>
-static cudaError_t launch_dual_form(Kernel kernel, bool& attributes_set, int T, int C, int G,
-                                    int S, cudaStream_t s, Args... args) {
-  if (!dual_shape_ok(G, S) || T % C) return cudaErrorInvalidValue;
-  if (!attributes_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DUAL_MAX_SMEM);
-    if (e != cudaSuccess) return e;
-    attributes_set = true;
-  }
-  const int blocks = T / C * ((C + G - 1) / G);
-  kernel<<<blocks, G * DUAL_THREADS, dual_smem(G, S), s>>>(args..., G, S);
-  return cudaGetLastError();
-}
-
 template <int NB, int FLO>
 static cudaError_t launch_dual(const float* tbl, const int* ldual, const float* vel, float* out,
-                               int T, int C, int Ud, bool has_sdf, float sdt, float lim, int G,
-                               int S, cudaStream_t s) {
-  static bool set[2] = {false, false};
+                               int T, int C, int Ud, bool has_sdf, float sdt, float lim,
+                               cudaStream_t s) {
   if (has_sdf)
-    return launch_dual_form(bfecc_dual_kernel<NB, FLO, true>, set[1], T, C, G, S, s, tbl,
-                            ldual, vel, out, T, C, Ud, sdt, lim);
-  return launch_dual_form(bfecc_dual_kernel<NB, FLO, false>, set[0], T, C, G, S, s, tbl, ldual,
-                          vel, out, T, C, Ud, sdt, lim);
+    bfecc_dual_kernel<NB, FLO, true><<<T, NbrShape<true>::THREADS, 0, s>>>(
+        tbl, ldual, vel, out, T, C, Ud, sdt, lim);
+  else
+    bfecc_dual_kernel<NB, FLO, false><<<T, NbrShape<false>::THREADS, 0, s>>>(
+        tbl, ldual, vel, out, T, C, Ud, sdt, lim);
+  return cudaGetLastError();
 }
 
 template <int N>
 static cudaError_t launch_pass(const float* tbl, const int* ldual, const float* vd, float* out,
                               int T, int C, int Ud, int nf, int lo, bool from_vel, float sdt,
-                              float lim, int G, int S, cudaStream_t s) {
-  static bool set[2] = {false, false};
+                              float lim, cudaStream_t s) {
   if (from_vel)
-    return launch_dual_form(sample_dual_kernel<N, true>, set[1], T, C, G, S, s, tbl, ldual, vd,
-                            out, T, C, Ud, nf, lo, sdt, lim);
-  return launch_dual_form(sample_dual_kernel<N, false>, set[0], T, C, G, S, s, tbl, ldual, vd,
-                          out, T, C, Ud, nf, lo, sdt, lim);
+    sample_dual_kernel<N, true><<<T, PassShape<N>::THREADS, 0, s>>>(
+        tbl, ldual, vd, out, T, C, Ud, nf, lo, sdt, lim);
+  else
+    sample_dual_kernel<N, false><<<T, PassShape<N>::THREADS, 0, s>>>(
+        tbl, ldual, vd, out, T, C, Ud, nf, lo, sdt, lim);
+  return cudaGetLastError();
 }
 
 }  // namespace hn
@@ -572,13 +338,10 @@ extern "C" int hn_bfecc_sample(const void* fields, const void* sdf, const void* 
 // Mode "both" of the dual form. tbl [nc, Ud*(nb+has_sdf), 8, 64] f32 (the
 // SDF the last field), ldual [T, 8] i32, vel [3, T, 512] f32, out
 // [2*(nb-f_lo), T, 512] f32; chunk size C = T / nc. (nb, f_lo) as
-// hn_bfecc_sample. The launch shape: G tiles a block (1, 2 or 4), S stages
-// (1..4) of 8 G rows of 3 fields, at most 200 KB of them
-// (ops/cuda_bfecc.py::dual_shape).
+// hn_bfecc_sample.
 extern "C" int hn_bfecc_sample_dual(const void* tbl, const void* ldual, const void* vel,
                                     void* out, int T, int C, int Ud, int nb, int f_lo,
-                                    int has_sdf, float sdt, float lim, int G, int S,
-                                    void* stream) {
+                                    int has_sdf, float sdt, float lim, void* stream) {
   const float* tb = static_cast<const float*>(tbl);
   const int* ld = static_cast<const int*>(ldual);
   const float* v = static_cast<const float*>(vel);
@@ -587,17 +350,17 @@ extern "C" int hn_bfecc_sample_dual(const void* tbl, const void* ldual, const vo
   const bool g = has_sdf != 0;
   if (T <= 0 || C <= 0 || Ud <= 0) return (int)cudaErrorInvalidValue;
   if (f_lo == 0 && nb == 3)
-    return (int)hn::launch_dual<3, 0>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
+    return (int)hn::launch_dual<3, 0>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
   if (f_lo != 3) return (int)cudaErrorInvalidValue;
   switch (nb) {
-    case 4: return (int)hn::launch_dual<4, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 5: return (int)hn::launch_dual<5, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 6: return (int)hn::launch_dual<6, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 7: return (int)hn::launch_dual<7, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 8: return (int)hn::launch_dual<8, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 9: return (int)hn::launch_dual<9, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 10: return (int)hn::launch_dual<10, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
-    case 11: return (int)hn::launch_dual<11, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, G, S, s);
+    case 4: return (int)hn::launch_dual<4, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 5: return (int)hn::launch_dual<5, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 6: return (int)hn::launch_dual<6, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 7: return (int)hn::launch_dual<7, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 8: return (int)hn::launch_dual<8, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 9: return (int)hn::launch_dual<9, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 10: return (int)hn::launch_dual<10, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
+    case 11: return (int)hn::launch_dual<11, 3>(tb, ld, v, o, T, C, Ud, g, sdt, lim, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -605,11 +368,10 @@ extern "C" int hn_bfecc_sample_dual(const void* tbl, const void* ldual, const vo
 // Modes "back" (from_vel = 1: vd is the velocity) and "fwd" (from_vel = 0:
 // vd is the displacement) of the dual form. tbl [nc, Ud*nf, 8, 64] f32,
 // ldual [T, 8] i32, vd [3, T, 512] f32, out [n, T, 512] f32 = fields
-// [lo, lo + n) at x + d; 1 <= n <= 11, lo + n <= nf; G and S as
-// hn_bfecc_sample_dual.
+// [lo, lo + n) at x + d; 1 <= n <= 11, lo + n <= nf.
 extern "C" int hn_sample_dual(const void* tbl, const void* ldual, const void* vd, void* out,
                               int T, int C, int Ud, int nf, int lo, int n, int from_vel,
-                              float sdt, float lim, int G, int S, void* stream) {
+                              float sdt, float lim, void* stream) {
   const float* tb = static_cast<const float*>(tbl);
   const int* ld = static_cast<const int*>(ldual);
   const float* v = static_cast<const float*>(vd);
@@ -618,17 +380,17 @@ extern "C" int hn_sample_dual(const void* tbl, const void* ldual, const void* vd
   const bool fv = from_vel != 0;
   if (T <= 0 || C <= 0 || Ud <= 0 || lo < 0 || lo + n > nf) return (int)cudaErrorInvalidValue;
   switch (n) {
-    case 1: return (int)hn::launch_pass<1>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 2: return (int)hn::launch_pass<2>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 3: return (int)hn::launch_pass<3>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 4: return (int)hn::launch_pass<4>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 5: return (int)hn::launch_pass<5>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 6: return (int)hn::launch_pass<6>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 7: return (int)hn::launch_pass<7>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 8: return (int)hn::launch_pass<8>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 9: return (int)hn::launch_pass<9>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 10: return (int)hn::launch_pass<10>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
-    case 11: return (int)hn::launch_pass<11>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, G, S, s);
+    case 1: return (int)hn::launch_pass<1>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 2: return (int)hn::launch_pass<2>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 3: return (int)hn::launch_pass<3>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 4: return (int)hn::launch_pass<4>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 5: return (int)hn::launch_pass<5>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 6: return (int)hn::launch_pass<6>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 7: return (int)hn::launch_pass<7>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 8: return (int)hn::launch_pass<8>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 9: return (int)hn::launch_pass<9>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 10: return (int)hn::launch_pass<10>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
+    case 11: return (int)hn::launch_pass<11>(tb, ld, v, o, T, C, Ud, nf, lo, fv, sdt, lim, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -53,13 +53,50 @@
 // issue rate per SM and, across SMs, the L2 / HBM rate (2 KB per row).
 #include <cstdint>
 
-#include "bulk_copy.cuh"
+#include "common.cuh"
 
 namespace hn {
 
+constexpr int ROW_BYTES = TILE * 4;
 constexpr int S = 64;  // stage rows (ops/probe.py STAGE_ROWS)
 constexpr int COPY_THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;  // dynamic shared memory per block (H100)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive (the one expected arrival) and expect `bytes` of copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void copy_from_global(uint32_t dst, const void* src, uint32_t bytes,
+                                                 uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ void copy_from_shared(uint32_t dst, uint32_t src, uint32_t bytes,
                                                  uint32_t bar) {
@@ -67,6 +104,12 @@ __device__ __forceinline__ void copy_from_shared(uint32_t dst, uint32_t src, uin
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
       "[%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// order this thread's generic-proxy shared-memory accesses before later
+// async-proxy (bulk copy) accesses
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the row-start table's ints, padded to 16 bytes

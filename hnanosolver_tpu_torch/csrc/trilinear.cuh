@@ -1,7 +1,6 @@
-// The trilinear sample shared by B1's nbr form (bfecc_sample.cu) and B8/B9
-// (sample_at.cu), so that every pass samples with one arithmetic and one
-// summation order; B1's dual form (bfecc_sample.cu, dual_sample) sums its
-// corners from shared memory with the same weights in the same order.
+// The trilinear sample shared by B1 (bfecc_sample.cu: the nbr form and the
+// dual-table form) and B8/B9 (sample_at.cu), so that every pass samples
+// with one arithmetic and one summation order.
 //
 // Sample of fields [LO, NB) at x + d for voxel (cx, cy, cz) of a tile:
 // floor/frac weights (wx*wy)*wz, the eight corners summed in (di, dj, dk)
@@ -9,16 +8,18 @@
 // ops/cuda_bfecc.py::sample_dual_plain) do. Where a corner's values are
 // read from is the Corners policy: at(qx, qy, qz) points at field 0 of the
 // corner at in-tile position q, and field f lies stride() floats further.
-// The dual table's corner map (dual row j = jx*4 + jy*2 + jz holds f at
-// in-tile positions jx*8 + l - 4 per axis, so a corner at q in [-4, 12) per
-// axis is in row ((qx+4)>>3)*4 + ... at column ((qx+4)&7)*64 + ...; |d| < 4
-// keeps every corner there) is bfecc_sample.cu::dual_pos.
 //
 // NbrCorners: fields [F, T, 512], the tile's 27 nbr entries. |d| < 7
 // keeps every corner coordinate in [-8, 15], inside the tile's 3x3x3
 // neighbourhood, so a corner is read straight from its tile row
 // snbr[(qx+8)>>3 ...] (the null row 0 where the neighbour is absent).
-
+//
+// DualCorners: the tile's chunk of a dual table (rows u*nf + f of 512
+// columns, ops/tables.py) and the tile's 8 chunk_ldual entries. Dual row
+// j = jx*4 + jy*2 + jz holds f at in-tile positions jx*8 + l - 4 per axis,
+// so a corner at q in [-4, 12) per axis reads row sdual[((qx+4)>>3)*4 ...]
+// at column ((qx+4)&7)*64 + ...; |d| < 4 keeps every corner there (the
+// callers' CFL bounds).
 #pragma once
 
 #include "common.cuh"
@@ -35,6 +36,19 @@ struct NbrCorners {
     return fields + (size_t)row * TILE + (qx & 7) * 64 + (qy & 7) * 8 + (qz & 7);
   }
   __device__ __forceinline__ size_t stride() const { return plane; }
+};
+
+struct DualCorners {
+  const float* table;  // the chunk's [Ud*nf, 512] rows, offset to field 0
+  int nf;              // fields per dual row of the table
+  const int* sdual;
+
+  __device__ __forceinline__ const float* at(int qx, int qy, int qz) const {
+    const int px = qx + 4, py = qy + 4, pz = qz + 4;
+    const int row = sdual[(px >> 3) * 4 + (py >> 3) * 2 + (pz >> 3)];
+    return table + (size_t)row * nf * TILE + (px & 7) * 64 + (py & 7) * 8 + (pz & 7);
+  }
+  __device__ __forceinline__ size_t stride() const { return TILE; }
 };
 
 template <int LO, int NB, class Corners>

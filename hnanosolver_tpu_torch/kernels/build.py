@@ -42,8 +42,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "hn_bfecc_sample": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
-    "hn_bfecc_sample_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
-    "hn_sample_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "hn_bfecc_sample_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "hn_sample_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "hn_combine_dual": (_P, _P, _P, _I, _I, _I, _I, _P),
     "hn_bfecc_tail": (_P, _P, _P, _P, _P, _I, _I, _P),
     "hn_divergence": (_P, _P, _P, _I, _F, _P),
@@ -72,7 +72,7 @@ SM_SHARED = 228 * 1024
 BLOCK_SHARED_RESERVED = 1024
 REG_ALLOC_UNIT = 256
 # threads a block of each kernel, as its launch in csrc/ sets them
-# (bfecc_sample_kernel and the dual form: block_threads)
+# (bfecc_sample.cu's kernels: block_threads)
 BLOCK_THREADS = {
     "bfecc_tail_kernel": 512,
     "combine_dual_kernel": 512,
@@ -89,33 +89,18 @@ BLOCK_THREADS = {
 }
 
 
-DUAL_KERNELS = ("bfecc_dual_kernel", "sample_dual_kernel")  # bfecc_sample.cu's dual form
-
-
 def block_threads(instance: str) -> Optional[int]:
     """Threads a block of a kernel instance (``name<args>``), None if not
-    listed. bfecc_sample.cu's NbrShape: 512 with the SDF probes (its last
-    template argument), else 256; its dual form: the wrapper's launch shape
-    (``ops/cuda_bfecc.dual_shape``)."""
+    listed. bfecc_sample.cu's NbrShape (bfecc_sample_kernel and
+    bfecc_dual_kernel): 512 with the SDF probes (the last template
+    argument), else 256; its PassShape (sample_dual_kernel<N, ...>): 128 for
+    N <= 3 fields, else 256."""
     kernel, _, args = instance.partition("<")
-    if kernel == "bfecc_sample_kernel":
+    if kernel in ("bfecc_sample_kernel", "bfecc_dual_kernel"):
         return 512 if args.rstrip(">").endswith("true") else 256
-    if kernel in DUAL_KERNELS:
-        from hnanosolver_tpu_torch.ops.cuda_bfecc import dual_shape
-
-        return dual_shape().threads
+    if kernel == "sample_dual_kernel":
+        return 128 if int(args.split(",")[0]) <= 3 else 256
     return BLOCK_THREADS.get(kernel)
-
-
-def dynamic_shared(instance: str) -> int:
-    """Dynamic shared memory a block of a kernel instance, as its launch
-    sets it: the dual form's stages (``ops/cuda_bfecc.dual_shape``), else 0
-    (B5's cluster form and PC size theirs by their inputs)."""
-    if instance.partition("<")[0] in DUAL_KERNELS:
-        from hnanosolver_tpu_torch.ops.cuda_bfecc import dual_shape
-
-        return dual_shape().smem
-    return 0
 
 
 @dataclasses.dataclass
@@ -143,7 +128,6 @@ class KernelResources:
     spill_stores: int
     spill_loads: int
     threads: Optional[int]  # threads a block (block_threads), None if not listed
-    dynamic: int = 0  # dynamic shared memory a block (dynamic_shared), bytes
 
     def resident_warps(self) -> Optional[int]:
         """Warps of whole blocks an SM holds at once, the least of the
@@ -154,14 +138,13 @@ class KernelResources:
         per_warp = -(-self.registers * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
         blocks = min(SM_WARPS // warps, SM_BLOCKS,
                      (SM_REGISTERS // per_warp) // warps if per_warp else SM_BLOCKS,
-                     SM_SHARED // (self.shared + self.dynamic + BLOCK_SHARED_RESERVED))
+                     SM_SHARED // (self.shared + BLOCK_SHARED_RESERVED))
         return blocks * warps
 
     def line(self) -> str:
         warps = self.resident_warps()
         resident = "?" if warps is None else f"{warps}/{SM_WARPS}"
-        dyn = f" + {self.dynamic} B dynamic" if self.dynamic else ""
-        return (f"{self.name}: {self.registers} regs, {self.shared} B smem{dyn}, spills "
+        return (f"{self.name}: {self.registers} regs, {self.shared} B smem, spills "
                 f"{self.spill_stores}/{self.spill_loads} B (store/load), {self.threads} threads "
                 f"a block -> {resident} resident warps an SM")
 
@@ -206,7 +189,7 @@ def parse_ptxas(log: str) -> list[KernelResources]:
             smem = re.search(r"(\d+) bytes smem", ln)
             out.append(KernelResources(
                 name, int(m.group(1)), int(smem.group(1)) if smem else 0, *spills,
-                block_threads(name), dynamic_shared(name)))
+                block_threads(name)))
             name = None
     return out
 

@@ -10,19 +10,12 @@ dual table (``ops/tables.py``, or kernel B11) and serves the narrow window
 (the JAX kernel's ``dual=True``, ``win=16``) in the modes "both", "back"
 and "fwd". On a CPU tensor a wrapper runs the plain version; on a CUDA
 tensor it launches the kernel or raises.
-
-The dual form's kernel stages a group of G tiles' distinct dual rows in
-shared memory a field at a time, through a ring of S stages
-(:func:`dual_shape`); :func:`dual_group_plan` is the plain version of its
-prologue, which dedupes the group's ``chunk_ldual`` rows into slots.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from hnanosolver_tpu_torch.core.layout import TILE
@@ -36,17 +29,6 @@ MAX_SCALARS = 8  # scalar-mode fields the kernel is instantiated for
 # need max|d| < CFL_MID (the JAX package's bounds, 0.1 voxel of slack).
 CFL_LIMIT = 1.9
 CFL_MID = 3.9
-
-# The dual form's launch shape (csrc/bfecc_sample.cu: DUAL_V, DUAL_RUN,
-# DUAL_MAX_G, DUAL_MAX_S, DUAL_MAX_SMEM): G tiles a block, DUAL_VOXELS
-# voxels a thread, a ring of S stages of 8 G dual rows of a run of up to
-# DUAL_RUN fields (2 KB a field)
-DUAL_VOXELS = 1
-DUAL_RUN = 3
-DUAL_GROUP = 1
-DUAL_STAGES = 3
-DUAL_MAX_STAGES = 4
-DUAL_MAX_SMEM = 200 * 1024
 
 launches = build.LaunchCount("bfecc_sample")
 launches_dual = build.LaunchCount("bfecc_sample_dual")
@@ -125,81 +107,15 @@ def _check_dual(tbl, ldual, vd, sdt, nb, f_lo, mode, has_sdf):
     build.require(tbl, "tbl", (nc, R, 8, 64), torch.float32, vd.device)
     build.require(ldual, "ldual", (T, 8), torch.int32, vd.device)
     build.require(vd, "vel" if mode != "fwd" else "d", (3, T, TILE), torch.float32, vd.device)
-    # a corner outside the tile +-4 voxels would read another dual row:
-    # max|vd| in one reduction and one sync, d = clamp(-u*sdt) scaled on the
-    # host in float32 as the device rounds it
+    # a corner outside the tile +-4 voxels would read another dual row
     lim = CFL_LIMIT if mode == "both" else CFL_MID
-    dmax = float(torch.linalg.vector_norm(vd, float("inf")))
-    if mode != "fwd":
-        dmax = float(np.minimum(np.float32(dmax) * np.float32(sdt), np.float32(DISP_LIMIT)))
-    if not dmax < lim:
-        raise ValueError(f"mode {mode!r}: max|d| = {dmax} is not < {lim}: corners would "
+    dmax = vd.abs().amax()
+    if mode != "fwd":  # d = clamp(-u*sdt)
+        dmax = torch.clamp(dmax * sdt, max=DISP_LIMIT)
+    if not float(dmax) < lim:
+        raise ValueError(f"mode {mode!r}: max|d| = {float(dmax)} is not < {lim}: corners would "
                          "leave the dual table's window (the tile +-4 voxels)")
     return nf, R // nf
-
-
-@dataclasses.dataclass(frozen=True)
-class DualShape:
-    """The dual form's launch shape: G consecutive tiles of a chunk a block
-    (1, 2 or 4), S stages of 8 G rows of DUAL_RUN fields (2 KB each) in
-    dynamic shared memory."""
-
-    G: int
-    S: int
-
-    @property
-    def threads(self) -> int:
-        return self.G * TILE // DUAL_VOXELS
-
-    @property
-    def stage_rows(self) -> int:
-        return 8 * self.G
-
-    @property
-    def smem(self) -> int:
-        return self.S * self.stage_rows * DUAL_RUN * TILE * 4
-
-    def blocks(self, T: int, C: int) -> int:
-        """Blocks of a launch over T tiles in chunks of C: a group never
-        crosses a chunk, so a chunk's last group may be short."""
-        return T // C * -(-C // self.G)
-
-    def fits(self) -> bool:
-        return (self.G in (1, 2) and 1 <= self.S <= DUAL_MAX_STAGES
-                and self.smem <= DUAL_MAX_SMEM)
-
-
-def dual_shape() -> DualShape:
-    """The shape every dual-form launch takes (the C entries check it)."""
-    return DualShape(DUAL_GROUP, DUAL_STAGES)
-
-
-def dual_group_plan(ldual: torch.Tensor, C: int, G: int) -> dict:
-    """Plain PyTorch version of the dual form's block prologue
-    (``csrc/bfecc_sample.cu::dual_prologue``), for every group of G
-    consecutive tiles of each chunk of C tiles in ``ldual [T, 8]``: the
-    group's 8 G entries deduped into slots in the order of their first
-    occurrence. Returns ``tile0`` and ``ntile [n_groups]`` (a chunk's last
-    group may be short), ``slot [n_groups, 8G]`` (entry 8 g + j: the slot
-    of tile g's dual row j; -1 past ntile), ``rows [n_groups, 8G]`` (the
-    chunk dual row in each slot; -1 past nrows) and ``nrows [n_groups]``."""
-    T = ldual.shape[0]
-    dev = ldual.device
-    gpc = -(-C // G)
-    b = torch.arange(T // C * gpc, device=dev)
-    tile0 = (b // gpc) * C + (b % gpc) * G
-    ntile = torch.clamp(C - (b % gpc) * G, max=G)
-    lane = torch.arange(8 * G, device=dev)
-    valid = lane[None] < 8 * ntile[:, None]
-    idx = torch.clamp(tile0[:, None] * 8 + lane[None], max=T * 8 - 1)
-    x = torch.where(valid, ldual.reshape(-1)[idx].long(), -1)
-    leader = (x[:, :, None] == x[:, None, :]).int().argmax(-1)  # first entry equal to x
-    first = valid & (leader == lane[None])
-    before = torch.cumsum(first.long(), 1) - first.long()  # first occurrences before
-    slot = torch.where(valid, torch.gather(before, 1, leader), -1)
-    rows = torch.full((len(b), 8 * G + 1), -1, dtype=torch.long, device=dev)
-    rows.scatter_(1, torch.where(first, before, 8 * G), x)
-    return dict(tile0=tile0, ntile=ntile, slot=slot, rows=rows[:, :-1], nrows=first.sum(1))
 
 
 def bfecc_sample_dual(tbl: torch.Tensor, ldual: torch.Tensor, vd: torch.Tensor, sdt: float,
@@ -221,33 +137,24 @@ def bfecc_sample_dual(tbl: torch.Tensor, ldual: torch.Tensor, vd: torch.Tensor, 
     nf, Ud = _check_dual(tbl, ldual, vd, sdt, nb, f_lo, mode, has_sdf)
     if build.on_cpu(vd.device):
         return bfecc_sample_dual_plain(tbl, ldual, vd, sdt, nb, f_lo, mode, has_sdf)
-    n = nb - f_lo
-    out = torch.empty((2 * n if mode == "both" else n, ldual.shape[0], TILE),
-                      dtype=torch.float32, device=vd.device)
-    _launch_dual(tbl, ldual, vd, out, sdt, nb, f_lo, mode, has_sdf, dual_shape())
-    launches_dual.n += 1
-    return (out[:n], out[n:]) if mode == "both" else out
-
-
-def _launch_dual(tbl, ldual, vd, out, sdt, nb, f_lo, mode, has_sdf, shape: DualShape):
-    """One launch of the dual form into ``out`` at ``shape``, on inputs
-    :func:`_check_dual` accepted (``tools/b1d_cost.py`` times it alone)."""
     T = ldual.shape[0]
     C = T // tbl.shape[0]
-    nf = nb + int(has_sdf)
-    Ud = tbl.shape[1] // nf
+    n = nb - f_lo
+    out = torch.empty((2 * n if mode == "both" else n, T, TILE), dtype=torch.float32,
+                      device=vd.device)
     with torch.cuda.device(vd.device):
         if mode == "both":
             code = build.library().hn_bfecc_sample_dual(
                 tbl.data_ptr(), ldual.data_ptr(), vd.data_ptr(), out.data_ptr(), T, C, Ud,
-                nb, f_lo, int(has_sdf), float(sdt), DISP_LIMIT, shape.G, shape.S,
-                build.stream_ptr(vd.device))
+                nb, f_lo, int(has_sdf), float(sdt), DISP_LIMIT, build.stream_ptr(vd.device))
         else:
             code = build.library().hn_sample_dual(
                 tbl.data_ptr(), ldual.data_ptr(), vd.data_ptr(), out.data_ptr(), T, C, Ud,
-                nf, f_lo, nb - f_lo, int(mode == "back"), float(sdt), DISP_LIMIT, shape.G,
-                shape.S, build.stream_ptr(vd.device))
+                nf, f_lo, n, int(mode == "back"), float(sdt), DISP_LIMIT,
+                build.stream_ptr(vd.device))
     build.check(code, "bfecc_sample_dual")
+    launches_dual.n += 1
+    return (out[:n], out[n:]) if mode == "both" else out
 
 
 def sample_dual_plain(tbl: torch.Tensor, ldual: torch.Tensor, d: torch.Tensor, lo: int,

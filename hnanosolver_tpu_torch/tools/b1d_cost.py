@@ -4,9 +4,9 @@ the card, launch by launch, on the table path's inputs.
 - The inputs: the bench plume (``cells.CELLS["bench"]``) developed from
   rest by its develop steps, with its chunk plans (9 chunks of 512 tiles);
   its velocity scaled to CFL 1.5 (the narrow band) and 3.0 (the mixed
-  band), as chip_smoke's phase 14 does; the scalar pass's
-  fields are the velocity and the five scalars (nf = 8); the SDF is the
-  config-4 sphere at frame 0 (``cells.CELLS["c4"]``).
+  band), as chip_smoke's phase 14 does; the scalar pass's fields are the
+  velocity and the five scalars (nf = 8); the SDF is the config-4 sphere at
+  frame 0 (``cells.CELLS["c4"]``).
 - The launches: in the narrow band mode "both" at nf = 3 (the velocity
   pass) and nf = 8 (the scalar pass), each also with the SDF as the
   table's last field; in the mixed band "back" and "fwd" of both passes.
@@ -15,28 +15,20 @@ the card, launch by launch, on the table path's inputs.
   0's ldual rows and inputs repeated for every chunk, so that the launch
   has the same tiles and the same work. The gap between the two parts the
   HBM share of a launch from its latency share.
-- Per launch: the kernel's ms (the C entry called as the wrapper calls it,
-  without the wrapper's host check of the window) and the wrapper's (with
-  it), medians of ``--rounds`` runs of 10 back-to-back calls behind the
-  spin (``timing.median_ms``); the bytes bound (table, ldual, vd and out
-  each moved once over 3.35 TB/s) and the share; the instance's ptxas
-  registers, spills and resident warps (``build.parse_ptxas``); and how
-  many distinct dual rows a group of G consecutive tiles of a chunk needs
-  (:func:`group_rows`), for G = 1, 2, 4.
-- With ``--sweep``: each launch on the full table at every launch shape
-  the kernel takes (:func:`shapes`: G = 1, 2, 4 tiles a block, S stages),
-  the measurement that chose ``cuda_bfecc.DUAL_GROUP`` and
-  ``DUAL_STAGES``.
+- Per launch: the kernel's ms (:func:`kernel_call`: the C entry called as
+  the wrapper calls it, without the wrapper's host check of the window)
+  and the wrapper's (with it), medians of ``--rounds`` runs of 10
+  back-to-back calls behind the spin (``timing.median_ms``); the bytes
+  bound (:func:`bound_ms`) and the share; the instance's ptxas registers,
+  spills and resident warps (``build.parse_ptxas``).
 
-Every launch is checked bitwise against its plain version first (at
-every shape with ``--sweep``).
+Every launch is checked bitwise against its plain version first.
 
-Run: python -m hnanosolver_tpu_torch.tools.b1d_cost [--rounds N] [--sweep]
+Run: python -m hnanosolver_tpu_torch.tools.b1d_cost [--rounds N]
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from hnanosolver_tpu_torch.cells import CELLS
@@ -50,18 +42,7 @@ from hnanosolver_tpu_torch.tools import parser
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 BANDS = (("narrow", 1.5), ("mixed", 3.0))  # CFL of each band (chip_smoke phase 14)
-GROUPS = (1, 2, 4)  # tiles a group whose distinct dual rows are counted
 BATCH = 10  # back-to-back calls a timed run
-
-
-def group_rows(ldual: np.ndarray, C: int, G: int) -> np.ndarray:
-    """Distinct dual rows of each group of G consecutive tiles of a chunk of
-    C tiles (the last group of a chunk may be short), over ``ldual [T, 8]``."""
-    out = []
-    for c0 in range(0, ldual.shape[0], C):
-        for t0 in range(c0, c0 + C, G):
-            out.append(len(np.unique(ldual[t0:min(t0 + G, c0 + C)])))
-    return np.asarray(out)
 
 
 def inputs(dev: torch.device) -> dict:
@@ -125,27 +106,32 @@ def launches(inp: dict) -> list:
     return out
 
 
-def kernel_call(tbl, ldual, vd, sdt, nb, f_lo, mode, has_sdf, shape=None):
-    """A launch of the kernel as ``bfecc_sample_dual`` makes it, at
-    ``shape`` (default: the wrapper's), without the wrapper's host check of
-    the window (the launch alone), into a fixed output."""
+def kernel_call(tbl, ldual, vd, sdt, nb, f_lo, mode="both", has_sdf=False):
+    """A call of the C entry as ``bfecc_sample_dual`` makes it, without the
+    wrapper's host check of the window (the launch alone), into a fixed
+    output. It calls the C entry itself, whose arguments have not changed,
+    so that the same file times an older tree's kernel too."""
+    T = ldual.shape[0]
+    nf = nb + int(has_sdf)
+    Ud = tbl.shape[1] // nf
+    C = T // tbl.shape[0]
     n = nb - f_lo
-    out = torch.empty((2 * n if mode == "both" else n, ldual.shape[0], 512), device=vd.device)
-    shape = shape or cuda_bfecc.dual_shape()
+    out = torch.empty((2 * n if mode == "both" else n, T, 512), device=vd.device)
+    lib, s = build.library(), build.stream_ptr(vd.device)
 
     def call():
-        cuda_bfecc._launch_dual(tbl, ldual, vd, out, sdt, nb, f_lo, mode, has_sdf, shape)
+        if mode == "both":
+            code = lib.hn_bfecc_sample_dual(tbl.data_ptr(), ldual.data_ptr(), vd.data_ptr(),
+                                            out.data_ptr(), T, C, Ud, nb, f_lo, int(has_sdf),
+                                            float(sdt), cuda_bfecc.DISP_LIMIT, s)
+        else:
+            code = lib.hn_sample_dual(tbl.data_ptr(), ldual.data_ptr(), vd.data_ptr(),
+                                      out.data_ptr(), T, C, Ud, nf, f_lo, n, int(mode == "back"),
+                                      float(sdt), cuda_bfecc.DISP_LIMIT, s)
+        build.check(code, "bfecc_sample_dual")
         return out
 
     return call
-
-
-def shapes() -> list:
-    """Every launch shape the kernel takes: G = 1, 2, 4 tiles a block and
-    S stages that fit."""
-    out = [cuda_bfecc.DualShape(G, S) for G in GROUPS
-           for S in range(1, cuda_bfecc.DUAL_MAX_STAGES + 1)]
-    return [sh for sh in out if sh.fits()]
 
 
 def instance(nb, f_lo, mode, has_sdf) -> str:
@@ -155,15 +141,30 @@ def instance(nb, f_lo, mode, has_sdf) -> str:
     return f"sample_dual_kernel<{nb - f_lo}, {str(mode == 'back').lower()}>"
 
 
-def bound_ms(tbl, ldual, vd, out_floats) -> float:
-    moved = sum(x.numel() * x.element_size() for x in (tbl, ldual, vd)) + 4 * out_floats
+def read_bytes(tbl: torch.Tensor, ldual: torch.Tensor, nb: int, f_lo: int, mode: str,
+               has_sdf: bool) -> int:
+    """The table bytes a launch must read (the data decides them): each dual
+    row that some tile's ldual names, once per chunk, times the fields the
+    mode samples (all nf in "both"; [f_lo, nb) in "back" and "fwd"), 2 KB a
+    field."""
+    nc = tbl.shape[0]
+    chunk = torch.arange(ldual.shape[0], device=ldual.device) // (ldual.shape[0] // nc)
+    rows = torch.unique(chunk[:, None] * tbl.shape[1] + ldual.long()).numel()
+    fields = nb + int(has_sdf) if mode == "both" else nb - f_lo
+    return rows * fields * 512 * 4
+
+
+def bound_ms(tbl, ldual, vd, nb, f_lo, mode, has_sdf, out_floats) -> float:
+    """The least time of a launch on the card's HBM: :func:`read_bytes`,
+    ldual and vd read once, the outputs written once, over 3.35 TB/s."""
+    moved = (read_bytes(tbl, ldual, nb, f_lo, mode, has_sdf)
+             + sum(x.numel() * x.element_size() for x in (ldual, vd)) + 4 * out_floats)
     return moved / HBM_BYTES_PER_S * 1e3
 
 
 def main(argv=None) -> int:
     p = parser(__doc__)
     p.set_defaults(rounds=10)
-    p.add_argument("--sweep", action="store_true", help="time every launch shape too")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda":
@@ -173,50 +174,34 @@ def main(argv=None) -> int:
     inp = inputs(dev)
     topo, sdt = inp["topo"], inp["sdt"]
     nc, Ud = topo.chunk_dsrc.shape[:2]
-    C = topo.capacity // nc
-    ld_np = topo.chunk_ldual.cpu().numpy()
-    print(f"b1d_cost on {card}: launch shape {cuda_bfecc.dual_shape()}; bench topology {topo.n_active} tiles, capacity {topo.capacity},"
-          f" {nc} chunks of {C}, Ud {Ud}; CUDA events, medians of {args.rounds} runs of "
-          f"{BATCH} launches behind the spin", flush=True)
-    for G in GROUPS:
-        r = group_rows(ld_np, C, G)
-        print(f"groups of G={G}: distinct dual rows a group mean {r.mean():.2f}, max {r.max()} "
-              f"(of {8 * G}), {len(r)} groups", flush=True)
+    print(f"b1d_cost on {card}: bench topology {topo.n_active} tiles, capacity {topo.capacity},"
+          f" {nc} chunks of {topo.capacity // nc}, Ud {Ud}; CUDA events, medians of "
+          f"{args.rounds} runs of {BATCH} launches behind the spin", flush=True)
     for band, label, tbl, ld, vd, nb, f_lo, mode, has_sdf in launches(inp):
-        want = cuda_bfecc.bfecc_sample_dual_plain(tbl, ld, vd, sdt, nb, f_lo, mode, has_sdf)
+        kw = dict(nb=nb, f_lo=f_lo, mode=mode, has_sdf=has_sdf)
+        want = cuda_bfecc.bfecc_sample_dual_plain(tbl, ld, vd, sdt, **kw)
         want = torch.cat(want) if mode == "both" else want
-        kcall = kernel_call(tbl, ld, vd, sdt, nb, f_lo, mode, has_sdf)
+        kcall = kernel_call(tbl, ld, vd, sdt, **kw)
         if not torch.equal(kcall(), want):
             raise AssertionError(f"B1d {band} {label} differs from its plain version")
         one = one_chunk(tbl, ld, vd)
-        ocall = kernel_call(*one, sdt, nb, f_lo, mode, has_sdf)
-        want1 = cuda_bfecc.bfecc_sample_dual_plain(*one, sdt, nb, f_lo, mode, has_sdf)
+        ocall = kernel_call(*one, sdt, **kw)
+        want1 = cuda_bfecc.bfecc_sample_dual_plain(*one, sdt, **kw)
         want1 = torch.cat(want1) if mode == "both" else want1
         if not torch.equal(ocall(), want1):
             raise AssertionError(f"B1d {band} {label} on one chunk differs from its plain "
                                  "version")
         k_ms = median_ms(kcall, args.rounds, BATCH)
-        w_ms = median_ms(lambda: cuda_bfecc.bfecc_sample_dual(tbl, ld, vd, sdt, nb, f_lo, mode,
-                                                              has_sdf), args.rounds, BATCH)
+        w_ms = median_ms(lambda: cuda_bfecc.bfecc_sample_dual(tbl, ld, vd, sdt, **kw),
+                         args.rounds, BATCH)
         o_ms = median_ms(ocall, args.rounds, BATCH)
-        b = bound_ms(tbl, ld, vd, want.numel())
-        b1 = bound_ms(*one, want.numel())
+        b = bound_ms(tbl, ld, vd, out_floats=want.numel(), **kw)
+        b1 = bound_ms(*one, out_floats=want.numel(), **kw)
         r = res.get(instance(nb, f_lo, mode, has_sdf))
         rline = r.line() if r is not None else f"{instance(nb, f_lo, mode, has_sdf)}: no report"
         print(f"B1d {band:6s} {label:18s}: kernel {k_ms:.4f} ms ({b / k_ms:.1%} of its bound "
-              f"{b:.4f}, table {tbl.numel() * 4 / 1e6:.1f} MB), wrapper {w_ms:.4f} ms; "
-              f"one-chunk table {o_ms:.4f} ms (bound {b1:.4f}, table "
-              f"{one[0].numel() * 4 / 1e6:.1f} MB); {rline} | {card}", flush=True)
-        if args.sweep:
-            parts = []
-            for sh in shapes():
-                call = kernel_call(tbl, ld, vd, sdt, nb, f_lo, mode, has_sdf, sh)
-                if not torch.equal(call(), want):
-                    raise AssertionError(f"B1d {band} {label} at {sh} differs from its plain "
-                                         "version")
-                parts.append(f"G={sh.G} S={sh.S} {median_ms(call, args.rounds, BATCH):.4f}")
-            print(f"B1d {band:6s} {label:18s} sweep, kernel ms: " + ", ".join(parts)
-                  + f" | {card}", flush=True)
+              f"{b:.4f}), wrapper {w_ms:.4f} ms; one-chunk table {o_ms:.4f} ms (bound "
+              f"{b1:.4f}); {rline} | {card}", flush=True)
     return 0
 
 
