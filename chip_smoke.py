@@ -114,12 +114,34 @@ exit). Each phase prints the seconds it took.
      the probe scripts themselves as the probes' own path (counters 0 before,
      read after): the gather chain and the copy costs per copy, batched
      and drained once a rep (issue and drain apart)
+ 16. the cook on user files at bench size (``models/solve.py`` through
+     ``python -m hnanosolver_tpu_torch.cli``), inputs written by the port's
+     own writers into build/chip_smoke/cook/: the feedback is phase 4's
+     developed bench state (velocity, density and the four combustion
+     fields) plus a second Vec3 grid that must pass through, blosc-framed;
+     the source one frame of emit's density, temperature and fuel on the
+     emitter's tiles; the collision config 4's sphere as a narrow-band SDF
+     over its shell tiles. ``solve --frames 6 --ckpt-every 3`` with the CLI
+     defaults: launch counts per frame from the capacity each step ran at
+     (2 B1 with the SDF probes, 2 B2, B5 or B3 blocks + B4, B7a, B7b),
+     every frame's state finite with zero background rows and the SDF equal
+     to the input re-scattered onto its topology bitwise; the written file
+     holds every field under its name (the SDF under its input name), each
+     equal to the state's active rows bitwise, and the passthrough grid
+     bitwise; ``solve solve_0003.npz --frames 3`` writes the same grids
+     bitwise; one cook frame kernels vs plain; a poll-based interrupter
+     stops run_solve after exactly 2 frames; the operator nodes (advect,
+     advect-velocity, project, project --outdiv) with their launch counts,
+     finite outputs and project lowering max|div|. Times: the feedback's
+     read and write seconds, plain and blosc, and the median seconds a
+     frame of the cook split into source scatter, CFL guard, step (CUDA
+     events), growth and SDF re-scatter
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
 their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
 14 B1d's, and the bench and config-5 steps'.
 
-Launch counts come only from the main-path runs (phases 4, 7-14), each
+Launch counts come only from the main-path runs (phases 4, 7-14, 16), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
@@ -155,6 +177,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
@@ -171,6 +194,12 @@ C3_FRAMES = 48  # config-3 fire frames from rest
 BANDS = (("narrow", 1.5), ("mixed", 3.0), ("wide", 5.0))  # phase 14: CFL per band
 C5_MG_STEPS = 2  # counted multigrid steps at config 5
 SEED = 0
+# phase 16, the cook on user files: frames (a checkpoint at half of them),
+# the passthrough Vec3 grid of the feedback and its leaves, the collision
+# SDF's grid name and its narrow band (voxels; the file's background)
+COOK_FRAMES = 6
+COOK_EXTRA, COOK_EXTRA_LEAVES = "vel_extra", 512
+COOK_SDF, COOK_BAND = "collider", 3.0
 # Tolerances, kernel vs its plain version on the card. The kernels use
 # round-to-nearest intrinsics in the plain version's op order, so bitwise
 # agreement is the expected outcome; the allowances below cover ulp-level
@@ -896,6 +925,7 @@ def main() -> int:
     print(f"[8] bench parity-tier step: {par_ms:.3f} ms/step (median of 5) | {card}",
           flush=True)
     bench_state = state  # the developed bench state, for phase 14
+    cook_feedback = (topo, state)  # the developed bench state, phase 16's feedback
     del mg_state, par_state, s, state
     done("8")
 
@@ -1615,6 +1645,249 @@ def main() -> int:
                   f"ns/row | {card}", flush=True)
     del xg, nbr6
     done("15")
+
+    # -- 16. the cook on user files at bench size (models/solve.py, cli.py) --------
+    import os
+    import shutil
+    from pathlib import Path
+
+    from hnanosolver_tpu_torch import cli
+    from hnanosolver_tpu_torch.core.topology import lookup_tiles
+    from hnanosolver_tpu_torch.io import vdb as vdb_io
+    from hnanosolver_tpu_torch.models import solve
+    from hnanosolver_tpu_torch.utils.interrupt import Interrupter
+
+    cook_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cook"
+    shutil.rmtree(cook_dir, ignore_errors=True)
+    cook_dir.mkdir(parents=True)
+    paths = {k: str(cook_dir / f"{k}.vdb") for k in
+             ("feedback", "feedback_plain", "source", "collision", "out", "resumed")}
+    ftopo, fstate = cook_feedback
+    n_f = ftopo.n_active
+    org_f = (ftopo.origins[1:n_f + 1].cpu().numpy() * 8).astype(np.int32)
+    gen = np.random.default_rng(SEED)
+    extra_org = org_f[gen.permutation(n_f)[:COOK_EXTRA_LEAVES]]
+    fb_grids = [vdb_io.VdbGrid("velocity", org_f, fstate.velocity[:, 1:n_f + 1].cpu().numpy(),
+                               params.voxel_size, grid_class="staggered")]
+    fb_grids += [vdb_io.VdbGrid(k, org_f, fstate.scalars[k][1:n_f + 1].cpu().numpy(),
+                                params.voxel_size,
+                                grid_class="fog volume" if k == "density" else "unknown")
+                 for k in sorted(fstate.scalars)]
+    fb_grids.append(vdb_io.VdbGrid(COOK_EXTRA, extra_org, gen.standard_normal(
+        (3, len(extra_org), 512)).astype(np.float32), params.voxel_size))
+    io_s = {}
+    for what, path, comp in (("plain", paths["feedback_plain"], False),
+                             ("blosc", paths["feedback"], "blosc")):
+        t0 = time.perf_counter()
+        vdb_io.write_vdb(path, fb_grids, compress=comp)
+        io_s[f"write {what}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = vdb_io.read_vdb(paths["feedback_plain"])
+    io_s["read plain"] = time.perf_counter() - t0
+    if [g["name"] for g in back] != [g.name for g in fb_grids]:
+        raise AssertionError("phase 16: the plain feedback file lost a grid")
+    del back
+    # source: one frame of emit's density, temperature and fuel on the emitter's tiles
+    etopo = build_topology(plume.emitter_tiles(cfg), device=dev)
+    em = plume.emit(etopo, zeros_state(etopo), cfg, params.dt)
+    org_e = (etopo.origins[1:etopo.n_active + 1].cpu().numpy() * 8).astype(np.int32)
+    vdb_io.write_vdb(paths["source"], [
+        vdb_io.VdbGrid(k, org_e, em.scalars[k][1:etopo.n_active + 1].cpu().numpy(),
+                       params.voxel_size) for k in ("density", "temperature", "fuel")])
+    # collision: config 4's sphere as a narrow-band SDF (in voxels) over its shell tiles
+    ccol = CELLS["c4"].collider
+    sh_t = np.unique(collider.collider_tiles(ccol, 0, params.dt), axis=0)
+    pos = (sh_t * 8)[:, None, :] + np.stack(np.meshgrid(*([np.arange(8)] * 3), indexing="ij"),
+                                            -1).reshape(1, 512, 3)
+    sdf_vals = np.clip(np.linalg.norm(pos - np.asarray(ccol.center0), axis=-1) - ccol.radius,
+                       -COOK_BAND, COOK_BAND).astype(np.float32)
+    vdb_io.write_vdb(paths["collision"], [vdb_io.VdbGrid(
+        COOK_SDF, (sh_t * 8).astype(np.int32), sdf_vals, params.voxel_size,
+        grid_class="level set", background=COOK_BAND)])
+    print(f"[16] inputs: feedback {n_f} leaves x {len(fb_grids)} grids ({COOK_EXTRA}: "
+          f"{len(extra_org)} leaves, passed through), source {etopo.n_active} emitter leaves, "
+          f"collision {len(sh_t)} shell leaves (sphere {ccol.center0} r {ccol.radius}, band "
+          f"{COOK_BAND})", flush=True)
+
+    # the cook through the CLI: every frame's pieces timed, its states checked
+    real = {k: getattr(solve, k) for k in
+            ("_source_state", "cfl_clamped_count", "step", "expand_for_state", "_sdf_field",
+             "run_solve")}
+    split, caps16, frames16, cooked = collections.defaultdict(list), [], [], {}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            if name == "step":
+                caps16.append(a[0].capacity)
+                split["step (CUDA events)"].append(e0.elapsed_time(e1) / 1e3)
+            if name != "_sdf_field" or caps16:  # the SDF's re-scatters, not its first
+                split[name].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def spy_run_solve(inp, *a, on_frame=None, **kw):
+        cooked["inp"] = inp
+
+        def both(f, topo_, st):
+            check_state("16", topo_, st)
+            if not torch.equal(st.scalars[COLLISION_FIELD], real["_sdf_field"](topo_, inp)):
+                raise AssertionError(f"phase 16: frame {f}: the SDF is not the input re-scattered")
+            frames16.append((topo_.n_active, topo_.capacity))
+            on_frame(f, topo_, st)
+        cooked["topo"], cooked["state"] = real["run_solve"](inp, *a, on_frame=both, **kw)
+        return cooked["topo"], cooked["state"]
+
+    read_s = []
+
+    def timed_read(path, *a, **kw):
+        t0 = time.perf_counter()
+        out = real_read(path, *a, **kw)
+        read_s.append((os.path.basename(path), time.perf_counter() - t0))
+        return out
+
+    real_read = vdb_io.read_vdb
+    cook_argv = [paths["feedback"], "--source", paths["source"], "--collision",
+                 paths["collision"], "--device", "cuda"]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for k in ("_source_state", "cfl_clamped_count", "step", "expand_for_state",
+                  "_sdf_field"):
+            stack.enter_context(mock.patch.object(solve, k, timed(k, real[k])))
+        stack.enter_context(mock.patch.object(solve, "run_solve", spy_run_solve))
+        stack.enter_context(mock.patch.object(vdb_io, "read_vdb", timed_read))
+        stack.enter_context(main_path("16", totals(caps16, SolverParams())))
+        cli.main(["solve", *cook_argv, "--frames", str(COOK_FRAMES), "--ckpt-every",
+                  str(COOK_FRAMES // 2), "--out", paths["out"]])
+    cook_wall = time.perf_counter() - t0
+    io_s["read blosc"] = dict(read_s)["feedback.vdb"]
+    print(f"[16] feedback file seconds (io/vdb.py, host): write plain {io_s['write plain']:.3f}, "
+          f"write blosc {io_s['write blosc']:.3f}, read plain {io_s['read plain']:.3f}, read "
+          f"blosc {io_s['read blosc']:.3f} (the cook's own read); "
+          f"{os.path.getsize(paths['feedback_plain']) / 1e6:.1f} MB plain, "
+          f"{os.path.getsize(paths['feedback']) / 1e6:.1f} MB blosc | {card}", flush=True)
+    if len(frames16) != COOK_FRAMES:
+        raise AssertionError(f"phase 16: {len(frames16)} frames cooked, not {COOK_FRAMES}")
+    med = {k: statistics.median(v) for k, v in split.items()}
+    print(f"[16] cook: {COOK_FRAMES} frames in {cook_wall:.2f} s wall (the blosc feedback read "
+          f"included); tiles / capacity per frame {frames16}; steps at capacities {caps16}",
+          flush=True)
+    print(f"[16] seconds a frame, median of {COOK_FRAMES}: source scatter "
+          f"{med['_source_state']:.5f}, CFL guard {med['cfl_clamped_count']:.5f}, step "
+          f"{med['step (CUDA events)']:.5f} (CUDA events; host {med['step']:.5f}), growth "
+          f"{med['expand_for_state']:.5f}, SDF re-scatter "
+          f"{med.get('_sdf_field', 0.0):.5f} ({len(split['_sdf_field'])} of "
+          f"{COOK_FRAMES} frames changed the topology) | {card}", flush=True)
+
+    # the state written back, and the file
+    topo16, st16, inp16 = cooked["topo"], cooked["state"], cooked["inp"]
+    out_grids = vdb_io.read_vdb(paths["out"])
+    names16 = [g["name"] for g in out_grids]
+    want_names = (["velocity"] + sorted(k if k != COLLISION_FIELD else COOK_SDF
+                                        for k in st16.scalars) + [COOK_EXTRA])
+    if names16 != want_names:
+        raise AssertionError(f"phase 16: output grids {names16} != {want_names}")
+    for g in out_grids[:-1]:
+        rows = lookup_tiles(topo16, g["origins"] // 8)
+        if not (bool((rows > 0).all()) and len(rows) == topo16.n_active):
+            raise AssertionError(f"phase 16: {g['name']} leaves are not the active tiles")
+        name = COLLISION_FIELD if g["name"] == COOK_SDF else g["name"]
+        want = (st16.velocity[:, rows] if name == "velocity" else st16.scalars[name][rows])
+        if not np.array_equal(g["values"], want.cpu().numpy()):
+            raise AssertionError(f"phase 16: {g['name']} in the file != the state")
+    ex_in, ex_out = inp16.extra_vecs[0], out_grids[-1]
+    if not (np.array_equal(ex_in["origins"], ex_out["origins"])
+            and np.array_equal(ex_in["values"], ex_out["values"])):
+        raise AssertionError(f"phase 16: the passthrough grid {COOK_EXTRA} changed")
+    print(f"[16] {paths['out']}: grids {names16}, each equal to the state's active rows "
+          f"bitwise ({topo16.n_active} tiles), {COOK_EXTRA} equal to the input bitwise",
+          flush=True)
+
+    # resume from the mid-run checkpoint: the same output, bitwise
+    caps16.clear()
+    with main_path("16 resume", totals(caps16, SolverParams())), \
+            mock.patch.object(solve, "step", timed("step", real["step"])):
+        cli.main(["solve", str(cook_dir / f"solve_{COOK_FRAMES // 2:04d}.npz"), *cook_argv[1:],
+                  "--frames", str(COOK_FRAMES - COOK_FRAMES // 2), "--out", paths["resumed"]])
+    res = vdb_io.read_vdb(paths["resumed"])
+    if [g["name"] for g in res] != names16[:-1] or not all(
+            np.array_equal(a["origins"], b["origins"]) and np.array_equal(a["values"], b["values"])
+            for a, b in zip(res, out_grids)):
+        raise AssertionError("phase 16: the resumed output differs from the uninterrupted one")
+    print(f"[16] resume from solve_{COOK_FRAMES // 2:04d}.npz: every grid bitwise equal to the "
+          f"uninterrupted output (the passthrough comes only from a .vdb feedback)", flush=True)
+
+    # one cook frame through the kernels vs through the plain versions
+    p16 = SolverParams(voxel_size=inp16.voxel_size, has_collision=True)
+    step_vs_plain("16", lambda: solver.step(topo16, st16, p16))
+
+    # the interrupter: a poll that trips after frame 2
+    seen = []
+    intr = Interrupter(poll=lambda: len(seen) >= 2)
+    solve.run_solve(inp16, SolverParams(), COOK_FRAMES, interrupter=intr, device=dev,
+                    on_frame=lambda f, t_, s_: seen.append(f), warn=lambda m: None)
+    if seen != [0, 1]:
+        raise AssertionError(f"phase 16: the interrupted run cooked frames {seen}, not [0, 1]")
+    print(f"[16] interrupter tripping after frame 2 of {COOK_FRAMES}: frames {seen} cooked",
+          flush=True)
+
+    # the operator nodes on the cook's output (the resumed file: every grid of
+    # out.vdb but the passthrough Vec3, which the nodes would take as the velocity)
+    node_topo = []
+    real_load = cli._load_vdb_fields
+
+    def spy_load(*a, **kw):
+        got = real_load(*a, **kw)
+        node_topo.append(got[0].capacity)
+        return got
+
+    def node_counts(kind):
+        def want():
+            cap = node_topo[-1]
+            if kind == "advect":
+                return {"B1": -(-(len(names16) - 2) // cuda_bfecc.MAX_SCALARS),
+                        "B2": -(-(len(names16) - 2) // cuda_bfecc.MAX_SCALARS)}
+            if kind == "advect-velocity":
+                return {"B1": 1, "B2": 1}
+            if kind == "outdiv":
+                return {"B7a": 1}
+            c = step_counts(cap, SolverParams(iterations=20))
+            c["B1"] = c["B2"] = 0
+            return c
+        return want
+
+    div_max = {}
+    with mock.patch.object(cli, "_load_vdb_fields", spy_load):
+        for kind, argv in (("advect", ["advect"]), ("advect-velocity", ["advect-velocity"]),
+                           ("project", ["project", "--iterations", "20"]),
+                           ("outdiv", ["project", "--outdiv"])):
+            node_out = str(cook_dir / f"{kind}.vdb")
+            with main_path(f"16 {kind}", node_counts(kind)):
+                cli.main([argv[0], paths["resumed"], *argv[1:], "--out", node_out,
+                          "--device", "cuda"])
+            for g in vdb_io.read_vdb(node_out):
+                if not np.isfinite(g["values"]).all():
+                    raise AssertionError(f"phase 16: {kind} wrote non-finite {g['name']}")
+            if kind == "project":
+                cli.main(["project", node_out, "--outdiv", "--out",
+                          str(cook_dir / "div_projected.vdb"), "--device", "cuda"])
+                div_max["projected"] = float(np.abs(vdb_io.read_vdb(
+                    str(cook_dir / "div_projected.vdb"))[0]["values"]).max())
+            if kind == "outdiv":
+                div_max["input"] = float(np.abs(vdb_io.read_vdb(node_out)[0]["values"]).max())
+    print(f"[16] operator nodes on the cook's output (capacity {node_topo[0]}): launches as "
+          f"expected, outputs finite; max|div| {div_max['input']:.4f} -> "
+          f"{div_max['projected']:.4f} after project --iterations 20", flush=True)
+    if not div_max["projected"] < div_max["input"]:
+        raise AssertionError(f"phase 16: projection did not lower max|div|: {div_max}")
+    del cook_feedback, ftopo, fstate, topo16, st16, inp16, cooked, out_grids, res
+    done("16")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -6,6 +6,9 @@
 
 Row 0 is the all-zero null tile and padding rows stay zero, so a read
 through an absent neighbour is an exact background 0.
+
+Block views ``[T,8,8,8]`` / ``[T,8,8,8,3]`` exist only at API boundaries
+(I/O, tests, conversion), through the helpers below.
 """
 
 from __future__ import annotations
@@ -24,6 +27,26 @@ def col_coords(device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 
 CX, CY, CZ = col_coords("cpu")
+
+
+def scalar_to_blocks(f: torch.Tensor) -> torch.Tensor:
+    """[T,512] -> [T,8,8,8] (a view)."""
+    return f.reshape(f.shape[0], 8, 8, 8)
+
+
+def scalar_from_blocks(f: torch.Tensor) -> torch.Tensor:
+    """[T,8,8,8] -> [T,512]."""
+    return f.reshape(f.shape[0], TILE)
+
+
+def vec_to_blocks(v: torch.Tensor) -> torch.Tensor:
+    """[3,T,512] -> [T,8,8,8,3]."""
+    return torch.movedim(v, 0, -1).reshape(v.shape[1], 8, 8, 8, 3)
+
+
+def vec_from_blocks(v: torch.Tensor) -> torch.Tensor:
+    """[T,8,8,8,3] -> [3,T,512]."""
+    return torch.movedim(v.reshape(v.shape[0], TILE, 3), -1, 0)
 
 
 def positions_flat(topo) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -258,3 +258,61 @@ def active_mask(topo: Topology) -> torch.Tensor:
     """[T] float32: 1.0 for active tile rows, 0.0 for null/padding rows."""
     ids = torch.arange(topo.capacity, device=topo.device)
     return ((ids >= 1) & (ids <= topo.n_active)).to(torch.float32)
+
+
+def build_topology_dense(shape, origin=(0, 0, 0), capacity: Optional[int] = None,
+                         device: torch.device | str | None = None) -> Topology:
+    """All tiles active over a dense box of ``shape`` voxels (each a multiple
+    of 8) anchored at voxel ``origin``, on ``device`` (default: the CUDA
+    card)."""
+    shape = tuple(int(s) for s in shape)
+    origin = tuple(int(o) for o in origin)
+    if any(s % C.LEAF for s in shape) or any(o % C.LEAF for o in origin):
+        raise ValueError("shape and origin must be multiples of 8")
+    axes = [np.arange(s // C.LEAF) + o // C.LEAF for s, o in zip(shape, origin)]
+    tiles = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+    return build_topology(tiles, capacity=capacity, device=device)
+
+
+def dilate_topology(topo: Topology, radius: int = 1,
+                    capacity: Optional[int] = None) -> Topology:
+    """Every tile within Chebyshev ``radius`` of an active tile, on the
+    topology's device (the reference dilates by its padding parameter; leaf
+    tiles make that a tile dilation)."""
+    active = topo.origins[1:topo.n_active + 1].cpu().numpy()
+    r = np.arange(-radius, radius + 1)
+    offs = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3).astype(np.int32)
+    grown = (active[:, None, :] + offs[None, :, :]).reshape(-1, 3)
+    return build_topology(grown, capacity=capacity, device=topo.device)
+
+
+def lookup_tiles(topo: Topology, tile_coords) -> torch.Tensor:
+    """Tile coords ``[..., 3]`` (a tensor or an array) -> int64 tile rows on
+    the topology's device, 0 where the tile is inactive: a binary search
+    over the sorted keys. Coords outside the packable range (the null and
+    padding rows' sentinel origins among them) are rejected first, since
+    their keys would overflow into a valid one."""
+    tc = torch.as_tensor(tile_coords, device=topo.device).to(torch.int32)
+    shifted = tc + C.TILE_OFFSET
+    in_range = ((shifted >= 0) & (shifted < 2 * C.TILE_OFFSET)).all(dim=-1)
+    q = C.pack_keys(tc)
+    pos = torch.searchsorted(topo.keys, q).clamp(max=topo.capacity - 1)
+    found = (topo.keys[pos] == q) & in_range
+    return torch.where(found, pos, 0)
+
+
+def lookup_voxels(topo: Topology, voxel_coords) -> torch.Tensor:
+    """Voxel coords ``[..., 3]`` -> int64 flat index into ``values.reshape(T*512)``;
+    inactive voxels map into the null tile (rows [0, 512)), which holds
+    zeros."""
+    vc = torch.as_tensor(voxel_coords, device=topo.device).to(torch.int32)
+    tile = lookup_tiles(topo, C.voxel_to_tile(vc))
+    local = C.local_flat_index(C.voxel_to_local(vc))
+    return tile * C.TILE_VOXELS + torch.where(tile > 0, local, 0)
+
+
+def voxel_positions(topo: Topology) -> torch.Tensor:
+    """World-index-space voxel coordinates ``[T, 8, 8, 8, 3]`` (int32)."""
+    ax = torch.arange(C.LEAF, dtype=torch.int32, device=topo.device)
+    local = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), dim=-1)
+    return topo.origins[:, None, None, None, :] * C.LEAF + local[None]

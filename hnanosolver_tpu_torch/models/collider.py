@@ -96,13 +96,15 @@ def run_collider(
     grow_every: int = 1,
     on_frame=None,
     device: torch.device | str | None = None,
+    interrupter=None,
 ):
     """Frame loop with the animated SDF and collision on: step, then every
     ``grow_every`` frames (0: never) re-activate the topology, keeping the
     emitter and the collider's shell at the next frame. Returns (topo,
     state). ``device`` (default: the CUDA card) is used only when ``topo``
     is not given; the default topology covers the emitter and the
-    collider's shell at frame 0."""
+    collider's shell at frame 0. ``interrupter`` is polled before each
+    frame, as in ``plume.run_plume``."""
     params = dataclasses.replace(params or SolverParams(), has_collision=True)
     cfg = cfg or P.PlumeConfig()
     col = col or ColliderConfig()
@@ -116,6 +118,8 @@ def run_collider(
             topo, collider_center(col, 0, params.dt, topo.device), col.radius))
     hier = hierarchy_for(topo, params)
     for f in range(frames):
+        if interrupter is not None and interrupter.was_interrupted():
+            break
         state = collider_step(topo, state, params, cfg, col, f, hier)
         if grow_every and (f + 1) % grow_every == 0:
             keep = np.concatenate([P.emitter_tiles(cfg, pad=1),

@@ -74,6 +74,11 @@ def initial_topology(cfg: PlumeConfig, capacity: Optional[int] = None,
     return build_topology(emitter_tiles(cfg, pad=1), capacity=capacity, device=device)
 
 
+def initial_state(topo: Topology) -> FieldState:
+    """The plume's state before its first frame: every field zero."""
+    return zeros_state(topo)
+
+
 def emit(topo: Topology, state: FieldState, cfg: PlumeConfig, dt: float) -> FieldState:
     """Additive sourcing inside the emitter sphere."""
     px, py, pz = (p.to(torch.float32) for p in positions_flat(topo))
@@ -108,20 +113,25 @@ def run_plume(
     grow_every: int = 1,
     on_frame=None,
     device: torch.device | str | None = None,
+    interrupter=None,
 ):
     """Frame loop: step, then every ``grow_every`` frames (0: never)
     re-activate the topology around the matter, keeping the emitter's
     tiles. Returns (topo, state). ``device`` (default: the CUDA card) is
-    used only when ``topo`` is not given."""
+    used only when ``topo`` is not given. ``interrupter``
+    (``utils/interrupt.Interrupter``) is polled before each frame; once it
+    trips, the loop stops and returns the last completed state."""
     params = params or SolverParams()
     cfg = cfg or PlumeConfig()
     if topo is None:
         topo = initial_topology(cfg, device=device)
     if state is None:
-        state = zeros_state(topo)
+        state = initial_state(topo)
     keep = emitter_tiles(cfg, pad=1)
     hier = hierarchy_for(topo, params)
     for f in range(frames):
+        if interrupter is not None and interrupter.was_interrupted():
+            break
         state = plume_step(topo, state, params, cfg, hier)
         if grow_every and (f + 1) % grow_every == 0:
             prev = topo

@@ -44,6 +44,7 @@ from typing import Dict, Optional
 
 import torch
 
+from hnanosolver_tpu_torch.core.topology import active_mask
 from hnanosolver_tpu_torch.ops import collision, cuda_bfecc, cuda_sample, cuda_tables, cuda_tail
 from hnanosolver_tpu_torch.ops import tables
 
@@ -55,6 +56,18 @@ INTERP: Optional[str] = None
 TABLE_BYTES_BUDGET = 2 * 1024 ** 3
 
 BANDS = collections.Counter()  # passes per branch of the table sampler
+
+
+def cfl_clamped_count(topo, vel: torch.Tensor, dt: float, inv_dx: float) -> torch.Tensor:
+    """Active voxels where a trace clamp can engage, diverging from the
+    reference's unbounded trace, as a 0-d int32 tensor on vel's device (the
+    caller's ``int()`` is one host sync). The back trace clamps at
+    |u|*dt/dx > DISP_LIMIT and the re-trace d2 = d + u(back)*sdt at most at
+    twice that, so the count is of active voxels with 2*|u|*dt/dx >
+    DISP_LIMIT in any component: an upper bound, zero below |u|*dt/dx = 3.5."""
+    d = vel.abs() * (dt * inv_dx)
+    hit = (2.0 * d > cuda_bfecc.DISP_LIMIT).any(dim=0) & (active_mask(topo) > 0)[:, None]
+    return hit.sum().to(torch.int32)
 
 
 def _clamp(d: torch.Tensor) -> torch.Tensor:
