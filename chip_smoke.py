@@ -136,12 +136,43 @@ exit). Each phase prints the seconds it took.
      read and write seconds, plain and blosc, and the median seconds a
      frame of the cook split into source scatter, CFL guard, step (CUDA
      events), growth and SDF re-scatter
+ 17. the viewer and the profiling entry points on the card, outputs under
+     build/chip_smoke/view/: through ``cli.main``, ``plume --frames 4
+     --render --render-every 2 --view-box 128 128 128 --ckpt-every 4`` (two
+     valid PNGs with smoke at the emitter brighter than a corner; the
+     checkpoint's render on the card equal to its render on the CPU within
+     1e-5), ``collide --frames 2 --render`` (the sphere's pixel is the
+     solid's colour, not the smoke render's), ``fire --frames 2 --render``
+     (the PNG is the card's render of its checkpoint), ``turntable --frames 8
+     --size 384`` (8 PNGs and an APNG whose acTL counts 8, its frames the
+     PNGs) and ``bench-report`` at its defaults (every phase above the
+     chain-slope floor but the no-op vorticity; launches counted from the
+     phase bodies' applications), each a main path with launch counts from
+     the capacities its steps ran at; ``webapp.serve(port=0, block=False)``
+     on the live plume at the ``view`` subcommand's 256^3 box (GET /,
+     /step?n=2, /meta, /volume: frame 2, 2 steps' launches) and on the plume
+     checkpoint (static: /step is 404); ``utils/profiling.device_trace``
+     around one bench step (the port's kernels on the trace's device
+     timeline) and ``utils/timers.Profiler.scope`` (Mvox/s, modeled GB/s);
+     ms a frame of the ortho render at 128^3 and of the perspective render
+     at 384^2 x 256 steps
+ 18. the sliced table path (``advection.INTERP = "vmem"`` above
+     ``TABLE_BYTES_BUDGET``): at the bench with the budget at a third of the
+     velocity pass's table (3 slices at 3 fields, 8 at 8), one step in the
+     narrow and the mixed band, COMBINE_TBL off and on, each bitwise the
+     unsliced step with B1d, B11 and B8 launches as the JAX package's
+     dispatch gives them (``jax_dispatch``: a sliced pass builds no table by
+     B11, the sliced mixed band samples forward by B8); at config 5 with its
+     chunk plans (phase 14's) and the real budget: 4 developing RBGS-50
+     steps, then one table-path step, its slices ``tables.pick_slices``'s
+     (the JAX package's ``_pick_slices``), within TOL_STEP of the nbr-path
+     step, its ms beside the nbr path's and its peak device memory
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
 their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
 14 B1d's, and the bench and config-5 steps'.
 
-Launch counts come only from the main-path runs (phases 4, 7-14, 16), each
+Launch counts come only from the main-path runs (phases 4, 7-14, 16-18), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
@@ -181,9 +212,11 @@ import collections
 import contextlib
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -926,6 +959,7 @@ def main() -> int:
           flush=True)
     bench_state = state  # the developed bench state, for phase 14
     cook_feedback = (topo, state)  # the developed bench state, phase 16's feedback
+    bench_dev = (topo, state)  # and phases 17-18's
     del mg_state, par_state, s, state
     done("8")
 
@@ -1261,6 +1295,7 @@ def main() -> int:
     done("13")
 
     # -- 14. the table sampler on the bench cell ---------------------------------
+    planned = {}  # config 5's with its plans serves phase 18
     for name, cell in (("bench", bench), ("config 5", CELLS["c5"])):
         tiles = plume.build_plume_envelope(*cell.envelope)
         n = len(np.unique(tiles, axis=0))
@@ -1268,7 +1303,7 @@ def main() -> int:
         secs = {}
         for what, kw in (("plain", {}), ("plans", {"plans": True})):
             t0 = time.perf_counter()
-            topology_mod.build_topology(tiles, capacity=cap, device=dev, **kw)
+            planned[name] = topology_mod.build_topology(tiles, capacity=cap, device=dev, **kw)
             torch.cuda.synchronize()
             secs[what] = time.perf_counter() - t0
         print(f"[14] build_topology host seconds, {name} ({n} tiles, capacity {cap}): "
@@ -1888,6 +1923,437 @@ def main() -> int:
         raise AssertionError(f"phase 16: projection did not lower max|div|: {div_max}")
     del cook_feedback, ftopo, fstate, topo16, st16, inp16, cooked, out_grids, res
     done("16")
+
+    # -- 17. the viewer and the profiling entry points (cli.main, viewer, utils) ---
+    import io
+    import urllib.error
+    import urllib.request
+
+    from hnanosolver_tpu_torch.core.convert import tiles_to_dense
+    from hnanosolver_tpu_torch.io.state import load_npz
+    from hnanosolver_tpu_torch.utils import phase_profile, profiling, timers
+    from hnanosolver_tpu_torch.viewer import render, webapp
+
+    view_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "view"
+    shutil.rmtree(view_dir, ignore_errors=True)
+    view_dir.mkdir(parents=True)
+
+    @contextlib.contextmanager
+    def step_caps(model, caps: list):
+        """``model.step`` recording the capacity each step runs at."""
+        real_step = model.step
+
+        def wrapped(topo_, *a, **kw):
+            caps.append(topo_.capacity)
+            return real_step(topo_, *a, **kw)
+
+        with mock.patch.object(model, "step", wrapped):
+            yield
+
+    def cli_run(label, model, p_, argv):
+        """``cli.main(argv)`` on the card as a main path: the launches of the
+        steps it ran, from the capacity each ran at (renders launch none)."""
+        caps = []
+        t0 = time.perf_counter()
+        with step_caps(model, caps), main_path(label, totals(caps, p_)):
+            cli.main([*argv, "--device", "cuda"])
+        print(f"[{label}] {' '.join(argv[:1])}: {len(caps)} steps at capacities {caps}, "
+              f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+
+    def png_frames(path) -> tuple[list, int | None]:
+        """([H, W, 3] uint8 per frame, acTL's frame count or None) of a PNG /
+        APNG written by viewer/render.py (8-bit RGB, filter 0 on every row);
+        raises on a malformed file."""
+        data = Path(path).read_bytes()
+        if data[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"phase 17: {path} is not a PNG")
+        w, h = struct.unpack(">II", data[16:24])
+        pos, frames, n_actl = 8, [], None
+        while pos < len(data):
+            n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+            body = data[pos + 8:pos + 8 + n]
+            if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != (
+                    zlib.crc32(tag + body) & 0xFFFFFFFF):
+                raise AssertionError(f"phase 17: {path}: bad CRC in {tag}")
+            if tag == b"acTL":
+                n_actl = struct.unpack(">I", body[:4])[0]
+            elif tag in (b"IDAT", b"fdAT"):
+                raw = np.frombuffer(zlib.decompress(body if tag == b"IDAT" else body[4:]),
+                                    np.uint8).reshape(h, 1 + 3 * w)
+                if raw[:, 0].any():
+                    raise AssertionError(f"phase 17: {path}: a row filter other than 0")
+                frames.append(raw[:, 1:].reshape(h, w, 3))
+            pos += 12 + n
+        return frames, n_actl
+
+    def png_pixels(path) -> np.ndarray:
+        return png_frames(path)[0][0].astype(int)
+
+    def as_png(img) -> np.ndarray:
+        """What write_png stores of a float image."""
+        return np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8).astype(int)
+
+    # plume: renders every 2 frames and a checkpoint at frame 4
+    d_plume = view_dir / "plume"
+    cli_run("17 plume", plume, SolverParams(),
+            ["plume", "--frames", "4", "--render", "--render-every", "2", "--view-box", "128",
+             "128", "128", "--ckpt-every", "4", "--out", str(d_plume)])
+    ex, ey = 64, 16  # the image is (x, y): the emitter at the CLI's --center 64 16 64
+    for f in (2, 4):
+        img = png_pixels(d_plume / f"frame_{f:04d}.png")
+        if img.shape != (128, 128, 3) or not img[ex, ey].sum() > img[2, 125].sum() + 20:
+            raise AssertionError(f"phase 17: frame_{f:04d}.png {img.shape}: no smoke at the "
+                                 f"emitter {img[ex, ey]} beside the corner {img[2, 125]}")
+        print(f"[17] plume frame_{f:04d}.png: 128x128, emitter pixel {img[ex, ey].tolist()}, "
+              f"corner {img[2, 125].tolist()}", flush=True)
+    ck = str(d_plume / "frame_0004.npz")
+    renders = [render.render_state(*load_npz(ck, device=where)[:2], (128, 128, 128))
+               for where in (dev, "cpu")]
+    err = float(np.abs(renders[0] - renders[1]).max())
+    print(f"[17] render_state of frame_0004.npz on the card vs on the CPU: max abs err "
+          f"{err:.3e} (tol 1e-5)", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"phase 17: the card's render differs from the CPU's by {err}")
+
+    # collide: the solid occludes (its pixel is the solid's colour, not the smoke render's)
+    d_col = view_dir / "collide"
+    cli_run("17 collide", collider, SolverParams(),
+            ["collide", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_col)])
+    img = png_pixels(d_col / "frame_0002.png")
+    t_, s_, _, _ = load_npz(str(d_col / "frame_0002.npz"), device=dev)
+    bare = as_png(render.render_state(t_, s_, (128, 128, 128), solid=None))
+    cx, cy = 42, 56  # inside the sphere (centre (40, 56, 64) + 2 voxels a frame, r 14)
+    solid_px = (np.array((0.45, 0.47, 0.5)) * 255).astype(int)
+    print(f"[17] collide frame_0002.png: pixel ({cx}, {cy}) {img[cx, cy].tolist()}, without the "
+          f"solid {bare[cx, cy].tolist()}, the solid's colour {solid_px.tolist()}", flush=True)
+    if not (np.abs(img[cx, cy] - solid_px).max() <= 3 and np.abs(img[cx, cy]
+                                                               - bare[cx, cy]).max() > 20):
+        raise AssertionError("phase 17: the collider does not occlude")
+
+    # fire: the PNG is the card's render of its checkpoint (flame tints it)
+    d_fire = view_dir / "fire"
+    cli_run("17 fire", fire, fire.default_params().replace(iterations=20),
+            ["fire", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_fire)])
+    img = png_pixels(d_fire / "fire_0002.png")
+    t_, s_, _, _ = load_npz(str(d_fire / "fire_0002.npz"), device=dev)
+    warm = img[..., 0] - img[..., 2]
+    print(f"[17] fire fire_0002.png: {img.shape}, max red - blue {int(warm.max())} (background "
+          f"{int(warm[2, 125])}), max flame {float(s_.scalars['flame'].max()):.4f}", flush=True)
+    if not np.array_equal(img, as_png(render.render_state(t_, s_, (128, 128, 128)))):
+        raise AssertionError("phase 17: fire_0002.png is not the render of its checkpoint")
+
+    # turntable of the plume checkpoint: 8 PNGs and an APNG of 8 frames
+    d_turn = view_dir / "turntable"
+    with main_path("17 turntable", {}):
+        t0 = time.perf_counter()
+        cli.main(["turntable", "--ckpt", ck, "--frames", "8", "--size", "384", "--out",
+                  str(d_turn), "--device", "cuda"])
+    turn_s = time.perf_counter() - t0
+    pngs = sorted(p_.name for p_ in d_turn.glob("turn_*.png"))
+    anim, n_actl = png_frames(d_turn / "turntable.apng")
+    if len(pngs) != 8 or len(anim) != 8 or n_actl != 8:
+        raise AssertionError(f"phase 17: turntable wrote {pngs}, an APNG of {len(anim)} frames "
+                             f"(acTL {n_actl})")
+    for i, a_ in enumerate(anim):
+        if a_.shape != (384, 384, 3) or not np.array_equal(a_, png_pixels(
+                d_turn / f"turn_{i:03d}.png")):
+            raise AssertionError(f"phase 17: turntable frame {i} differs from its PNG")
+    if np.array_equal(anim[0], anim[2]):
+        raise AssertionError("phase 17: the orbit's frames do not change with the angle")
+    print(f"[17] turntable: {len(pngs)} PNGs of 384x384 and turntable.apng (acTL 8 frames), "
+          f"{turn_s:.2f} s wall ({turn_s / 8 * 1e3:.1f} ms a frame, PNG writes included) | "
+          f"{card}", flush=True)
+
+    # bench-report at its defaults (64^3 box: 512 tiles at capacity 1024)
+    br = {"lo": 2, "hi": 10, "repeats": 4}  # phase_profile.profile's defaults, --chain 10
+
+    def report_counts():
+        """Each phase body's launches times its applications (lo + hi
+        chained runs, each run once to warm and ``repeats`` times timed), and
+        the full step's also the 2 warm-up plume steps, and one B7a for
+        the pressure phases' input divergence: the bodies launch
+        B1 + B2 (velocity), B7a, the pressure solve at halo lag 1 (one B5 at
+        T <= 2048), B7b, B1 + B2 (scalars); vorticity is an exact no-op at
+        factor_scale 0.5 and combustion plain torch."""
+        apps = (br["lo"] + br["hi"]) * (1 + br["repeats"])
+        cap = prof_times["capacity"]
+        body = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
+        body.update({k: v for k, v in step_counts(cap, SolverParams(halo_lag=1)).items()
+                     if k in ("B3", "B4", "B5")})
+        full = step_counts(cap, SolverParams())
+        out = {k: body.get(k, 0) * apps + full.get(k, 0) * (apps + 2)
+               for k in set(body) | set(full)}
+        out["B7a"] += 1  # phase_functions' div0, once
+        return out
+
+    out_buf = io.StringIO()
+    real_profile = phase_profile.profile
+    prof_times = {}
+
+    def spy_profile(topo_, *a, **kw):
+        prof_times["capacity"] = topo_.capacity
+        prof_times["times"] = real_profile(topo_, *a, **kw)
+        return prof_times["times"]
+
+    t0 = time.perf_counter()
+    with main_path("17 bench-report", report_counts), contextlib.redirect_stdout(out_buf), \
+            mock.patch.object(phase_profile, "profile", spy_profile):
+        cli.main(["bench-report", "--device", "cuda"])
+    report = out_buf.getvalue().strip()
+    print(f"[17] bench-report (defaults: 64^3, --frames 2, --chain 10; {time.perf_counter() - t0:.2f}"
+          f" s wall) | {card}\n{report}", flush=True)
+    floor = 1e-9  # timers.chain_slope's floor, seconds; the no-op vorticity may sit on it
+    times17 = prof_times["times"]
+    flat = [k for k, v in times17.items() if not v > floor and k != "vorticity_confinement"]
+    if len(times17) != 8 or flat or prof_times["capacity"] != 1024:
+        raise AssertionError(f"phase 17: bench-report phases {list(times17)} at capacity "
+                             f"{prof_times['capacity']}, at the floor {flat}")
+
+    # the viewer server: live plume at the view subcommand's default box, then the npz
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def get(base, path):
+        with opener.open(base + path, timeout=120) as r:
+            return r.read()
+
+    def serve_checks(label, src, steps: int):
+        """The page, ``steps`` frames through /step (a live source), then
+        /meta and the density volume (its u8 peak 255); a static source
+        answers /step with 404."""
+        httpd, thread = webapp.serve(src, port=0, block=False)
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            if get(base, "/") != webapp.PAGE.encode():
+                raise AssertionError(f"phase {label}: / is not the page")
+            if steps:
+                t0_ = time.perf_counter()
+                frame = json.loads(get(base, f"/step?n={steps}"))["frame"]
+                print(f"[{label}] /step?n={steps}: frame {frame}, {time.perf_counter() - t0_:.3f} "
+                      f"s wall | {card}", flush=True)
+            else:
+                try:
+                    get(base, "/step?n=1")
+                    raise AssertionError(f"phase {label}: a static source stepped")
+                except urllib.error.HTTPError as e:
+                    if e.code != 404:
+                        raise
+            meta = json.loads(get(base, "/meta"))
+            dims = meta["fields"]["density"]["dims"]
+            vol = get(base, "/volume?field=density")
+            if meta["frame"] != steps or len(vol) != int(np.prod(dims)) or max(vol) != 255:
+                raise AssertionError(f"phase {label}: frame {meta['frame']}, /volume {len(vol)} "
+                                     f"bytes for {dims}")
+            print(f"[{label}] GET / /meta /volume on port {httpd.server_address[1]}: frame "
+                  f"{meta['frame']}, dims {dims}, {len(vol)} bytes, step_ms {meta['step_ms']} "
+                  f"(host clock a frame, the bake included)", flush=True)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError(f"phase {label}: the server thread did not stop")
+
+    live = webapp.live_source("plume", shape=(256, 256, 256), params=SolverParams(), device=dev)
+    caps_live = []
+    with step_caps(plume, caps_live), main_path("17 view --live", totals(caps_live,
+                                                                        SolverParams())):
+        serve_checks("17 view --live", live, 2)
+    moved = {k: kernels[k]["counter"].n for k in ("B1", "B3", "B5")}
+    print(f"[17] live plume: steps at capacities {caps_live}, launches {moved}", flush=True)
+    if not (len(caps_live) == 2 and moved["B1"] == 4 and moved["B3"] + moved["B5"] > 0):
+        raise AssertionError(f"phase 17: the live viewer's steps launched {moved}")
+    with main_path("17 view npz", {}):
+        serve_checks("17 view npz", webapp.file_source(ck, device=dev), 0)
+
+    # device_trace and Profiler.scope around one bench step
+    btopo, bstate = bench_dev
+    trace_dir = view_dir / "trace"
+    with profiling.device_trace(str(trace_dir)):
+        with profiling.annotate("bench step"):
+            plume.plume_step(btopo, bstate, params, cfg)
+        torch.cuda.synchronize()
+    traces = list(trace_dir.glob("*.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    hn = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                 and "hn::" in e.get("name", "")})
+    print(f"[17] device_trace: {[t_.name for t_ in traces]}, {len(events)} events, "
+          f"hand-written kernels on the device timeline: {hn}", flush=True)
+    if not hn:
+        raise AssertionError("phase 17: the trace holds no kernel of the port")
+    prof = timers.Profiler()
+    with prof.scope("bench step", voxels=btopo.num_voxels,
+                    bytes_per_voxel=timers.full_step_bytes_per_voxel(params.iterations)) as out:
+        out["result"] = plume.plume_step(btopo, bstate, params, cfg)
+    print(f"[17] Profiler.scope: {prof.records[0]} | {card}", flush=True)
+
+    # render times: ortho at 128^3 (the plume checkpoint), perspective 384^2 x 256 steps
+    t_, s_, _, _ = load_npz(ck, device=dev)
+    dense128 = tiles_to_dense(t_, s_.scalar_blocks("density"), (128, 128, 128))
+    ortho_ms = statistics.median(time_ms(lambda: render.render_state(t_, s_, (128, 128, 128)), 5,
+                                         device=dev))
+    persp_ms = statistics.median(time_ms(lambda: render.render_perspective(
+        dense128, size=(384, 384), steps=256), 3, device=dev))
+    print(f"[17] render ms a frame (CUDA events around the call, its copy to the host included; "
+          f"median): render_state ortho 128^3 {ortho_ms:.2f}, render_perspective 384^2 x 256 "
+          f"steps {persp_ms:.2f} | {card}", flush=True)
+    del t_, s_, dense128, live, renders
+    done("17")
+
+    # -- 18. the sliced table path (advection.INTERP = "vmem" above the budget) -----
+    def n_launches(nc_: int, k: int) -> int:
+        """The kernel calls of a pass over k slices: JAX's scan over full
+        slices of ceil(nc / k) chunks plus one call on the remainder."""
+        return 1 if k <= 1 else -(-nc_ // -(-nc_ // k))
+
+    def jax_dispatch(tb_, passes: list, comb: bool, budget: int) -> dict:
+        """B1d, B11, B8 and B1 launches of the table passes as the JAX
+        package's dispatch gives them (``advection.py:233-255``,
+        ``pallas_bfecc.py:955-1087``), from each pass's fields and the
+        branch it took: a sliced pass builds no table by B11; the mixed band
+        shares its table and may sample forward from it only when neither
+        its dual plan nor the 27-table plan of its forward fields slices."""
+        nc_, Ud_ = tb_.chunk_dsrc.shape[:2]
+        U27 = tb_.chunk_uniq.shape[1]
+        c = collections.Counter()
+        for nb_, f_lo_, has_sdf, taken in passes:
+            if "wide" in taken:
+                c["B1"] += 1
+                continue
+            kd = tables.pick_slices(nc_, Ud_, nb_ + has_sdf, budget)
+            if "narrow" in taken:
+                c["B1d"] += n_launches(nc_, kd)
+                c["B11"] += int(kd <= 1 and comb)
+                continue
+            k27 = tables.pick_slices(nc_, U27, max(nb_ if f_lo_ == 0 else nb_ - 3, 1), budget)
+            if kd <= 1 and k27 <= 1:
+                c["B11"] += int(comb)
+                c["B1d"] += 1 + int("mixed fwd narrow" in taken)
+                c["B8"] += int("mixed fwd wide" in taken)
+            else:
+                c["B1d"] += n_launches(nc_, kd)
+                c["B11"] += int(kd <= 1 and comb)
+                c["B8"] += 1
+        return dict(c)
+
+    @contextlib.contextmanager
+    def table_passes(passes: list):
+        """advection._table_samples recording (nb, f_lo, SDF, branches taken)
+        of each pass."""
+        real_ts = advection._table_samples
+
+        def spy(topo_, fields, sdt_, f_lo_, sdf_):
+            before = collections.Counter(advection.BANDS)
+            out = real_ts(topo_, fields, sdt_, f_lo_, sdf_)
+            passes.append((fields.shape[0], f_lo_, sdf_ is not None,
+                           dict(advection.BANDS - before)))
+            return out
+
+        with mock.patch.object(advection, "_table_samples", spy):
+            yield
+
+    def sliced_counts(tb_, passes, comb, budget, p_):
+        def want():
+            c = step_counts(tb_.capacity, p_)
+            del c["B1"]
+            c.update(jax_dispatch(tb_, passes, comb, budget))
+            return c
+        return want
+
+    real_budget = advection.TABLE_BYTES_BUDGET
+    tb18 = planned["bench"]
+    btopo, bstate = bench_dev
+    nc18, Ud18 = tb18.chunk_dsrc.shape[:2]
+    budget18 = tables.table_bytes(nc18, Ud18, 3) // 3  # the velocity pass's table: 3 slices
+    ks = {nf: tables.pick_slices(nc18, Ud18, nf, budget18) for nf in (3, 8)}
+    print(f"[18] bench ({nc18} chunks, Ud {Ud18}, U {tb18.chunk_uniq.shape[1]}): budget "
+          f"{budget18} B -> {ks[3]} slices at 3 fields ({n_launches(nc18, ks[3])} launches), "
+          f"{ks[8]} at 8 ({n_launches(nc18, ks[8])} launches)", flush=True)
+    if not min(ks.values()) >= 3:
+        raise AssertionError(f"phase 18: the bench tables take {ks} slices, not >= 3")
+    for band, cfl in BANDS[:2]:
+        vb = (vel0 * (cfl / cfl0)).contiguous()
+        sb = FieldState(velocity=vb, scalars=bstate.scalars)
+        for comb in (False, True):
+            label = f"18 {band} COMBINE_TBL={comb}"
+            vmem(comb)
+            whole = plume.plume_step(tb18, sb, params, cfg)
+            advection.TABLE_BYTES_BUDGET = budget18
+            passes = []
+            try:
+                with table_passes(passes), main_path(label, sliced_counts(
+                        tb18, passes, comb, budget18, params)):
+                    sliced = plume.plume_step(tb18, sb, params, cfg)
+            finally:
+                advection.TABLE_BYTES_BUDGET = real_budget
+            nbr_path()
+            same = [k for k in ["velocity"] + sorted(whole.scalars) if torch.equal(
+                whole.velocity if k == "velocity" else whole.scalars[k],
+                sliced.velocity if k == "velocity" else sliced.scalars[k])]
+            print(f"[{label}] passes (nb, f_lo, SDF, branches) {passes}; bitwise the unsliced "
+                  f"step: {same}", flush=True)
+            if len(same) != 1 + len(whole.scalars):
+                raise AssertionError(f"phase {label}: the sliced step differs from the unsliced")
+    del vb, sb, whole, sliced
+
+    # config 5 under "vmem" with its plans at the real budget
+    c5p = planned["config 5"]
+    nc5, Ud5 = c5p.chunk_dsrc.shape[:2]
+    U5 = c5p.chunk_uniq.shape[1]
+    torch.cuda.empty_cache()
+    nbr_path()
+    with main_path("18 c5 develop", {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1},
+                   CELLS["c5"].develop):
+        c5p, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5p, grow_every=0)
+    k5 = {nf: tables.pick_slices(nc5, Ud5, nf, real_budget) for nf in (3, 8)}
+    print(f"[18] config 5: {nc5} chunks, Ud {Ud5}, U {U5}; table bytes (byte model) "
+          f"{tables.table_bytes(nc5, Ud5, 3)} at 3 fields, {tables.table_bytes(nc5, Ud5, 8)} at 8 "
+          f"against the budget {real_budget}: pick_slices {k5} -> B1d launches "
+          f"{ {nf: n_launches(nc5, k) for nf, k in k5.items()} }", flush=True)
+    nbr_path()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out_n = plume.plume_step(c5p, st5, c5_rb, cfg5)
+    torch.cuda.synchronize()
+    peak_n = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vmem(None)
+    passes = []
+    with table_passes(passes), main_path("18 c5 vmem", sliced_counts(c5p, passes, False,
+                                                                     real_budget, c5_rb)):
+        out_v = plume.plume_step(c5p, st5, c5_rb, cfg5)
+    peak5 = torch.cuda.max_memory_allocated()
+    n_b1d = kernels["B1d"]["counter"].n
+    if not n_b1d > len(passes):
+        raise AssertionError(f"phase 18: config 5's table passes {passes} did not slice")
+    parts, worst = [], 0.0
+    for fname in ["velocity"] + sorted(out_v.scalars):
+        g = out_v.velocity if fname == "velocity" else out_v.scalars[fname]
+        w = out_n.velocity if fname == "velocity" else out_n.scalars[fname]
+        _, rel = rel_err(g, w)
+        worst = max(worst, rel)
+        parts.append(f"{fname} {rel:.2e}{' (bitwise)' if torch.equal(g, w) else ''}")
+    print(f"[18] config 5 sliced step: passes {passes}, B1d launches {n_b1d}; vs the "
+          f"nbr-path step, max rel err per field: {', '.join(parts)} (tol {TOL_STEP:g})",
+          flush=True)
+    if not worst <= TOL_STEP:
+        raise AssertionError(f"phase 18: config 5 sliced step vs nbr {worst} > {TOL_STEP}")
+    del out_n, out_v
+    c5_ms = {}
+    for name, mode in (("vmem (sliced)", None), ("nbr", "nbr")):
+        if mode == "nbr":
+            nbr_path()
+        else:
+            vmem(None)
+        c5_ms[name] = statistics.median(time_ms(lambda: plume.plume_step(c5p, st5, c5_rb, cfg5),
+                                                3))
+    nbr_path()
+    print(f"[18] config 5 RBGS-50 step, ms (median of 3, CUDA events): table path sliced "
+          f"{c5_ms['vmem (sliced)']:.1f}, nbr path {c5_ms['nbr']:.1f}; peak device memory of the "
+          f"sliced step {peak5 / 2**30:.2f} GiB, of the nbr step {peak_n / 2**30:.2f} GiB (the "
+          f"developed state and the plans held) | {card}", flush=True)
+    del c5p, st5, planned, tb18, bench_dev, btopo, bstate
+    torch.cuda.empty_cache()
+    done("18")
 
     print(card)
     print(json.dumps({"kernels": [

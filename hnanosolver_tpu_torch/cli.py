@@ -8,11 +8,15 @@ Usage:
       --collision col.vdb --frames 24 --ckpt-every 6 --out out/solved.vdb
   python -m hnanosolver_tpu_torch.cli solve out/solve_0006.npz --frames 6
   python -m hnanosolver_tpu_torch.cli advect in.vdb --out advected.vdb
-  python -m hnanosolver_tpu_torch.cli plume --frames 24 --out out/ --ckpt-every 6
+  python -m hnanosolver_tpu_torch.cli plume --frames 24 --out out/ --ckpt-every 6 --render
+  python -m hnanosolver_tpu_torch.cli bench-report --frames 5
+  python -m hnanosolver_tpu_torch.cli turntable --ckpt out/frame_0024.npz --frames 24
+  python -m hnanosolver_tpu_torch.cli view --live plume --port 8642
 
-Subcommands: plume, collide, fire, resume, advect, advect-velocity,
-project, solve. Every subcommand runs on ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain PyTorch versions). ``--precision`` is
+Subcommands: plume, collide, fire, resume, bench-report, turntable,
+advect, advect-velocity, project, solve, view. Every subcommand runs on
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain PyTorch
+versions). ``--precision`` is
 accepted for the JAX package's command lines; the port computes in float32
 at every tier, and the tier selects only the pressure solve's halo lag.
 
@@ -64,6 +68,10 @@ def _add_output_args(p: argparse.ArgumentParser):
     p.add_argument("--format", choices=["npz", "vdb", "vdbz", "nvdb"], default="npz",
                    help="frame output format (vdb = Houdini-loadable OpenVDB; "
                         "vdbz = ZIP-compressed vdb)")
+    p.add_argument("--render", action="store_true",
+                   help="write an orthographic PNG of the density every --render-every frames")
+    p.add_argument("--render-every", type=int, default=1)
+    p.add_argument("--view-box", type=int, nargs=3, default=[128, 128, 128])
 
 
 def _params(args):
@@ -107,9 +115,18 @@ def _save_frame(fmt: str, out_dir: str, stem: str, topo, state, params, frame):
         raise ValueError(f"unknown --format {fmt}")
 
 
+def _render_frame(args, stem: str, f: int, topo, state):
+    """--render: the orthographic PNG of frame f + 1 over the view box."""
+    if args.render and (f + 1) % args.render_every == 0:
+        from hnanosolver_tpu_torch.viewer.render import render_state, write_png
+
+        write_png(os.path.join(args.out, f"{stem}_{f + 1:04d}.png"),
+                  render_state(topo, state, tuple(args.view_box)))
+
+
 def _frame_hook(args, params, stem: str):
-    """on_frame for the scenario drivers: --debug checks, checkpoints, a
-    progress line."""
+    """on_frame for the scenario drivers: --debug checks, checkpoints,
+    renders, a progress line."""
     def on_frame(f, topo, state):
         t0 = time.perf_counter()
         if args.debug:
@@ -122,6 +139,7 @@ def _frame_hook(args, params, stem: str):
                       f"(|u|*dt/dx >= 7)", flush=True)
         if args.ckpt_every and (f + 1) % args.ckpt_every == 0:
             _save_frame(args.format, args.out, stem, topo, state, params, f + 1)
+        _render_frame(args, stem, f, topo, state)
         print(f"frame {f + 1}/{args.frames}: {int(topo.n_active)} tiles "
               f"({topo.num_voxels / 1e6:.2f} M voxels), io {time.perf_counter() - t0:.2f}s",
               flush=True)
@@ -179,9 +197,62 @@ def cmd_fire(args):
     def on_frame(f, topo, state):
         if args.ckpt_every and (f + 1) % args.ckpt_every == 0:
             _save_frame(args.format, args.out, "fire", topo, state, params, f + 1)
+        _render_frame(args, "fire", f, topo, state)
         print(f"frame {f + 1}/{args.frames}: {int(topo.n_active)} tiles", flush=True)
 
     run_fire(args.frames, params=params, cfg=cfg, on_frame=on_frame, device=args.device)
+
+
+def cmd_bench_report(args):
+    """Per-phase step timing table on a dense box, the CLI face of the
+    reference's per-kernel ScopedTimerGPU printouts
+    (``reference/src/Cuda/Utils.cuh:246-277``): ``utils/phase_profile``."""
+    from hnanosolver_tpu_torch.core.topology import build_topology_dense
+    from hnanosolver_tpu_torch.fields import zeros_state
+    from hnanosolver_tpu_torch.models.plume import PlumeConfig, plume_step
+    from hnanosolver_tpu_torch.utils.phase_profile import markdown_table, profile
+
+    params = _params(args)
+    n = max(args.size - args.size % 8, 8)
+    topo = build_topology_dense((n, n, n), device=args.device)
+    cfg = PlumeConfig(center=(n / 2.0, n / 8.0, n / 2.0), radius=n / 8.0)
+    state = zeros_state(topo)
+    for _ in range(max(args.frames, 1)):
+        state = plume_step(topo, state, params, cfg)
+    times = profile(topo, state, params, hi=args.chain)
+    print(markdown_table(times, topo.num_voxels))
+
+
+def cmd_turntable(args):
+    """Orbit renders of a checkpointed state (a PNG sequence and an APNG),
+    the offline face of HNanoViewer's camera."""
+    from hnanosolver_tpu_torch.io.state import load_npz
+    from hnanosolver_tpu_torch.viewer.render import render_turntable, write_apng, write_png
+
+    topo, state, _, _ = load_npz(args.ckpt, device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    frames = render_turntable(topo, state, tuple(args.view_box), frames=args.frames,
+                              size=(args.size, args.size))
+    for i, img in enumerate(frames):
+        write_png(os.path.join(args.out, f"turn_{i:03d}.png"), img)
+    write_apng(os.path.join(args.out, "turntable.apng"), frames, delay_ms=args.delay_ms)
+    print(f"wrote {len(frames)} orbit frames + turntable.apng to {args.out}")
+
+
+def cmd_view(args):
+    """The interactive WebGL raymarch viewer (HNanoViewer,
+    ``reference/HNanoViewer/src/HNanoViewer.cpp:106-362``) over HTTP, of a
+    file or a live simulation on ``--device``."""
+    from hnanosolver_tpu_torch.viewer import webapp
+
+    if args.live:
+        src = webapp.live_source(args.live, shape=tuple(args.view_box), params=_params(args),
+                                 device=args.device)
+    else:
+        if not args.file:
+            raise SystemExit("view: pass a volume file or --live plume|fire")
+        src = webapp.file_source(args.file, device=args.device)
+    webapp.serve(src, port=args.port)
 
 
 def _load_vdb_fields(path, device):
@@ -389,6 +460,23 @@ def main(argv=None):
     _add_output_args(p)
     p.set_defaults(fn=cmd_fire)
 
+    p = sub.add_parser("bench-report", help="per-phase step timing table (dense box domain)")
+    _add_solver_args(p)
+    p.add_argument("--frames", type=int, default=2, help="warm-up steps")
+    p.add_argument("--size", type=int, default=64, help="domain edge (voxels)")
+    p.add_argument("--chain", type=int, default=10, help="long-chain length")
+    p.set_defaults(fn=cmd_bench_report)
+
+    p = sub.add_parser("turntable", help="orbit renders of a checkpoint (PNG seq + APNG)")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--frames", type=int, default=24)
+    p.add_argument("--size", type=int, default=384)
+    p.add_argument("--delay-ms", type=int, default=50)
+    p.add_argument("--view-box", type=int, nargs=3, default=[128, 128, 128])
+    p.add_argument("--out", default="out/turntable")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_turntable)
+
     p = sub.add_parser("advect", help="standalone scalar advection on a .vdb (HNanoAdvect)")
     p.add_argument("file", help=".vdb with float grids + a velocity grid")
     p.add_argument("--timestep", type=float, default=1.0 / 24.0)
@@ -437,6 +525,15 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=0)
     p.add_argument("--out", default="solved.vdb")
     p.set_defaults(fn=cmd_solve)
+
+    p = sub.add_parser("view", help="interactive WebGL volume viewer (file or live sim)")
+    _add_solver_args(p)
+    p.add_argument("file", nargs="?", default=None, help=".npz checkpoint, .nvdb or .vdb volume")
+    p.add_argument("--live", choices=["plume", "fire"], default=None,
+                   help="serve a live stepped simulation instead of a file")
+    p.add_argument("--port", type=int, default=8642)
+    p.add_argument("--view-box", type=int, nargs=3, default=[256, 256, 256])
+    p.set_defaults(fn=cmd_view)
 
     p = sub.add_parser("resume", help="resume the plume scenario from an .npz checkpoint")
     _add_solver_args(p)

@@ -31,10 +31,18 @@ max|clamp(-u*sdt)|, read on the host (one sync per pass):
   - wide (CFL >= 3.9, or >= 1.9 with an SDF): the nbr-form B1, valid for
     every clamped displacement (the JAX package's 24-window kernel).
 The dual table is ``tables.build_table_dual``, or kernel B11 from
-``tables.build_table`` when ``cuda_tables.COMBINE_TBL`` is on. Tables
-whose JAX byte model exceeds ``TABLE_BYTES_BUDGET`` (which the JAX package
-samples in chunk slices) raise. ``BANDS`` counts the passes each branch
-took.
+``tables.build_table`` when ``cuda_tables.COMBINE_TBL`` is on. Where the
+table's byte model exceeds ``TABLE_BYTES_BUDGET`` (``tables.pick_slices``
+gives k > 1 slices), B1d runs the chunk axis in contiguous slices of
+ceil(nc / k) chunks, each on its own slice's table built by the direct
+gather, and the outputs are concatenated: bitwise the unsliced samples. The
+dispatch is the JAX package's (``advection.py:233-255``,
+``pallas_bfecc.py:955-1087``): a sliced pass builds no table with B11, and
+where either of the mixed band's plans (the dual table of every field, the
+27-table of the forward pass's fields) slices, the band shares no table:
+its "back" pass builds its own (sliced, or whole and by B11 when
+COMBINE_TBL is on) and its forward pass is always the wide one (B8/B9).
+``BANDS`` counts the passes each branch took.
 """
 
 from __future__ import annotations
@@ -51,8 +59,8 @@ from hnanosolver_tpu_torch.ops import tables
 # Sampling backend at trace order 1: None = B1 through nbr (the default);
 # "vmem" = the table sampler where the topology carries chunk plans.
 INTERP: Optional[str] = None
-# Table bytes (the JAX package's byte model) above which the JAX package
-# samples in chunk slices; not ported (ROADMAP queue 1, the sliced table path)
+# Table bytes (the JAX package's byte model, tables.table_bytes) above
+# which the table sampler runs in chunk slices (the JAX package's budget)
 TABLE_BYTES_BUDGET = 2 * 1024 ** 3
 
 BANDS = collections.Counter()  # passes per branch of the table sampler
@@ -107,24 +115,43 @@ def _amax(d: torch.Tensor) -> float:
     return float(d.abs().amax())
 
 
-def _dual_table(topo, fields: torch.Tensor) -> torch.Tensor:
-    """The chunk dual table of ``fields [nf,T,512]``: B11 from the 27-table
-    when COMBINE_TBL is on, else the direct gather. Raises above
-    TABLE_BYTES_BUDGET."""
-    nf = fields.shape[0]
-    nc, Ud = topo.chunk_dsrc.shape[:2]
-    comb = bool(cuda_tables.COMBINE_TBL)
-    need = tables.table_bytes(nc, Ud, nf)
-    if comb:
-        need = max(need, tables.table_bytes(nc, topo.chunk_uniq.shape[1], nf))
-    if need > TABLE_BYTES_BUDGET:
-        raise NotImplementedError(
-            f"table sampler: {need} table bytes exceed TABLE_BYTES_BUDGET; the sliced "
-            "table path is not ported (ROADMAP queue 1, the sliced table path)")
+def _dual_table(topo, tab: torch.Tensor, comb: bool) -> torch.Tensor:
+    """The chunk dual table of ``tab [nf,T,512]``: B11 from the 27-table
+    when ``comb``, else the direct gather."""
     if comb:
         return cuda_tables.build_table_dual_combine(
-            tables.build_table(topo, fields), topo.chunk_dloc, nf)
-    return tables.build_table_dual(topo, fields)
+            tables.build_table(topo, tab), topo.chunk_dloc, tab.shape[0])
+    return tables.build_table_dual(topo, tab)
+
+
+def _slices(topo, U: int, nf: int) -> int:
+    return tables.pick_slices(topo.chunk_dsrc.shape[0], U, nf, TABLE_BYTES_BUDGET)
+
+
+def _sample_dual(topo, tab: torch.Tensor, vd: torch.Tensor, sdt: float, nb: int, f_lo: int,
+                 mode: str, comb: bool):
+    """B1d in ``mode`` on the dual table of ``tab [nf,T,512]`` (the nb base
+    fields, then the SDF if nf > nb): one launch on the whole table, or
+    where it slices one launch a slice of chunks on that slice's table and
+    rows, the outputs concatenated along the rows."""
+    nc, Ud = topo.chunk_dsrc.shape[:2]
+    has_sdf = tab.shape[0] > nb
+    k = _slices(topo, Ud, tab.shape[0])
+    if k <= 1:
+        return cuda_bfecc.bfecc_sample_dual(_dual_table(topo, tab, comb), topo.chunk_ldual, vd,
+                                            sdt, nb, f_lo, mode, has_sdf)
+    ncs = -(-nc // k)  # chunks a slice, the last one short: JAX's split
+    C = topo.capacity // nc
+    outs = []
+    for c0 in range(0, nc, ncs):
+        rows = slice(c0 * C, min(c0 + ncs, nc) * C)
+        tbl = tables.build_table_dual(topo, tab, topo.chunk_dsrc[c0:c0 + ncs])
+        outs.append(cuda_bfecc.bfecc_sample_dual(tbl, topo.chunk_ldual[rows],
+                                                 vd[:, rows].contiguous(), sdt, nb, f_lo, mode,
+                                                 has_sdf))
+    if mode == "both":
+        return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(2))
+    return torch.cat(outs, dim=1)
 
 
 def _table_samples(topo, fields: torch.Tensor, sdt: float, f_lo: int,
@@ -132,18 +159,25 @@ def _table_samples(topo, fields: torch.Tensor, sdt: float, f_lo: int,
     """(phiF, phiB) by the table sampler (see the module doc)."""
     nb = fields.shape[0]
     vel = fields[:3]
+    comb = bool(cuda_tables.COMBINE_TBL)
     d = _clamp(-vel * sdt)
     cfl = _amax(d)
     if cfl < cuda_bfecc.CFL_LIMIT:
         BANDS["narrow"] += 1
-        base = fields if sdf is None else torch.cat([fields, sdf[None]])
-        return cuda_bfecc.bfecc_sample_dual(_dual_table(topo, base), topo.chunk_ldual, vel,
-                                            sdt, nb, f_lo, "both", sdf is not None)
+        tab = fields if sdf is None else torch.cat([fields, sdf[None]])
+        return _sample_dual(topo, tab, vel, sdt, nb, f_lo, "both", comb)
     if sdf is not None or cfl >= cuda_bfecc.CFL_MID:
         BANDS["wide"] += 1
         return cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo, sdf)
     BANDS["mixed"] += 1
-    tdual = _dual_table(topo, fields)
+    Ud, U27 = topo.chunk_dsrc.shape[1], topo.chunk_uniq.shape[1]
+    nf_wide = nb if f_lo == 0 else nb - 3  # the fields of JAX's wide forward pass
+    if _slices(topo, Ud, nb) > 1 or _slices(topo, U27, max(nf_wide, 1)) > 1:
+        backs = _sample_dual(topo, fields, vel, sdt, nb, 0, "back", comb)
+        BANDS["mixed fwd wide"] += 1
+        d2 = _clamp(d + backs[:3] * sdt)
+        return backs[f_lo:], cuda_sample.sample_at(topo.nbr, fields[f_lo:].contiguous(), d2)
+    tdual = _dual_table(topo, fields, comb)
     backs = cuda_bfecc.bfecc_sample_dual(tdual, topo.chunk_ldual, vel, sdt, nb, 0, "back")
     d2 = _clamp(d + backs[:3] * sdt)
     if _amax(d2) < cuda_bfecc.CFL_MID:

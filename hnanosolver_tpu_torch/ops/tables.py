@@ -65,3 +65,14 @@ def table_bytes(nc: int, U: int, nf: int) -> int:
     """The JAX package's byte model of one chunk table at its peak build
     (``pallas_bfecc._pick_slices``), which decides when it slices."""
     return nc * U * nf * 4 * (512 + 2 * 8 * 128)
+
+
+def pick_slices(nc: int, U: int, nf: int, budget: int) -> int:
+    """The JAX package's ``pallas_bfecc._pick_slices``: the fewest slices s
+    (at most nc) with ``table_bytes(nc, U, nf) // s <= budget``. A sampler
+    pass over s > 1 slices runs ceil(nc / s) chunks a slice."""
+    total = table_bytes(nc, U, nf)
+    s = 1
+    while total // s > budget and s < nc:
+        s += 1
+    return s

@@ -153,11 +153,13 @@ def test_advect_scalars_fused_matches_jax(dom):
 
 
 def test_advection_rejects_unported_options(dom, monkeypatch):
-    """Of the advection stage of a step, what still raises: the table
-    sampler (``INTERP = "vmem"``) on tables above ``TABLE_BYTES_BUDGET``,
-    which the JAX package samples in chunk slices (not ported). Vorticity
-    confinement at int(factor_scale) >= 1, which raised here before, runs
-    (RK2-4 traces and the collision SDF are ported)."""
+    """Of the advection stage of a step, nothing raises any more: the table
+    sampler (``INTERP = "vmem"``) on tables above ``TABLE_BYTES_BUDGET``
+    samples in chunk slices as the JAX package does (this one-chunk domain
+    takes one slice: the step equals the default budget's bitwise; sliced
+    tables: tests/test_torch_tables.py). Vorticity confinement at
+    int(factor_scale) >= 1, which raised here before, runs (RK2-4 traces and
+    the collision SDF are ported)."""
     _, tt, vel, _, _ = dom
     T = tt.capacity
     st = convert.state_from_numpy(vel, {n: np.zeros((T, 512), np.float32) for n in NAMES},
@@ -166,9 +168,12 @@ def test_advection_rejects_unported_options(dom, monkeypatch):
     out = tsolver.step(tt, st, params)
     assert torch.isfinite(out.velocity).all()
     monkeypatch.setattr(tadv, "INTERP", "vmem")
+    planned = ensure_chunk_plans(tt)
+    whole = tsolver.step(planned, st, params)
     monkeypatch.setattr(tadv, "TABLE_BYTES_BUDGET", 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.step(ensure_chunk_plans(tt), st, params)
+    small = tsolver.step(planned, st, params)
+    assert torch.equal(whole.velocity, small.velocity)
+    assert all(torch.equal(whole.scalars[n], small.scalars[n]) for n in NAMES)
 
 
 @pytest.mark.parametrize("nb,f_lo", [(4, 0), (3, 3), (12, 3), (2, 0)])

@@ -172,15 +172,24 @@ def test_default_lag_residual_within_textbook(plume, monkeypatch):
 
 
 def test_step_rejects_unported_branches(box, monkeypatch):
-    """What still raises in the plume and collider frame loops: the table
-    sampler's sliced path (tables above ``TABLE_BYTES_BUDGET``) under
-    ``INTERP = "vmem"``, on a topology with chunk plans. Growth between
-    frames, which raised here before, is ported (tests/test_torch_growth.py)."""
+    """Nothing raises any more in the plume and collider frame loops: the
+    table sampler (``INTERP = "vmem"``) on a topology with chunk plans runs
+    under any ``TABLE_BYTES_BUDGET``, as the JAX package's does. This box
+    is one chunk, which ``tables.pick_slices`` never splits (JAX's
+    ``_pick_slices``: at most nc slices), so a budget below its tables gives
+    bitwise the frame of the default budget (sliced tables:
+    tests/test_torch_tables.py). Growth between frames, which raised here
+    before, is ported (tests/test_torch_growth.py)."""
     jt, _, _, _, _ = box
     tt = ensure_chunk_plans(_port_topo(jt))
+    assert tt.chunk_dsrc.shape[0] == 1
     monkeypatch.setattr(tadv, "INTERP", "vmem")
-    monkeypatch.setattr(tadv, "TABLE_BYTES_BUDGET", 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplume.run_plume(1, topo=tt, grow_every=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcollider.run_collider(1, topo=tt, grow_every=1)
+    runs = []
+    for budget in (tadv.TABLE_BYTES_BUDGET, 1024):
+        monkeypatch.setattr(tadv, "TABLE_BYTES_BUDGET", budget)
+        runs.append([run(1, topo=tt, grow_every=1)
+                     for run in (tplume.run_plume, tcollider.run_collider)])
+    for (ta, sa), (tb, sb) in zip(*runs):
+        assert torch.equal(ta.keys, tb.keys)
+        assert torch.equal(sa.velocity, sb.velocity)
+        assert all(torch.equal(sa.scalars[k], sb.scalars[k]) for k in sa.scalars)

@@ -32,6 +32,8 @@ from hnanosolver_tpu.core import topology as jtopo
 from hnanosolver_tpu.ops import advection as jadv
 from hnanosolver_tpu.ops import pallas_bfecc as jpb
 from hnanosolver_tpu_torch import convert
+from hnanosolver_tpu_torch import solver as tsolver
+from hnanosolver_tpu_torch.config import SolverParams
 from hnanosolver_tpu_torch.core import topology as ttopo
 from hnanosolver_tpu_torch.core.layout import positions_flat
 from hnanosolver_tpu_torch.ops import advection as tadv
@@ -253,11 +255,11 @@ def test_dual_b1_wrapper_rejects_bad_modes(sparse):
             tcb.bfecc_sample_dual(tbl, tt.chunk_ldual, vel, sdt, **args)
 
 
-def _band_inputs(cfl, kind, with_sdf):
-    """Dense 16^3 box: velocity whose max|u|*sdt is ``cfl`` (smooth, or
-    white noise, whose re-trace leaves the narrow window), two scalars and
-    optionally a plane SDF."""
-    jt, tt = _pair("dense16")
+def _band_inputs(cfl, kind, with_sdf, box="dense16"):
+    """A box of BOXES (the dense 16^3 one by default): velocity whose
+    max|u|*sdt is ``cfl`` (smooth, or white noise, whose re-trace leaves the
+    narrow window), two scalars and optionally a plane SDF."""
+    jt, tt = _pair(box)
     m = np.asarray(jtopo.active_mask(jt))[:, None]
     px, py, pz = (p.numpy().astype(np.float32) for p in positions_flat(tt))
     rng = np.random.default_rng(53)
@@ -324,13 +326,73 @@ def test_table_sampler_matches_jax_advect_vmem(monkeypatch, case):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=tol * scale)
 
 
-def test_table_sampler_raises_above_the_table_budget(monkeypatch):
-    """The sliced at-scale table path is not ported: it raises, no fallback."""
-    _, tt, vel, scal, _, sdt = _band_inputs(1.5, "smooth", False)
+SLICED_BANDS = {"narrow": 1.5, "mixed": 3.0}  # CFL of the sliced sampler's cases
+
+
+@pytest.fixture(scope="module")
+def sliced_jax():
+    """{(band, f_lo): the JAX package's sliced samples}, filled on first use:
+    ``bfecc_sample_fused(..., slices=2)`` in interpret mode, mode "both" in
+    the narrow band and "back" (the pass the mixed band slices) in the
+    mixed one."""
+    return {}
+
+
+@pytest.mark.parametrize("combine", [False, True], ids=["dual", "b11"])
+@pytest.mark.parametrize("band", sorted(SLICED_BANDS))
+def test_table_sampler_slices_above_the_table_budget(monkeypatch, sliced_jax, band, combine):
+    """With the budget below every table (2 chunks: 2 slices of one chunk),
+    a step through the table sampler is bitwise the unsliced step, and both
+    passes' sliced samples match the JAX package's sliced sampler at the
+    tolerances above. The branches taken are JAX's dispatch: a sliced
+    narrow pass; in the mixed band a sliced "back" pass, then the wide
+    forward pass (B8/B9, held to JAX elsewhere)."""
+    jt, tt, vel, scal, _, sdt = _band_inputs(SLICED_BANDS[band], "smooth", False, "two_chunks")
+    names = ("density", "fuel", "temperature", "flame", "waste")
+    st = convert.state_from_numpy(
+        vel, {n: np.abs(scal[i % 2]) * (i + 1) for i, n in enumerate(names)}, device="cpu")
+    params = SolverParams(dt=sdt, voxel_size=1.0, iterations=2)  # the step's sdt is sdt
+    monkeypatch.setattr(tadv, "INTERP", "vmem")
+    monkeypatch.setattr(tct, "COMBINE_TBL", combine)
+    whole = tsolver.step(tt, st, params)
     monkeypatch.setattr(tadv, "TABLE_BYTES_BUDGET", 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_samples(monkeypatch, tt, torch.from_numpy(np.concatenate([vel, scal])), sdt, 3,
-                      None, False)
+    assert ttab.pick_slices(2, tt.chunk_dsrc.shape[1], 3, 1024) == 2
+    sliced = tsolver.step(tt, st, params)
+    for a, b in zip([whole.velocity] + [whole.scalars[n] for n in names],
+                    [sliced.velocity] + [sliced.scalars[n] for n in names]):
+        assert torch.equal(a, b)
+    mode = "both" if band == "narrow" else "back"
+    for f_lo, fields in ((3, np.concatenate([vel, scal])), (0, vel)):
+        got, taken = _port_samples(monkeypatch, tt, torch.from_numpy(fields), sdt, f_lo, None,
+                                   combine)
+        assert taken == ({"narrow": 1} if band == "narrow"
+                         else {"mixed": 1, "mixed fwd wide": 1})
+        if (band, f_lo) not in sliced_jax:
+            d = np.clip(-vel * sdt, -tcb.DISP_LIMIT, tcb.DISP_LIMIT)
+            out = jpb.bfecc_sample_fused(
+                jt, [jnp.asarray(a) for a in fields], *[jnp.asarray(a) for a in d], sdt,
+                f_lo if mode == "both" else 0, None, "strict", interpret=True, win=16,
+                dual=True, mode=mode, slices=2)
+            sliced_jax[band, f_lo] = [np.stack([np.asarray(a) for a in p]) for p in out]
+        want = sliced_jax[band, f_lo]
+        if mode == "back":
+            got, want = got[:1], [want[0][f_lo:]]
+        scale = np.abs(fields[f_lo:]).max()
+        for g, w, tol in zip(got, want, (TOL_AT, TOL_RETRACE)):
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 9, 526])
+def test_pick_slices_equals_jax(nc):
+    """JAX's _pick_slices over table shapes from the bench (9 chunks) to
+    config 5 (526 chunks) and budgets around each table's bytes."""
+    for U in (1, 64, 1048, 1344, 1920):
+        for nf in (1, 3, 5, 8, 9):
+            total = ttab.table_bytes(nc, U, nf)
+            for budget in (jpb.TABLE_BYTES_BUDGET, total, total - 1, total // 3, 1024):
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(jpb, "TABLE_BYTES_BUDGET", budget)
+                    assert ttab.pick_slices(nc, U, nf, budget) == jpb._pick_slices(nc, U, nf)
 
 
 def test_table_sampler_needs_plans(monkeypatch):
