@@ -167,12 +167,28 @@ exit). Each phase prints the seconds it took.
      steps, then one table-path step, its slices ``tables.pick_slices``'s
      (the JAX package's ``_pick_slices``), within TOL_STEP of the nbr-path
      step, its ms beside the nbr path's and its peak device memory
+ 19. the sharded step (``parallel/``): the developed bench state over a
+     mesh of 4 entries of this card, 4 x-slabs (``build_slabs``), one step
+     each of RBGS-50, multigrid (mg_levels 2, 2 V-cycles, FMG) and
+     multigrid with ``mg_tol`` (a cap of MG_TOL_CAP V-cycles), and a
+     (2, 2, 1) box grid (``build_boxes``) RBGS-50; each held within
+     TOL_STEP of the one-device step under the JAX package's sharded
+     semantics (a refresh hook: textbook per-colour B4 at the fine level,
+     ``halo_lag`` ignored; coarse levels replicated, B5), with exact launch
+     counts of both (the tol run's from the V-cycles it ran, the same on
+     every slab), their ms (median of 3, CUDA events: one card, one
+     stream), the RBGS step's also over each of SLAB_SWEEP slabs (one
+     thread a slab); config 5 over 4 slabs, RBGS-50, one step against the
+     one-device step (computed first, its output kept on the host), its
+     peak device memory beside the one-device step's record scaled by the
+     slabs' rows; over min(4, count) distinct cards where the machine has
+     two or more (the bench RBGS step), else a line saying it was not made
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
 their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
 14 B1d's, and the bench and config-5 steps'.
 
-Launch counts come only from the main-path runs (phases 4, 7-14, 16-18), each
+Launch counts come only from the main-path runs (phases 4, 7-14, 16-19), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
@@ -215,6 +231,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from unittest import mock
@@ -265,6 +282,12 @@ BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
                              "mixed fwd nb=3": 0.0416, "mixed back nb=8": 0.0826,
                              "mixed fwd nb=8": 0.0559}}
 B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main paths
+# phase 19: slabs on one card, the mg_tol run's tolerance and V-cycle cap,
+# and the one-device config-5 RBGS-50 step's peak (PERF.md section 5,
+# phase 18, NVIDIA H100 80GB HBM3 at 700 W)
+SLABS, MG_TOL, MG_TOL_CAP = 4, 1e-3, 8
+SLAB_SWEEP = (1, 2, 4)  # slabs on one card of phase 19's sweep
+C5_STEP_PEAK_GIB = 27.16
 
 
 def sh(cmd: list[str]) -> str:
@@ -1138,13 +1161,16 @@ def main() -> int:
             n8 = order - 1 + 2 + (0 if s_ is None else 2)
 
             def rk(order=order, s_=s_):
-                return (advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, order),
-                        advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_, order))
+                return (advection.advect_velocity(t4, vel4, p4.dt, inv4, s_,
+                                                  trace_order=order),
+                        advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_,
+                                                       trace_order=order))
 
             with main_path(f"11 {tag} velocity", {"B8": n8, "B2": 1}, 1):
-                advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, order)
+                advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, trace_order=order)
             with main_path(f"11 {tag} scalars", {"B8": n8, "B2": 1}, 1):
-                advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_, order)
+                advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_,
+                                               trace_order=order)
             (uk, sk) = rk()
             with plain_versions():
                 up, sp = rk()
@@ -2354,6 +2380,205 @@ def main() -> int:
     del c5p, st5, planned, tb18, bench_dev, btopo, bstate
     torch.cuda.empty_cache()
     done("18")
+
+    # -- 19. the sharded step (parallel/): slabs and boxes over a mesh -----------
+    from hnanosolver_tpu_torch.parallel import boxes as pboxes
+    from hnanosolver_tpu_torch.parallel import slab as pslab
+    from hnanosolver_tpu_torch.parallel.mesh import make_mesh
+
+    def textbook(f):
+        """A refresh hook that moves nothing: the one-device step under the
+        sharded step's dispatch (B4 colour sweeps at the fine level)."""
+        return f
+
+    @contextlib.contextmanager
+    def fine_cycles(counts: collections.Counter):
+        """Fine-level V-cycles per thread (the calls that carry a refresh)."""
+        real_v = multigrid.v_cycle
+
+        def spy(*a, **kw):
+            if kw.get("refresh") is not None:
+                counts[threading.current_thread().name] += 1
+            return real_v(*a, **kw)
+
+        with mock.patch.object(multigrid, "v_cycle", spy):
+            yield
+
+    def sharded_counts(p_, n: int, cycles: collections.Counter):
+        """Launches of one textbook step on each of ``n`` devices: B4 2 a
+        fine iteration, or for multigrid (mg_levels 2: level 1 and 2 by B5)
+        8 B4 a fine V-cycle, B5 3 and B6 2, FMG's extra B5 4 and B6 1, and
+        with mg_tol one B6 a stop test (V-cycles read from ``cycles``)."""
+        def want():
+            c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
+            if p_.pressure_solver != "mg":
+                c["B4"] = 2 * p_.iterations
+            else:
+                per = set(cycles.values())
+                if len(per) != 1 or len(cycles) != n:
+                    raise AssertionError(f"phase 19: fine V-cycles per device {dict(cycles)}")
+                v = per.pop() - 1  # FMG's own fine V-cycle aside
+                tests = 0 if p_.mg_tol is None else v + int(v < p_.iterations)
+                c.update(B4=8 * (v + 1), B5=7 + 3 * v, B6=3 + 2 * v + tests)
+            return {k: n * x for k, x in c.items()}
+        return want
+
+    def compare(label, got, want_state, on_host=False):
+        """Every field within TOL_STEP of the one-device step (max abs and
+        rel error, bitwise or not)."""
+        parts, worst = [], 0.0
+        for name in ["velocity"] + sorted(want_state.scalars):
+            g = got.velocity if name == "velocity" else got.scalars[name]
+            w = want_state.velocity if name == "velocity" else want_state.scalars[name]
+            if on_host:
+                w = w.to(g.device)
+            err, rel = rel_err(g, w)
+            worst = max(worst, rel)
+            parts.append(f"{name} {err:.2e}/{rel:.2e}{' (bitwise)' if torch.equal(g, w) else ''}")
+            del w
+        print(f"[{label}] vs the one-device step, max abs/rel err per field: {', '.join(parts)}"
+              f" (tol {TOL_STEP:g})", flush=True)
+        if not worst <= TOL_STEP:
+            raise AssertionError(f"phase {label}: sharded step rel err {worst} > {TOL_STEP}")
+
+    torch.cuda.empty_cache()
+    t19, s19 = plume.run_plume(bench.develop, params, cfg, topo=bench.topology(dev),
+                               grow_every=0)
+    mesh = make_mesh(SLABS, device=dev)
+    print(f"[19] mesh: {SLABS} entries of {mesh.devices[0]} ({torch.cuda.get_device_name(0)}); "
+          f"one thread a device, one stream", flush=True)
+    slab19 = pslab.build_slabs(t19, SLABS)
+    box19 = pboxes.build_boxes(t19, (2, 2, 1))
+    for name, dec in (("slabs", slab19), ("boxes (2,2,1)", box19)):
+        owned = dec.local_mask.sum(1).tolist()
+        print(f"[19] {name}: capacity {dec.capacity} a device ({SLABS * dec.capacity} rows "
+              f"against {t19.capacity}), owned tiles {[int(o) for o in owned]}, rows in use "
+              f"{dec.n_rows.tolist()}", flush=True)
+    mg19 = CELLS["bench-mg"].params
+    runs = (("RBGS-50", slab19, params), ("MG", slab19, mg19),
+            ("MG mg_tol", slab19, mg19.replace(mg_tol=MG_TOL, iterations=MG_TOL_CAP)),
+            ("boxes RBGS-50", box19, params))
+    for name, dec, p_ in runs:
+        label = f"19 {name}"
+        hier19 = multigrid.hierarchy_for(t19, p_)
+        shier = pslab.build_slab_hierarchy(t19, dec, p_.mg_levels) if hier19 else None
+        emitted = plume.emit(t19, s19, cfg, p_.dt)
+
+        def one_device():
+            return solver.step_impl(t19, emitted, p_, hier19, refresh=textbook)
+
+        one_cycles, shard_cycles = collections.Counter(), collections.Counter()
+        with fine_cycles(one_cycles), main_path(f"{label} one device",
+                                                sharded_counts(p_, 1, one_cycles)):
+            want = one_device()
+        blocks = pslab.scatter_state(t19, dec, s19, mesh)
+        fn = pslab.sharded_plume_step(mesh, dec, p_, cfg, hierarchy=shier)
+        with fine_cycles(shard_cycles), main_path(label,
+                                                  sharded_counts(p_, SLABS, shard_cycles)):
+            out = pslab.gather_state(t19, dec, fn(dec, blocks))
+        if p_.mg_tol is not None:
+            print(f"[{label}] V-cycles after FMG: {set(shard_cycles.values()).pop() - 1} on each "
+                  f"slab, {one_cycles[threading.current_thread().name] - 1} on one device (cap "
+                  f"{MG_TOL_CAP}, tol {MG_TOL:g})", flush=True)
+            if set(shard_cycles.values()) != set(one_cycles.values()):
+                raise AssertionError(f"phase {label}: the slabs stopped on another cycle")
+        check_state(label, t19, out)
+        compare(label, out, want)
+        ms_shard = statistics.median(time_ms(lambda: fn(dec, blocks), 3))
+        ms_one = statistics.median(time_ms(one_device, 3))
+        print(f"[{label}] step ms (median of 3, CUDA events): {SLABS} devices on one card "
+              f"{ms_shard:.3f}, one device (the same dispatch) {ms_one:.3f} | {card}", flush=True)
+        if name == "RBGS-50":  # the host's cost of each slab's thread
+            sweep = {}
+            for n_ in SLAB_SWEEP:
+                mesh_n, dec_n = make_mesh(n_, device=dev), pslab.build_slabs(t19, n_)
+                fn_n = pslab.sharded_plume_step(mesh_n, dec_n, p_, cfg)
+                blocks_n = pslab.scatter_state(t19, dec_n, s19, mesh_n)
+                sweep[n_] = statistics.median(time_ms(lambda: fn_n(dec_n, blocks_n), 3))
+            del mesh_n, dec_n, fn_n, blocks_n
+            print(f"[{label}] step ms (median of 3, CUDA events) by the number of slabs on "
+                  f"one card: {sweep} | {card}", flush=True)
+        del blocks, fn, out, want, emitted
+
+    # config 5 over 4 slabs on one card, RBGS-50
+    torch.cuda.empty_cache()
+    c5t = CELLS["c5"].topology(dev)
+    c5t, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5t, grow_every=0)
+    emitted = plume.emit(c5t, st5, cfg5, c5_rb.dt)
+    with main_path("19 c5 one device", sharded_counts(c5_rb, 1, collections.Counter())):
+        a_ = torch.cuda.Event(enable_timing=True)
+        b_ = torch.cuda.Event(enable_timing=True)
+        a_.record()
+        want = solver.step_impl(c5t, emitted, c5_rb, (), refresh=textbook)
+        b_.record()
+    ms_one = a_.elapsed_time(b_)
+    want = FieldState(velocity=want.velocity.cpu(),
+                      scalars={k: v.cpu() for k, v in want.scalars.items()})
+    del emitted
+    slab5 = pslab.build_slabs(c5t, SLABS)
+    rows = SLABS * slab5.capacity / c5t.capacity
+    print(f"[19] config 5: {c5t.n_active} tiles, capacity {c5t.capacity}; {SLABS} slabs of "
+          f"capacity {slab5.capacity} ({rows:.3f}x the rows), owned tiles "
+          f"{[int(o) for o in slab5.local_mask.sum(1).tolist()]}; reckoned peak "
+          f"{C5_STEP_PEAK_GIB} GiB x {rows:.3f} = {C5_STEP_PEAK_GIB * rows:.2f} GiB", flush=True)
+    blocks = pslab.scatter_state(c5t, slab5, st5, mesh)
+    del st5
+    fn = pslab.sharded_plume_step(mesh, slab5, c5_rb, cfg5)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with main_path("19 c5", sharded_counts(c5_rb, SLABS, collections.Counter())):
+        a_.record()
+        out_blocks = fn(slab5, blocks)
+        b_.record()
+    ms_shard = a_.elapsed_time(b_)
+    peak = torch.cuda.max_memory_allocated()
+    del blocks
+    out = pslab.gather_state(c5t, slab5, out_blocks)
+    del out_blocks
+    check_state("19 c5", c5t, out)
+    compare("19 c5", out, want, on_host=True)
+    print(f"[19] config 5 RBGS-50 step over {SLABS} slabs on one card: {ms_shard:.1f} ms, the "
+          f"one-device step (the same dispatch) {ms_one:.1f} ms (one step each, CUDA events); "
+          f"peak device memory {peak / 2**30:.2f} GiB against the reckoned "
+          f"{C5_STEP_PEAK_GIB * rows:.2f} (the one-device step's {C5_STEP_PEAK_GIB} x "
+          f"{rows:.3f}) | {card}", flush=True)
+    del out, want, fn, c5t
+    torch.cuda.empty_cache()
+
+    # distinct cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        meshc = make_mesh(min(SLABS, n_cards))
+        dc = pslab.build_slabs(t19, meshc.size)
+        emitted = plume.emit(t19, s19, cfg, params.dt)
+        want = solver.step_impl(t19, emitted, params, (), refresh=textbook)
+        blocks = pslab.scatter_state(t19, dc, s19, meshc)
+        fn = pslab.sharded_plume_step(meshc, dc, params, cfg)
+        with main_path("19 cards", sharded_counts(params, meshc.size, collections.Counter())):
+            out = pslab.gather_state(t19, dc, fn(dc, blocks))
+        check_state("19 cards", t19, out)
+        compare("19 cards", out, want)
+
+        def on_all_cards():
+            for d in meshc.devices:
+                torch.cuda.synchronize(d)
+            t0_ = time.perf_counter()
+            fn(dc, blocks)
+            for d in meshc.devices:
+                torch.cuda.synchronize(d)
+            return (time.perf_counter() - t0_) * 1e3
+
+        ms_cards = statistics.median(on_all_cards() for _ in range(3))
+        print(f"[19] bench RBGS-50 over {meshc.size} cards {[str(d) for d in meshc.devices]}: "
+              f"{ms_cards:.3f} ms a step (median of 3, host clock, every card synchronised)"
+              f" | {card}", flush=True)
+        del blocks, fn, out, want, emitted
+    else:
+        print(f"[19] the run over distinct cards was not made: torch.cuda.device_count() is "
+              f"{n_cards}", flush=True)
+    del t19, s19
+    done("19")
 
     print(card)
     print(json.dumps({"kernels": [

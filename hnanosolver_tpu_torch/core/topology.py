@@ -243,6 +243,22 @@ def _plans_np(full_keys, origins, nbr, n) -> dict:
                 chunk_dloc=_dual_local(uq, dsrc))
 
 
+# The JAX package builds chunk_dloc only when asked (its flag, default
+# off); the port builds it with every chunk plan, so the flag is constant.
+BUILD_DLOC = True
+
+
+def ensure_dual_local(topo: Topology) -> Topology:
+    """``topo`` carrying chunk_dloc, computed on the host if it lacks it;
+    raises without chunk plans (the JAX package's contract)."""
+    if topo.chunk_dloc is not None:
+        return topo
+    if topo.chunk_uniq is None or topo.chunk_dsrc is None:
+        raise ValueError("ensure_dual_local needs a chunk-planned topology")
+    dloc = _dual_local(topo.chunk_uniq.cpu().numpy(), topo.chunk_dsrc.cpu().numpy())
+    return dataclasses.replace(topo, chunk_dloc=torch.from_numpy(dloc).to(topo.device))
+
+
 def ensure_chunk_plans(topo: Topology) -> Topology:
     """``topo`` carrying the table sampler's chunk plans, built on the host
     if it lacks them (one device-to-host copy of its tables)."""

@@ -53,6 +53,8 @@
 // and p + omega * (pgs - p): bitwise ops/cuda_pressure.py's plain version.
 #include <cooperative_groups.h>
 
+#include <mutex>
+
 #include "rbsor.cuh"
 #include "tile_ring.cuh"
 
@@ -216,7 +218,13 @@ __host__ bool cluster_shape_ok(int T, int C, int tpb, int threads, int smem) {
   return threads == tpb * 64 && smem == tpb * (TILE * 4 + NB_BYTES) + TILE * 4;
 }
 
-// The host work of a cluster launch done once a process: the kernel's
+// Host state of the launches below, kept per device (a function attribute
+// is set in the current device's context) and shared by the threads that
+// launch at once (the sharded step's): taken under this lock.
+std::mutex host_state;
+constexpr int MAX_DEVICES = 64;
+
+// The host work of a cluster launch done once a device: the kernel's
 // attribute for the non-portable cluster size (its shared memory, at most
 // 16 * 2096 + 2048 B, needs none) and, per distinct shape, the occupancy
 // query that refuses a cluster the card cannot hold (-1). Shapes are few
@@ -226,15 +234,13 @@ int launch_cluster(const float* p0, const float* div, const int* nbr, const floa
                    float* p, int T, int C, int tpb, int threads, int smem, int iterations,
                    float omega, float dx2, cudaStream_t stream) {
   auto kernel = rbsor_cluster_kernel<MASKED>;
-  static bool attributes_set = false;
+  static bool attributes_set[MAX_DEVICES] = {};
   static int fits[64][4];  // (device, C, threads, smem) of the shapes found to fit
   static int n_fits = 0;
-  cudaError_t e = cudaSuccess;
-  if (!attributes_set) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    attributes_set = true;
-  }
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C);
   cfg.blockDim = dim3(threads);
@@ -247,20 +253,25 @@ int launch_cluster(const float* p0, const float* div, const int* nbr, const floa
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int dev = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  bool known = false;
-  for (int i = 0; i < n_fits && !known; ++i)
-    known = fits[i][0] == dev && fits[i][1] == C && fits[i][2] == threads && fits[i][3] == smem;
-  if (!known) {
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (clusters < 1) return -1;  // the card cannot hold one such cluster: refused
-    if (n_fits < 64) {
-      fits[n_fits][0] = dev, fits[n_fits][1] = C, fits[n_fits][2] = threads;
-      fits[n_fits][3] = smem, ++n_fits;
+  {
+    std::lock_guard<std::mutex> lock(host_state);
+    if (!attributes_set[dev]) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return (int)e;
+      attributes_set[dev] = true;
+    }
+    bool known = false;
+    for (int i = 0; i < n_fits && !known; ++i)
+      known = fits[i][0] == dev && fits[i][1] == C && fits[i][2] == threads && fits[i][3] == smem;
+    if (!known) {
+      int clusters = 0;
+      e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      if (clusters < 1) return -1;  // the card cannot hold one such cluster: refused
+      if (n_fits < 64) {
+        fits[n_fits][0] = dev, fits[n_fits][1] = C, fits[n_fits][2] = threads;
+        fits[n_fits][3] = smem, ++n_fits;
+      }
     }
   }
   e = cudaLaunchKernelEx(&cfg, kernel, p0, div, nbr, mask, p, T, tpb, iterations, omega, dx2);
@@ -328,21 +339,26 @@ extern "C" int hn_rbsor_fused(const void* p0, const void* div, const void* nbr,
   // the resident blocks, found once a device: at most 4 an SM, since fewer
   // blocks meet at each grid barrier (on the H100 4 ran faster at T = 1024
   // and 2048 than the 8 that fit, and than 2)
-  static int resident_dev = -1, resident = 0;
+  static int resident_of[hn::MAX_DEVICES] = {};  // 0: not found yet
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev != resident_dev) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hn::rbsor_fused_kernel,
-                                                        hn::HALF, 0);
-    if (e == cudaSuccess) {
-      resident = (per_sm < hn::GRID_BLOCKS_PER_SM ? per_sm : hn::GRID_BLOCKS_PER_SM) * sms;
-      resident_dev = dev;
-    }
-  }
   if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= hn::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int resident = 0;
+  {
+    std::lock_guard<std::mutex> lock(hn::host_state);
+    if (resident_of[dev] == 0) {
+      int sms = 0, per_sm = 0;
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hn::rbsor_fused_kernel,
+                                                          hn::HALF, 0);
+      if (e != cudaSuccess) return (int)e;
+      resident_of[dev] =
+          (per_sm < hn::GRID_BLOCKS_PER_SM ? per_sm : hn::GRID_BLOCKS_PER_SM) * sms;
+    }
+    resident = resident_of[dev];
+  }
   const int grid = resident < T ? resident : T;
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a_p0, &a_div, &a_nbr, &a_mask, &a_p, &T, &iterations, &omega, &dx2};

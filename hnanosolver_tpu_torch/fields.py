@@ -61,15 +61,16 @@ class FieldState:
 def zeros_state(
     topo: Topology,
     scalar_names=("density", "temperature", "fuel", "waste", "flame"),
+    dtype: torch.dtype = torch.float32,
 ) -> FieldState:
     """Zero state on the topology's device. The four combustion fields must
     exist even for pure smoke (the full step reads them)."""
     T = topo.capacity
     dev = topo.device
     return FieldState(
-        velocity=torch.zeros((3, T, TILE), dtype=torch.float32, device=dev),
+        velocity=torch.zeros((3, T, TILE), dtype=dtype, device=dev),
         scalars={
-            n: torch.zeros((T, TILE), dtype=torch.float32, device=dev)
+            n: torch.zeros((T, TILE), dtype=dtype, device=dev)
             for n in scalar_names
         },
     )

@@ -26,6 +26,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -103,12 +104,21 @@ def block_threads(instance: str) -> Optional[int]:
     return BLOCK_THREADS.get(kernel)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 @dataclasses.dataclass
 class LaunchCount:
-    """Kernel launches made by one wrapper (only where it launches)."""
+    """Kernel launches made by one wrapper (only where it launches). The
+    sharded step launches from several threads, so :meth:`add` takes a
+    lock (``n += 1`` is a read-modify-write)."""
 
     name: str
     n: int = 0
+
+    def add(self) -> None:
+        with _COUNT_LOCK:
+            self.n += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,9 +263,18 @@ def build() -> BuildInfo:
     return BuildInfo(lib, seconds, log)
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use in this process)."""
+    """The loaded kernel library (built on first use in this process; the
+    sharded step's threads build and load it once)."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -69,6 +69,9 @@ def collider_step(topo: Topology, state: FieldState, params: SolverParams,
     return step(topo, state, params, hierarchy)
 
 
+collider_step_donated = collider_step  # donation is an XLA buffer concept (solver.step_donated)
+
+
 def collider_tiles(col: ColliderConfig, frame: int, dt: float,
                    shell: float = 2.0) -> np.ndarray:
     """Tile coords overlapping the collider's boundary shell at ``frame``,
@@ -95,8 +98,8 @@ def run_collider(
     state: Optional[FieldState] = None,
     grow_every: int = 1,
     on_frame=None,
-    device: torch.device | str | None = None,
     interrupter=None,
+    device: torch.device | str | None = None,
 ):
     """Frame loop with the animated SDF and collision on: step, then every
     ``grow_every`` frames (0: never) re-activate the topology, keeping the

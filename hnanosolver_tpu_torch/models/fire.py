@@ -100,6 +100,9 @@ def fire_step(topo: Topology, state: FieldState, params: SolverParams, cfg: Fire
     return step(topo, emit(topo, state, cfg, params.dt), params, hierarchy)
 
 
+fire_step_donated = fire_step  # donation is an XLA buffer concept (solver.step_donated)
+
+
 def run_fire(frames: int, params: Optional[SolverParams] = None,
              cfg: Optional[FireConfig] = None, topo: Optional[Topology] = None,
              state: Optional[FieldState] = None, grow_every: int = 1, on_frame=None,

@@ -104,6 +104,9 @@ def plume_step(topo: Topology, state: FieldState, params: SolverParams,
     return step(topo, emit(topo, state, cfg, params.dt), params, hierarchy)
 
 
+plume_step_donated = plume_step  # donation is an XLA buffer concept (solver.step_donated)
+
+
 def run_plume(
     frames: int,
     params: Optional[SolverParams] = None,
@@ -112,8 +115,8 @@ def run_plume(
     state: Optional[FieldState] = None,
     grow_every: int = 1,
     on_frame=None,
-    device: torch.device | str | None = None,
     interrupter=None,
+    device: torch.device | str | None = None,
 ):
     """Frame loop: step, then every ``grow_every`` frames (0: never)
     re-activate the topology around the matter, keeping the emitter's

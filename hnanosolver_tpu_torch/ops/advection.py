@@ -64,6 +64,9 @@ INTERP: Optional[str] = None
 TABLE_BYTES_BUDGET = 2 * 1024 ** 3
 
 BANDS = collections.Counter()  # passes per branch of the table sampler
+# The JAX package's default map chunk (tiles), the ``chunk`` parameter the
+# entry points accept and ignore
+DEFAULT_CHUNK = 1024
 
 
 def cfl_clamped_count(topo, vel: torch.Tensor, dt: float, inv_dx: float) -> torch.Tensor:
@@ -215,12 +218,17 @@ def advect_scalars_fused(
     dt: float,
     inv_dx: float,
     sdf: Optional[torch.Tensor] = None,
+    chunk: int = DEFAULT_CHUNK,
     trace_order: int = 1,
+    fast="strict",
 ) -> Dict[str, torch.Tensor]:
     """BFECC-advect every scalar field by ``vel [3,T,512]``, sharing trace
     corners across fields (fields taken in sorted-name order). The scalars
     go in batches of at most ``cuda_bfecc.MAX_SCALARS`` (B1's limit); each
-    batch samples the velocity again, which gives the same samples."""
+    batch samples the velocity again, which gives the same samples.
+    ``chunk`` and ``fast`` are the JAX package's TPU knobs (its map chunk
+    and its dot-precision tier), accepted and ignored: the port samples in
+    f32 over every row at once."""
     if not scalars:
         return {}
     names = sorted(scalars)
@@ -237,9 +245,12 @@ def advect_scalars_fused(
 
 
 def advect_scalar(topo, vel: torch.Tensor, field: torch.Tensor, dt: float, inv_dx: float,
-                  sdf: Optional[torch.Tensor] = None, trace_order: int = 1) -> torch.Tensor:
-    """Single-field BFECC advection (the standalone HNanoAdvect node path)."""
-    return advect_scalars_fused(topo, vel, {"f": field}, dt, inv_dx, sdf, trace_order)["f"]
+                  sdf: Optional[torch.Tensor] = None, chunk: int = DEFAULT_CHUNK,
+                  trace_order: int = 1) -> torch.Tensor:
+    """Single-field BFECC advection (the standalone HNanoAdvect node path);
+    ``chunk`` is ignored, as in :func:`advect_scalars_fused`."""
+    return advect_scalars_fused(topo, vel, {"f": field}, dt, inv_dx, sdf,
+                                trace_order=trace_order)["f"]
 
 
 def advect_velocity(
@@ -248,11 +259,14 @@ def advect_velocity(
     dt: float,
     inv_dx: float,
     sdf: Optional[torch.Tensor] = None,
+    chunk: int = DEFAULT_CHUNK,
     trace_order: int = 1,
+    fast="strict",
 ) -> torch.Tensor:
     """BFECC self-advection of velocity with per-component clamping and,
     with an SDF, the near-boundary no-slip tail (gated at 0.1, blended with
-    1 - sdf/1.5: a reference quirk kept)."""
+    1 - sdf/1.5: a reference quirk kept). ``chunk`` and ``fast`` are
+    ignored, as in :func:`advect_scalars_fused`."""
     vel = vel.contiguous()
     pf, pb = _bfecc_samples(topo, vel, dt * inv_dx, 0, sdf, trace_order)
     out = _bfecc_limit(topo, vel, pf, pb)

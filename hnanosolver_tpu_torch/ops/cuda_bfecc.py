@@ -66,7 +66,7 @@ def bfecc_sample(nbr: torch.Tensor, fields: torch.Tensor, sdt: float, f_lo: int,
             out.data_ptr(), T, nb, f_lo, float(sdt), DISP_LIMIT,
             build.stream_ptr(fields.device))
     build.check(code, "bfecc_sample")
-    launches.n += 1
+    launches.add()
     return out[0], out[1]
 
 
@@ -153,7 +153,7 @@ def bfecc_sample_dual(tbl: torch.Tensor, ldual: torch.Tensor, vd: torch.Tensor, 
                 nf, f_lo, n, int(mode == "back"), float(sdt), DISP_LIMIT,
                 build.stream_ptr(vd.device))
     build.check(code, "bfecc_sample_dual")
-    launches_dual.n += 1
+    launches_dual.add()
     return (out[:n], out[n:]) if mode == "both" else out
 
 

@@ -100,7 +100,7 @@ def rbsor_lagged(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor,
             p.data_ptr(), div.data_ptr(), nbr.data_ptr(), _ptr(mask), out.data_ptr(),
             T, int(pairs), float(omega), float(dx2), build.stream_ptr(p.device))
     build.check(code, "rbsor_lagged")
-    launches_lagged.n += 1
+    launches_lagged.add()
     return out
 
 
@@ -141,7 +141,7 @@ def rbsor_color(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor, color: in
             p.data_ptr(), div.data_ptr(), nbr.data_ptr(), _ptr(mask), T, int(color),
             float(omega), float(dx2), build.stream_ptr(p.device))
     build.check(code, "rbsor_color")
-    launches_color.n += 1
+    launches_color.add()
     return p
 
 
@@ -232,7 +232,7 @@ def _launch_fused(shape: FusedShape, nbr, div, iterations, omega, dx2, p0, mask)
                            f"x {shape.threads} threads with {shape.smem} B of shared memory "
                            "each (cudaOccupancyMaxActiveClusters = 0)")
     build.check(code, "rbsor_fused")
-    launches_fused.n += 1
+    launches_fused.add()
     return out
 
 

@@ -38,7 +38,7 @@ def _launch(entry: str, counter: build.LaunchCount, device, *args) -> None:
     with torch.cuda.device(device):
         code = getattr(build.library(), entry)(*args, build.stream_ptr(device))
     build.check(code, entry)
-    counter.n += 1
+    counter.add()
 
 
 def take_along_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

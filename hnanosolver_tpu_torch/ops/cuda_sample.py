@@ -42,7 +42,7 @@ def sample_at(nbr: torch.Tensor, fields: torch.Tensor, d: torch.Tensor) -> torch
                 fields[g].data_ptr(), d.data_ptr(), nbr.data_ptr(), out[g].data_ptr(), T, k,
                 build.stream_ptr(fields.device))
         build.check(code, "sample_at")
-        launches.n += 1
+        launches.add()
     return out
 
 

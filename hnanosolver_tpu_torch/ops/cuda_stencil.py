@@ -45,7 +45,7 @@ def residual(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor, dx: float) -
             p.data_ptr(), div.data_ptr(), nbr.data_ptr(), out.data_ptr(), T,
             float(dx) * float(dx), build.stream_ptr(p.device))
     build.check(code, "residual")
-    launches_residual.n += 1
+    launches_residual.add()
     return out
 
 
@@ -78,7 +78,7 @@ def divergence(nbr: torch.Tensor, vel: torch.Tensor, inv_dx: float) -> torch.Ten
             vel.data_ptr(), nbr.data_ptr(), out.data_ptr(), T, float(0.5 * inv_dx),
             build.stream_ptr(vel.device))
     build.check(code, "divergence")
-    launches_div.n += 1
+    launches_div.add()
     return out
 
 
@@ -111,7 +111,7 @@ def subtract_gradient(nbr: torch.Tensor, vel: torch.Tensor, p: torch.Tensor,
             vel.data_ptr(), p.data_ptr(), nbr.data_ptr(), out.data_ptr(), T,
             float(0.5 * inv_dx), build.stream_ptr(vel.device))
     build.check(code, "subtract_gradient")
-    launches_subgrad.n += 1
+    launches_subgrad.add()
     return out
 
 

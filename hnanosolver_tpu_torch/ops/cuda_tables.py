@@ -51,7 +51,7 @@ def build_table_dual_combine(tbl27: torch.Tensor, dloc: torch.Tensor, nf: int) -
             tbl27.data_ptr(), dloc.data_ptr(), out.data_ptr(), nc, Unf // nf, Ud, nf,
             build.stream_ptr(tbl27.device))
     build.check(code, "combine_dual")
-    launches.n += 1
+    launches.add()
     return out
 
 

@@ -36,7 +36,7 @@ def bfecc_tail(nbr: torch.Tensor, phi0s: torch.Tensor, pfs: torch.Tensor,
             phi0s.data_ptr(), pfs.data_ptr(), pbs.data_ptr(), nbr.data_ptr(),
             out.data_ptr(), F, T, build.stream_ptr(phi0s.device))
     build.check(code, "bfecc_tail")
-    launches.n += 1
+    launches.add()
     return out
 
 

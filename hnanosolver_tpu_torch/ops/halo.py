@@ -53,6 +53,35 @@ def gather_halo(topo, field: torch.Tensor, radius: int = 1,
     return pad
 
 
+def face_shift_views(topo, field: torch.Tensor) -> dict:
+    """The six +-1 face-shifted views of a block-layout field
+    ``[T, 8, 8, 8, *ch]`` without a padded buffer: each view is the in-tile
+    slice joined to the face plane gathered from the neighbour tile.
+    Returns ``{(dx, dy, dz): view}``, views shaped like ``field``."""
+    nbr = topo.nbr.long()
+    out = {}
+    for axis in range(3):
+        for step in (1, -1):
+            off = tuple(step if a == axis else 0 for a in range(3))
+            d = (off[0] + 1) * 9 + (off[1] + 1) * 3 + (off[2] + 1)
+            ax = axis + 1
+            if step == 1:  # i = 7 reads the +axis neighbour's plane 0
+                inner = field.narrow(ax, 1, 7)
+                face = field.narrow(ax, 0, 1).index_select(0, nbr[:, d])
+                out[off] = torch.cat([inner, face], ax)
+            else:  # i = 0 reads the -axis neighbour's plane 7
+                inner = field.narrow(ax, 0, 7)
+                face = field.narrow(ax, 7, 1).index_select(0, nbr[:, d])
+                out[off] = torch.cat([face, inner], ax)
+    return out
+
+
+def center(pad: torch.Tensor) -> torch.Tensor:
+    """The un-padded 8^3 interior of a halo array (any radius)."""
+    r = (pad.shape[1] - 8) // 2
+    return pad[:, r:r + 8, r:r + 8, r:r + 8]
+
+
 def shift(pad: torch.Tensor, dx: int, dy: int, dz: int) -> torch.Tensor:
     """Neighbour view at integer offset (dx, dy, dz), each within the halo
     radius: ``shift(pad, 1, 0, 0)[t, i, j, k]`` is the field at the voxel

@@ -13,15 +13,22 @@ device. Counterpart of ``hnanosolver_tpu/ops/multigrid.py``:
   all of its 2^3 fine voxels are).
 
 The hierarchy is built in host numpy and moved to the fine topology's
-device once. The JAX package's sharded hooks (``refresh``,
-``coarse_reduce``, ``tol_reduce``) belong to the multi-GPU port and are not
-here.
+device once.
+
+The sharded step (``parallel/slab.py``) shards only the fine level and
+replicates the coarse levels on every device, through three hooks in the
+JAX package's places: ``refresh`` (the ghost exchange, in the fine-level
+smoothers and before the fine residual; the smoothers then run textbook
+colour sweeps), ``coarse_reduce`` (sums the devices' partial level-1
+restrictions of their owned rows) and ``tol_reduce`` (the mesh-wide
+``max|.|`` of the ``tol`` stop, so that every device stops on the same
+cycle).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import threading
 from typing import List
 
 import numpy as np
@@ -132,12 +139,19 @@ def _lane_tables():
     return down, assemble, idx_oct, q[None, :] * 512 + idx_oct
 
 
-@functools.lru_cache(maxsize=None)
+_LANES: dict = {}
+_LANES_LOCK = threading.Lock()  # the sharded step's threads build them once
+
+
 def _lanes(device: torch.device):
     """The lane tables as int64 tensors on ``device`` (built once per
     device: (down [64], assemble [512], oct [8,512], oct_q [8,512]))."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
-                 for a in _lane_tables())
+    with _LANES_LOCK:
+        if device not in _LANES:
+            _LANES[device] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+                for a in _lane_tables())
+        return _LANES[device]
 
 
 def restrict(level: MGLevel, fine: torch.Tensor) -> torch.Tensor:
@@ -177,9 +191,11 @@ def _land(level: MGLevel, src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def prolong(level: MGLevel, coarse: torch.Tensor) -> torch.Tensor:
+def prolong(level: MGLevel, coarse: torch.Tensor,
+            fine_capacity: int | None = None) -> torch.Tensor:
     """[Tc,512] -> [Tf,512]: each fine tile's 4^3 octant of its parent,
-    upsampled 2x (piecewise constant)."""
+    upsampled 2x (piecewise constant). ``fine_capacity`` (the JAX
+    package's parameter) is not needed: ``level.parent`` has Tf rows."""
     return _land(level, coarse, _lanes(coarse.device)[2])
 
 
@@ -216,6 +232,8 @@ def v_cycle(
     n_coarsest: int = 24,
     prolongation: str = "trilinear",
     mask: torch.Tensor | None = None,
+    refresh=None,
+    coarse_reduce=None,
     smooth_lag: bool | str = "pair",
 ) -> torch.Tensor:
     """One V-cycle recursing down ``hierarchy``. ``mask`` is THIS level's
@@ -224,8 +242,11 @@ def v_cycle(
     ``smooth_lag``: the smoothers' halo granularity above MAX_FUSED_ROWS
     tiles: "pair" (default) one lagged B3 block per red+black pair; True
     one block of ``n_pre`` (``n_post``) pairs per smoothing call; False
-    textbook per-colour sweeps (B4)."""
-    if not smooth_lag:
+    textbook per-colour sweeps (B4). ``refresh`` (this level's ghost
+    exchange) makes the smoothers textbook with a refresh before each
+    colour sweep, and runs before the residual; ``coarse_reduce`` combines
+    the level-1 restriction. Neither goes down to the coarse levels."""
+    if refresh is not None or not smooth_lag:
         lag = {}
     elif smooth_lag == "pair":
         lag = {"pair_blocks": True}
@@ -234,19 +255,26 @@ def v_cycle(
     if not hierarchy:
         # the coarsest call is a solve, not a smoother: halos stay fresh
         # (pair granularity, or lag 4 in the True mode)
-        if smooth_lag == "pair":
+        if refresh is None and smooth_lag == "pair":
             ck = {"pair_blocks": True}
-        elif smooth_lag is True and n_coarsest % 4 == 0:
+        elif refresh is None and smooth_lag is True and n_coarsest % 4 == 0:
             ck = {"halo_lag": 4}
         else:
             ck = {}
-        return prs.solve_pressure(topo, div, n_coarsest, dx, omega, p0=p, mask=mask, **ck)
+        return prs.solve_pressure(topo, div, n_coarsest, dx, omega, p0=p, mask=mask,
+                                  refresh=refresh, **ck)
     lvl = hierarchy[0]
-    p = prs.solve_pressure(topo, div, n_pre, dx, omega, p0=p, mask=mask, **lag)
+    p = prs.solve_pressure(topo, div, n_pre, dx, omega, p0=p, mask=mask, refresh=refresh,
+                           **lag)
+    if refresh is not None:
+        p = refresh(p)
     r = prs.residual(topo, p, div, dx)
     if mask is not None:
         r = r * mask
-    rc = restrict(lvl, r) * lvl.mask
+    rc = restrict(lvl, r)
+    if coarse_reduce is not None:
+        rc = coarse_reduce(rc)
+    rc = rc * lvl.mask
     ec = v_cycle(lvl.topo, hierarchy[1:], rc, torch.zeros_like(rc), dx * 2.0, omega,
                  n_pre, n_post, n_coarsest, prolongation, lvl.mask, smooth_lag=smooth_lag)
     if prolongation == "trilinear":
@@ -255,7 +283,8 @@ def v_cycle(
         p = p + prolong(lvl, ec)
     if lag.get("halo_lag") is not None:
         lag["halo_lag"] = n_post
-    return prs.solve_pressure(topo, div, n_post, dx, omega, p0=p, mask=mask, **lag)
+    return prs.solve_pressure(topo, div, n_post, dx, omega, p0=p, mask=mask, refresh=refresh,
+                              **lag)
 
 
 def fmg_initial_guess(
@@ -269,13 +298,22 @@ def fmg_initial_guess(
     n_coarsest: int = 24,
     prolongation: str = "trilinear",
     smooth_lag: bool | str = "pair",
+    refresh=None,
+    coarse_reduce=None,
 ) -> torch.Tensor:
     """Full-multigrid (nested-iteration) initial guess: restrict the RHS to
     every level, solve the coarsest, then per level prolong the solution up
-    and refine it with one V-cycle at that level."""
+    and refine it with one V-cycle at that level. Sharded, the level-0 to 1
+    restriction goes through ``coarse_reduce`` and only the last (fine)
+    V-cycle takes ``refresh``; the prolongation to level 0 needs no
+    refresh (each device's parent map covers its ghost rows, and the
+    coarse solution is replicated)."""
     divs = [div]
-    for lvl in hierarchy:
-        divs.append(restrict(lvl, divs[-1]) * lvl.mask)
+    for i, lvl in enumerate(hierarchy):
+        r = restrict(lvl, divs[-1])
+        if i == 0 and coarse_reduce is not None:
+            r = coarse_reduce(r)
+        divs.append(r * lvl.mask)
     last = hierarchy[-1]
     p = prs.solve_pressure(last.topo, divs[-1], n_coarsest, dx * (2.0 ** len(hierarchy)),
                            omega, mask=last.mask)
@@ -287,7 +325,10 @@ def fmg_initial_guess(
         if m_k is not None:
             p = p * m_k
         p = v_cycle(t_k, hierarchy[k:], divs[k], p, dx * (2.0 ** k), omega,
-                    n_pre, n_post, n_coarsest, prolongation, m_k, smooth_lag=smooth_lag)
+                    n_pre, n_post, n_coarsest, prolongation, m_k,
+                    refresh=refresh if k == 0 else None,
+                    coarse_reduce=coarse_reduce if k == 0 else None,
+                    smooth_lag=smooth_lag)
     return p
 
 
@@ -299,13 +340,20 @@ def solve_pressure_mg(
     dx: float,
     omega: float = 1.0,
     tol: float | None = None,
+    refresh=None,
+    coarse_reduce=None,
     fmg: bool = False,
+    tol_reduce=None,
     **kw,
 ) -> torch.Tensor:
     """``cycles`` V-cycles from a zero initial guess (or the FMG guess with
     ``fmg=True``). With ``tol`` set, cycling stops once ``max|r| <= tol *
     max|div|`` (``cycles`` is then the cap); the test reads one scalar back
-    to the host per cycle."""
+    to the host per cycle. ``tol_reduce(field) -> scalar tensor`` replaces
+    ``max|.|`` in that test (sharded: the mesh-wide max over owned rows,
+    the same on every device); ``refresh`` runs before each residual."""
+    kw["refresh"] = refresh
+    kw["coarse_reduce"] = coarse_reduce
     if fmg and hierarchy:
         p = fmg_initial_guess(
             topo, hierarchy, div, dx, omega,
@@ -313,6 +361,7 @@ def solve_pressure_mg(
             n_coarsest=kw.get("n_coarsest", 24),
             prolongation=kw.get("prolongation", "trilinear"),
             smooth_lag=kw.get("smooth_lag", "pair"),
+            refresh=refresh, coarse_reduce=coarse_reduce,
         )
     else:
         p = torch.zeros_like(div)
@@ -321,10 +370,14 @@ def solve_pressure_mg(
             p = v_cycle(topo, hierarchy, div, p, dx, omega, **kw)
         return p
 
-    limit = tol * torch.clamp(div.abs().max(), min=1e-30)
+    if tol_reduce is None:
+        def tol_reduce(a):
+            return a.abs().max()
+    limit = tol * torch.clamp(tol_reduce(div), min=1e-30)
 
     def above_tol(p) -> bool:
-        return bool(prs.residual(topo, p, div, dx).abs().max() > limit)
+        pr = refresh(p) if refresh is not None else p
+        return bool(tol_reduce(prs.residual(topo, pr, div, dx)) > limit)
 
     i = 0
     while i < cycles and above_tol(p):

@@ -9,10 +9,14 @@ reads are background 0 (Dirichlet p = 0 on the sparse boundary).
 ``solve_pressure`` dispatches as the JAX package's TPU ("pallas") branch
 does (``hnanosolver_tpu/ops/pressure.py:69-109``), in this order:
 
-1. T <= ``MAX_FUSED_ROWS``: the whole textbook solve in one launch (B5).
-2. ``halo_lag > 1`` or ``pair_blocks``: ``iterations // halo_lag`` lagged
+1. a ``refresh`` hook (the sharded step's ghost exchange) or
+   ``backend="xla"``: the textbook solve as one B4 launch per colour sweep,
+   ``refresh(p)`` before each sweep; ``halo_lag`` is ignored (JAX
+   ``pressure.py:106-126``).
+2. T <= ``MAX_FUSED_ROWS``: the whole textbook solve in one launch (B5).
+3. ``halo_lag > 1`` or ``pair_blocks``: ``iterations // halo_lag`` lagged
    blocks (B3); the remainder as textbook colour sweeps (B4).
-3. otherwise the textbook solve as one B4 launch per colour sweep.
+4. otherwise the textbook solve as one B4 launch per colour sweep.
 
 ``mask`` (multigrid coarse levels) is the in-domain voxel mask: ``p``
 enters multiplied by it and voxels outside it never update.
@@ -32,22 +36,29 @@ def solve_pressure(
     dx: float,
     omega: float,
     p0: torch.Tensor | None = None,
+    backend: str | None = None,
+    refresh=None,
+    mask: torch.Tensor | None = None,
     halo_lag: int = 1,
     pair_blocks: bool = False,
-    mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Run ``iterations`` red+black SOR pairs from p0 (zeros by default).
-    div, p: [T,512]. Returns a new tensor."""
+    div, p: [T,512]. Returns a new tensor. ``backend``: None or "pallas"
+    (the dispatch above), "xla" (the textbook per-colour solve). ``refresh``:
+    ghost-row exchange applied to p before every colour sweep."""
     if halo_lag < 1:
         raise ValueError(f"halo_lag must be >= 1, got {halo_lag}")
+    if backend not in (None, "pallas", "xla"):
+        raise ValueError(f"backend must be None, 'pallas' or 'xla', got {backend!r}")
     dx2 = dx * dx
-    if div.shape[0] <= cuda_pressure.MAX_FUSED_ROWS:
+    textbook = refresh is not None or backend == "xla"
+    if not textbook and div.shape[0] <= cuda_pressure.MAX_FUSED_ROWS:
         return cuda_pressure.rbsor_fused(topo.nbr, div, iterations, omega, dx2,
                                          p0=p0, mask=mask)
     p = torch.zeros_like(div) if p0 is None else p0
     if mask is not None:
         p = p * mask
-    blocks = iterations // halo_lag if halo_lag > 1 or pair_blocks else 0
+    blocks = iterations // halo_lag if not textbook and (halo_lag > 1 or pair_blocks) else 0
     for _ in range(blocks):
         p = cuda_pressure.rbsor_lagged(topo.nbr, p, div, halo_lag, omega, dx2, mask)
     rem = iterations - blocks * halo_lag
@@ -55,6 +66,8 @@ def solve_pressure(
         p = p.clone()  # the colour sweeps update in place
     for _ in range(rem):
         for color in (0, 1):
+            if refresh is not None:
+                p = refresh(p)
             p = cuda_pressure.rbsor_color(topo.nbr, p, div, color, omega, dx2, mask)
     return p
 

@@ -52,6 +52,19 @@ def shifted_view_nbr(nbr: torch.Tensor, f: torch.Tensor, off) -> torch.Tensor:
                        torch.roll(n, s_fix, -1), torch.roll(f, s_in, -1))
 
 
+def shifted_views(topo, f: torch.Tensor, dirs=FACE_DIRS) -> Dict[tuple, torch.Tensor]:
+    """``{off: shifted_view(topo, f, off)}`` for each direction of ``dirs``."""
+    return {off: shifted_view(topo, f, off) for off in dirs}
+
+
+def face_minmax_multi(topo, fields: torch.Tensor):
+    """Per-voxel (min, max) over the six face-shifted views of F stacked
+    fields ``[F,T,512]`` (the JAX package's plane-gather form computes the
+    same values)."""
+    views = face_views_multi(topo, fields)
+    return views.amin(0), views.amax(0)
+
+
 def face_views_multi(topo, fields: torch.Tensor) -> torch.Tensor:
     """All six face-shifted views of F stacked fields: ``[F,T,512]`` ->
     ``[6,F,T,512]`` in FACE_DIRS order."""
@@ -99,6 +112,18 @@ def offset_view(topo, f: torch.Tensor, off) -> torch.Tensor:
     idx = topo.nbr[:, d].long() * TILE + lane  # [T, 512]
     flat = f.reshape(*f.shape[:-2], T * TILE)
     return flat[..., idx.reshape(-1)].reshape(f.shape)
+
+
+def neighbor_table(topo, f: torch.Tensor) -> torch.Tensor:
+    """``[T, 27*512]``: every tile's 3x3x3 neighbourhood values, entry
+    ``d*512 + col`` with d the ``nbr`` column."""
+    T = f.shape[0]
+    return f.index_select(0, topo.nbr.reshape(-1)).reshape(T, 27 * TILE)
+
+
+def gather_table(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched in-row gather: table ``[T, 13824]``, idx ``[T,512]`` -> ``[T,512]``."""
+    return torch.gather(table, 1, idx.long())
 
 
 def table_index(cx, cy, cz):

@@ -51,11 +51,24 @@ def _require_combustion_fields(state: FieldState):
         raise ValueError(f"missing required combustion fields: {missing}")
 
 
+def _identity(f):
+    return f
+
+
 def step_impl(topo: Topology, state: FieldState, params: SolverParams,
-              hierarchy: tuple = ()) -> FieldState:
+              hierarchy: tuple = (), refresh=_identity, coarse_reduce=None,
+              tol_reduce=None) -> FieldState:
     """One full simulation step on the topology's device. Pure function:
     state in, new state out. ``hierarchy``: coarse levels from
-    ``ops.multigrid.hierarchy_for`` when ``params.pressure_solver == "mg"``."""
+    ``ops.multigrid.hierarchy_for`` when ``params.pressure_solver == "mg"``.
+
+    ``refresh`` is the ghost-exchange hook of the sharded step
+    (``parallel/slab.py``), applied right before each op that reads
+    cross-tile neighbours, at the JAX package's points; the caller hands in
+    ghost-fresh ``state``. On one device it is the identity, and the solvers
+    are then given None, which keeps B5 and the B3 blocks (a refresh runs
+    the textbook colour sweeps). ``coarse_reduce`` and ``tol_reduce`` go to
+    the multigrid solver (``ops/multigrid.solve_pressure_mg``)."""
     _require_combustion_fields(state)
     c = params.combustion
     inv_dx = params.inv_voxel_size
@@ -64,11 +77,11 @@ def step_impl(topo: Topology, state: FieldState, params: SolverParams,
     sdf = state.sdf() if params.has_collision else None
     vel = state.velocity
     if sdf is not None:
-        vel = col.enforce_collision(topo, vel, sdf, inv_dx)
+        vel = refresh(col.enforce_collision(topo, vel, sdf, inv_dx))
 
-    u_star = adv.advect_velocity(topo, vel, dt, inv_dx, sdf)
-    u_star = stn.vorticity_confinement(
-        topo, u_star, dt, inv_dx, c.vorticity_scale, c.factor_scale)
+    u_star = refresh(adv.advect_velocity(topo, vel, dt, inv_dx, sdf))
+    u_star = refresh(stn.vorticity_confinement(
+        topo, u_star, dt, inv_dx, c.vorticity_scale, c.factor_scale))
 
     div = stn.divergence(topo, u_star, inv_dx)
     fuel, waste, temp, flame, div = comb.combustion_oxygen(
@@ -79,26 +92,34 @@ def step_impl(topo: Topology, state: FieldState, params: SolverParams,
     u_star = comb.temperature_buoyancy(
         u_star, temp, dt, c.ambient_temp, c.buoyancy_strength)
 
+    div = refresh(div)
+    rf_solver = None if refresh is _identity else refresh
     # "mg" with an empty hierarchy runs the RBGS solve: the JAX package's
     # own semantics (hnanosolver_tpu/solver.py:128), not a fallback
     if params.pressure_solver == "mg" and hierarchy:
         p = mg.solve_pressure_mg(
             topo, list(hierarchy), div, params.iterations, params.voxel_size,
-            params.omega, tol=params.mg_tol, fmg=params.mg_fmg, n_pre=params.mg_pre,
+            params.omega, tol=params.mg_tol, refresh=rf_solver, coarse_reduce=coarse_reduce,
+            fmg=params.mg_fmg, tol_reduce=tol_reduce, n_pre=params.mg_pre,
             n_post=params.mg_post, n_coarsest=params.mg_coarsest)
     else:
         p = prs.solve_pressure(topo, div, params.iterations, params.voxel_size,
-                               params.omega, halo_lag=params.effective_halo_lag)
+                               params.omega, refresh=rf_solver,
+                               halo_lag=params.effective_halo_lag)
+    p = refresh(p)
+    u_star = refresh(u_star)
     vel_out = stn.subtract_pressure_gradient(topo, u_star, p, inv_dx)
     if sdf is not None:
         # the gradient subtraction's collision tail, then the reference's
         # second enforceCollisionBoundaries launch
         vel_out = col.enforce_collision(topo, vel_out, sdf, inv_dx)
         vel_out = col.enforce_collision(topo, vel_out, sdf, inv_dx)
+    vel_out = refresh(vel_out)
 
     to_advect = dict(state.scalars)
     to_advect.update(fuel=fuel, waste=waste, temperature=temp, flame=flame)
     sdf_in = to_advect.pop(COLLISION_FIELD, None)
+    to_advect = {k: refresh(v) for k, v in to_advect.items()}
     advected = adv.advect_scalars_fused(topo, vel_out, to_advect, dt, inv_dx, sdf)
     if sdf_in is not None:
         advected[COLLISION_FIELD] = sdf_in  # preserved, not zeroed
@@ -106,6 +127,9 @@ def step_impl(topo: Topology, state: FieldState, params: SolverParams,
 
 
 step = step_impl
+# The JAX package's frame-loop form donates the input state's buffers to
+# XLA; donation is an XLA buffer concept, so here it is the plain step.
+step_donated = step_impl
 
 
 def advect_scalars(topo: Topology, vel: torch.Tensor, scalars: Dict[str, torch.Tensor],

@@ -9,8 +9,12 @@ movement or a single add, so every comparison is exact: integer outputs
 bitwise, float outputs equal. Lookups get out-of-range coords and the
 sentinel origins of the null and padding rows (``1 << 20``), which must not
 alias a valid key; the CFL count gets velocities on both sides of its
-trigger, 2*|u|*dt/dx = DISP_LIMIT.
+trigger, 2*|u|*dt/dx = DISP_LIMIT. The public signatures are held to
+JAX's (positional order, keywords), and the names the port gained for that
+parity (``ops/shifts``, ``ops/halo``, ``core/topology``) to JAX's values.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -300,3 +304,166 @@ def test_check_determinism():
         return s.with_scalar("density", s.scalars["density"] + len(calls))
     with pytest.raises(AssertionError):
         tdbg.check_determinism(drifting, ts)
+
+
+# The JAX package's public functions the port leaves out, with the reason
+# (ROADMAP "Not to port").
+NOT_PORTED = {("ops.pressure", "jacobi_pressure"): "neither package calls it"}
+
+
+def _common_modules():
+    """(relative name, JAX module, port module) for every module both
+    packages define."""
+    import importlib
+    import pkgutil
+
+    def names(pkg):
+        return {m.name[len(pkg.__name__) + 1:]
+                for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+
+    for rel in sorted(names(jpkg) & names(tpkg)):
+        yield (rel, importlib.import_module(f"{jpkg.__name__}.{rel}"),
+               importlib.import_module(f"{tpkg.__name__}.{rel}"))
+
+
+def _jax_public_functions(mod):
+    """name -> the function behind each public name that ``mod`` defines
+    (through ``jax.jit``'s wrapper), re-exports left out."""
+    import inspect
+
+    out = {}
+    for name, obj in vars(mod).items():
+        fn = getattr(obj, "__wrapped__", obj)
+        if (not name.startswith("_") and inspect.isfunction(fn)
+                and fn.__module__ == mod.__name__):
+            out[name] = fn
+    return out
+
+
+def _signature_mismatches() -> tuple[list, int]:
+    import inspect
+
+    positional = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    bad, checked = [], 0
+    for rel, jmod, tmod in _common_modules():
+        for name, jfn in _jax_public_functions(jmod).items():
+            if (rel, name) in NOT_PORTED:
+                continue
+            tfn = getattr(tmod, name, None)
+            if tfn is None:
+                bad.append(f"{rel}.{name}: missing")
+                continue
+            jps = inspect.signature(jfn).parameters.values()
+            tps = inspect.signature(tfn).parameters.values()
+            jpos = [p.name for p in jps if p.kind in positional]
+            tpos = [p.name for p in tps if p.kind in positional]
+            if tpos[:len(jpos)] != jpos:
+                bad.append(f"{rel}.{name}: positional {jpos} vs {tpos}")
+            if not any(p.kind == p.VAR_KEYWORD for p in tps):
+                tnames = {p.name for p in tps}
+                missing = [p.name for p in jps if p.kind != p.VAR_POSITIONAL
+                           and p.kind != p.VAR_KEYWORD and p.name not in tnames]
+                if missing:
+                    bad.append(f"{rel}.{name}: keywords {missing} rejected")
+            checked += 1
+    return bad, checked
+
+
+@pytest.mark.parametrize("case", ["signatures", "advect_scalar_chunk", "solve_pressure_xla"])
+def test_public_signatures_match_jax(case, monkeypatch):
+    """A JAX-shaped call binds the same parameters on the port.
+
+    - signatures: for every public function of a module both packages
+      define, JAX's positional names are a prefix of the port's and every
+      JAX keyword is accepted (``NOT_PORTED`` aside).
+    - advect_scalar_chunk: the positional ``advect_scalar(..., None, 1024)``
+      is JAX's chunk 1024 at trace order 1: bitwise the order-1 call (not
+      the RK4 a mis-bound ``trace_order=1024`` would run).
+    - solve_pressure_xla: ``backend="xla"`` (7th positional) is the
+      textbook per-colour solve whatever ``halo_lag`` says, also above
+      MAX_FUSED_ROWS: equal to JAX's CPU solve within 1e-6 * max|ref|
+      (tests/test_torch_pressure.py's allowance, for XLA's FMAs)."""
+    from hnanosolver_tpu.ops import pressure as jprs
+    from hnanosolver_tpu_torch.ops import advection as tadv
+    from hnanosolver_tpu_torch.ops import cuda_pressure as tcp
+    from hnanosolver_tpu_torch.ops import pressure as tprs
+
+    if case == "signatures":
+        bad, checked = _signature_mismatches()
+        assert not bad, "\n".join(bad)
+        assert checked > 150
+        return
+    jt, tt = _pair("sparse_random")
+    rng = np.random.default_rng(11)
+    m = np.asarray(jtopo.active_mask(jt))[:, None]
+    if case == "advect_scalar_chunk":
+        vel = torch.from_numpy((rng.standard_normal((3, tt.capacity, 512)) * 20 * m[None])
+                               .astype(np.float32))
+        f = torch.from_numpy((rng.random((tt.capacity, 512)) * m).astype(np.float32))
+        args = (tt, vel, f, 0.1, 2.0)
+        got = tadv.advect_scalar(*args, None, 1024)
+        assert torch.equal(got, tadv.advect_scalar(*args, trace_order=1))
+        assert not torch.equal(got, tadv.advect_scalar(*args, trace_order=4))
+        return
+    monkeypatch.setattr(tcp, "MAX_FUSED_ROWS", 16)  # B3 blocks unless "xla"
+    div = (rng.standard_normal((tt.capacity, 512)) * m).astype(np.float32)
+    want = np.asarray(jprs.solve_pressure(jt, jnp.asarray(div), 10, 0.25, 1.17))
+    got = tprs.solve_pressure(tt, torch.from_numpy(div), 10, 0.25, 1.17, None, "xla",
+                              None, None, 5).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    lagged = tprs.solve_pressure(tt, torch.from_numpy(div), 10, 0.25, 1.17, halo_lag=5).numpy()
+    assert not np.array_equal(lagged, got)
+
+
+@pytest.mark.parametrize("name", ["shifted_views", "face_minmax_multi", "neighbor_table",
+                                  "face_shift_views", "center", "ensure_dual_local"])
+def test_thin_forms_match_jax(name):
+    """The names the port gained for parity (ops/shifts, ops/halo,
+    core/topology) give the JAX package's values: data movement and
+    min/max, so bitwise."""
+    from hnanosolver_tpu.ops import halo as jhalo
+    from hnanosolver_tpu.ops import shifts as jsh
+    from hnanosolver_tpu_torch.ops import halo as thalo
+    from hnanosolver_tpu_torch.ops import shifts as tsh
+
+    jt, tt = _pair("sparse_random")
+    rng = np.random.default_rng(12)
+    f = (rng.standard_normal((tt.capacity, 512)) * np.asarray(jtopo.active_mask(jt))[:, None]
+         ).astype(np.float32)
+    tf = torch.from_numpy(f)
+    if name == "shifted_views":
+        want, got = jsh.shifted_views(jt, jnp.asarray(f)), tsh.shifted_views(tt, tf)
+        assert set(got) == set(want)
+        for off in want:
+            _eq(got[off], want[off])
+    elif name == "face_minmax_multi":
+        stack = np.stack([f, -2 * f])
+        for g, w in zip(tsh.face_minmax_multi(tt, torch.from_numpy(stack)),
+                        jsh.face_minmax_multi(jt, jnp.asarray(stack))):
+            _eq(g, w)
+    elif name == "neighbor_table":
+        idx = rng.integers(0, 27 * 512, (tt.capacity, 512)).astype(np.int32)
+        table = tsh.neighbor_table(tt, tf)
+        _eq(table, jsh.neighbor_table(jt, jnp.asarray(f)))
+        _eq(tsh.gather_table(table, torch.from_numpy(idx)),
+            jsh.gather_table(jsh.neighbor_table(jt, jnp.asarray(f)), jnp.asarray(idx)))
+    elif name == "face_shift_views":
+        blocks = f.reshape(-1, 8, 8, 8)
+        want = jhalo.face_shift_views(jt, jnp.asarray(blocks))
+        got = thalo.face_shift_views(tt, torch.from_numpy(blocks))
+        assert set(got) == set(want)
+        for off in want:
+            _eq(got[off], want[off])
+    elif name == "center":
+        pad = jhalo.gather_halo(jt, jnp.asarray(f.reshape(-1, 8, 8, 8)), 2)
+        _eq(thalo.center(torch.from_numpy(np.array(pad))), jhalo.center(pad))
+    else:
+        planned = ttopo.build_topology(_tiles("sparse_random"), device="cpu", plans=True)
+        bare = dataclasses.replace(planned, chunk_dloc=None)
+        got = ttopo.ensure_dual_local(bare).chunk_dloc
+        assert torch.equal(got, planned.chunk_dloc)
+        jp = jtopo.build_topology(_tiles("sparse_random"))
+        _eq(got, jtopo.ensure_dual_local(jp).chunk_dloc)
+        assert ttopo.ensure_dual_local(planned) is planned
+        with pytest.raises(ValueError):
+            ttopo.ensure_dual_local(ttopo.build_topology(_tiles("sparse_random"), device="cpu"))
