@@ -183,15 +183,42 @@ exit). Each phase prints the seconds it took.
      thread a slab); config 5 over 4 slabs, RBGS-50, one step held the
      same ways (the one-device step computed first, its output kept on the
      host), its peak device memory beside the one-device step's record
-     scaled by the slabs' rows; over min(4, count) distinct cards where the
-     machine has two or more (the bench RBGS step), else a line saying it
-     was not made
+     scaled by the slabs' rows; B4 at the config-5 slab shape (131,072
+     rows, operands past the L2) a launch at a time beside its HBM bound;
+     the convergence chain: CHAIN_STEPS consecutive bench MG + FMG +
+     ``mg_tol`` steps over the 4 slabs beside the one-device chain, each
+     with exact launch counts, the same V-cycles as one device, max|r| <=
+     0.1 max|div| (every answer, by B6's plain version) and every field
+     bitwise; over min(4, count) distinct cards where the machine has two
+     or more (the bench RBGS step), else a line saying it was not made
+ 20. the dense oracle (``dense/``): on each of DENSE_BOXES (128^3: 4,096
+     tiles; 256^3: 32,768) covered exactly by ``build_topology_dense``,
+     tests/test_parity.py's smooth fields (numpy, seeded) with the velocity
+     scaled to a max CFL of DENSE_CFL (traces cross tile seams;
+     ``cfl_clamped_count`` 0 on the input and the projected velocity), one
+     ``solver.step`` through the kernels (exact launches: 2 B1, 2 B2, 2 B4 a
+     pressure iteration, B7a, B7b; null and padding rows 0) against one
+     ``step_dense`` on the card: at the JAX parity test's parameters (dt
+     0.2, 6 iterations) every field within TOL_DENSE_ABS, at the bench's (dt
+     1/24, dx 0.5, 50 iterations) within TOL_DENSE_REL of its max|.|, both
+     at halo_lag 1 and with and without config 3's vorticity confinement,
+     for the first of DENSE_SEEDS; the others run the vorticity case at the
+     test parameters. In every case the plain versions' step is gated the
+     same way, and each step and each distinct B1, B2, B4, B7a, B7b call at
+     these shapes is held against its plain version; printed only: the same
+     comparison at the bench default halo_lag 5 (B3 blocks), both steps' ms
+     and the peak device memory. Then the three user examples
+     (``hnanosolver_tpu_torch/examples/``) on the card at their default
+     widths as main paths: fireball 12 frames (its checkpoint and PNG, the
+     PNG the render of the checkpoint), smoke_to_nvdb 8 frames (three .nvdb
+     grids and a preview), view_and_export 2 frames (two .vdb files with the
+     same grids, its viewer on port 0 read over HTTP and shut down)
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
 their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
 14 B1d's, and the bench and config-5 steps'.
 
-Launch counts come only from the main-path runs (phases 4, 7-14, 16-19), each
+Launch counts come only from the main-path runs (phases 4, 7-14, 16-20), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
@@ -291,6 +318,17 @@ B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main pat
 SLABS, MG_TOL, MG_TOL_CAP = 4, 1e-3, 8
 SLAB_SWEEP = (1, 2, 4)  # slabs on one card of phase 19's sweep
 C5_STEP_PEAK_GIB = 27.16
+CHAIN_STEPS = 5  # phase 19: consecutive sharded MG + FMG + mg_tol steps
+# phase 20, the dense oracle: the boxes (voxels an edge), the traces' max CFL
+# (max|u| dt/dx: past a tile seam, below the clamp's 3.5), the JAX parity
+# test's absolute tolerance at its parameters and, at the bench's, a
+# tolerance relative to each field's max|.| (set in PERF.md section 6 before
+# the phase first ran on a card)
+DENSE_BOXES = (128, 256)
+DENSE_SEEDS = (SEED, 1, 2, 3, 4)  # the first runs every case, the rest the vorticity test case
+DENSE_CFL = 2.0
+TOL_DENSE_ABS = 2e-4
+TOL_DENSE_REL = 1e-4
 
 
 def sh(cmd: list[str]) -> str:
@@ -593,7 +631,8 @@ def main() -> int:
         """``run`` again with every wrapper replaced by its plain version (the
         patches are module-global, so the sharded step's threads see them
         too): no kernel may launch, every field within TOL_STEP of ``out_k``
-        (``run``'s own output through the kernels where not given)."""
+        (``run``'s own output through the kernels where not given). Returns
+        the plain run's output."""
         if out_k is None:
             out_k = run()
         before = {key: k["counter"].n for key, k in kernels.items()}
@@ -613,6 +652,7 @@ def main() -> int:
               f"{', '.join(parts)} (tol {TOL_STEP:g})", flush=True)
         if not worst <= TOL_STEP:
             raise AssertionError(f"phase {label}: step rel err {worst} > {TOL_STEP}")
+        return out_p
 
     def sig(key, args, kwargs):
         def one(a):
@@ -2513,6 +2553,60 @@ def main() -> int:
                   f"one card: {sweep} | {card}", flush=True)
         del blocks, fn, out, want, emitted
 
+    @contextlib.contextmanager
+    def mg_residuals(ratios: list):
+        """max|r| / max|div| of every multigrid solve's answer (each device
+        reduces as its stop test does: ``tol_reduce``, ghosts refreshed),
+        the residual by B6's plain version, so that no counter moves."""
+        real = multigrid.solve_pressure_mg
+
+        def spy(topo_, hier_, div_, cycles_, dx_, *a, **kw):
+            p_out = real(topo_, hier_, div_, cycles_, dx_, *a, **kw)
+            red = kw.get("tol_reduce") or (lambda f: f.abs().max())
+            pr = kw["refresh"](p_out) if kw.get("refresh") is not None else p_out
+            r = red(kernels["B6"]["plain_fn"](topo_.nbr, pr, div_, dx_))
+            ratios.append(float(r) / max(float(red(div_)), 1e-30))
+            return p_out
+
+        with mock.patch.object(multigrid, "solve_pressure_mg", spy):
+            yield
+
+    # the sharded convergence chain: CHAIN_STEPS consecutive MG + FMG +
+    # mg_tol steps over the slabs beside the one-device chain
+    p_ = mg19.replace(mg_tol=MG_TOL, iterations=MG_TOL_CAP)
+    hier19 = multigrid.hierarchy_for(t19, p_)
+    fn = pslab.sharded_plume_step(mesh, slab19, p_, cfg,
+                                  hierarchy=pslab.build_slab_hierarchy(t19, slab19, p_.mg_levels))
+    blocks = pslab.scatter_state(t19, slab19, s19, mesh)
+    s_one = s19
+    for k_ in range(1, CHAIN_STEPS + 1):
+        label = f"19 chain {k_}"
+        r_one, r_shard = [], []
+        one_cycles, shard_cycles = collections.Counter(), collections.Counter()
+        with mg_residuals(r_one), fine_cycles(one_cycles), main_path(
+                f"{label} one device", sharded_counts(p_, 1, one_cycles)):
+            s_one = solver.step_impl(t19, plume.emit(t19, s_one, cfg, p_.dt), p_, hier19,
+                                     refresh=textbook)
+        with mg_residuals(r_shard), fine_cycles(shard_cycles), main_path(
+                label, sharded_counts(p_, SLABS, shard_cycles)):
+            blocks = fn(slab19, blocks)
+        out = pslab.gather_state(t19, slab19, blocks)
+        v_one = set(one_cycles.values()).pop() - 1
+        v_shard = set(shard_cycles.values())
+        print(f"[{label}] V-cycles after FMG: {sorted(c - 1 for c in v_shard)} on the "
+              f"{SLABS} slabs, {v_one} on one device (cap {MG_TOL_CAP}, tol {MG_TOL:g}); "
+              f"max|r|/max|div| {max(r_shard):.3e} sharded (every slab's {len(r_shard)} "
+              f"answers), {r_one[0]:.3e} one device (bound {C5_RMAX_OVER_DIV0})", flush=True)
+        if v_shard != {v_one + 1}:
+            raise AssertionError(f"phase {label}: the slabs ran {v_shard} fine V-cycles, one "
+                                 f"device {v_one + 1}")
+        if not max(r_shard + r_one) <= C5_RMAX_OVER_DIV0:
+            raise AssertionError(f"phase {label}: max|r|/max|div| {max(r_shard + r_one)} > "
+                                 f"{C5_RMAX_OVER_DIV0}")
+        check_state(label, t19, out)
+        compare(label, out, s_one)
+    del blocks, fn, out, s_one
+
     # config 5 over 4 slabs on one card, RBGS-50
     torch.cuda.empty_cache()
     c5t = CELLS["c5"].topology(dev)
@@ -2555,6 +2649,16 @@ def main() -> int:
     step_vs_plain("19 c5", lambda: pslab.gather_state(c5t, slab5, fn(slab5, blocks)), out)
     print(f"[19 c5] the plain step over {SLABS} slabs took {time.perf_counter() - t0_:.1f} s",
           flush=True)
+    # B4 at the slab shape (its operands far past the L2), a launch at a
+    # time behind the spin, beside its HBM bound
+    for key, a, kw, out_bytes, count in record(lambda: fn(slab5, blocks), ["B4"]):
+        vs_plain("19 c5", key, a, kw)
+        k_ms = median_ms(lambda: kernels[key]["kernel_fn"](*a, **kw), 10, 1)
+        b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
+        print(f"[19 c5] B4 at the slab shape, colour {a[3]}, T={a[0].shape[0]} x{count} a step "
+              f"(every slab): {k_ms:.4f} ms a launch (median of 10, one launch a span), bound "
+              f"{b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB), {b_ms / k_ms:.1%} of the bound | "
+              f"{card}", flush=True)
     del blocks
     print(f"[19] config 5 RBGS-50 step over {SLABS} slabs on one card: {ms_shard:.1f} ms, the "
           f"one-device step (the same dispatch) {ms_one:.1f} ms (one step each, CUDA events); "
@@ -2598,6 +2702,226 @@ def main() -> int:
               f"{n_cards}", flush=True)
     del t19, s19
     done("19")
+
+    # -- 20. the dense oracle: the sparse step against step_dense on the card --
+    from hnanosolver_tpu_torch.config import CombustionParams
+    from hnanosolver_tpu_torch.core.topology import build_topology_dense
+    from hnanosolver_tpu_torch.dense.solver import step_dense
+    from hnanosolver_tpu_torch.tools import dense_spread as spread
+
+    def diffs(got, ref):
+        """Max abs and rel error of each field of ``got`` against ``ref``,
+        both (velocity, scalars) on the dense box."""
+        pairs = [("velocity", got[0], ref[0])] + [(k, got[1][k], ref[1][k])
+                                                  for k in sorted(ref[1])]
+        return {k: rel_err(g.to(w.dtype), w) for k, g, w in pairs}
+
+    def show(res):
+        return ", ".join(f"{k} {e:.2e}/{r:.2e}" for k, (e, r) in res.items())
+
+    comb3 = fire.default_params().combustion  # config 3: confinement at s >= 1
+    vort = CombustionParams(vorticity_scale=comb3.vorticity_scale,
+                            factor_scale=comb3.factor_scale)
+    param_sets = (("test", SolverParams(dt=0.2, iterations=6, halo_lag=1)),
+                  ("bench", SolverParams(dt=params.dt, voxel_size=params.voxel_size,
+                                         iterations=params.iterations, halo_lag=1)))
+    failed = []  # every case runs and prints; the phase fails after the last
+    for n in DENSE_BOXES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shape = (n, n, n)
+        t20 = build_topology_dense(shape, device=dev)
+        print(f"[20] {n}^3 box: {t20.n_active} tiles, capacity {t20.capacity} (textbook B4 "
+              f"solve above MAX_FUSED_ROWS {cuda_pressure.MAX_FUSED_ROWS})", flush=True)
+        for seed in DENSE_SEEDS:
+            vel_np, rho_np = spread.smooth_box(n, seed)
+            vel_d0 = torch.from_numpy(vel_np).to(dev)
+            scal_d = spread.dense_scalars(torch.from_numpy(rho_np).to(dev))
+            del vel_np, rho_np
+            # the first seed runs every case; the others the vorticity case
+            # at the test parameters, where the confinement's conditioning
+            # decides the margin
+            cases = [(pname, base, vname, comb_)
+                     for pname, base in param_sets
+                     for vname, comb_ in (("", base.combustion),
+                                          (f", vorticity s={int(comb3.factor_scale)}", vort))
+                     if seed == DENSE_SEEDS[0] or (pname == "test" and vname)]
+            for pname, base, vname, comb_ in cases:
+                p20 = base.replace(combustion=comb_)
+                label = f"20 {n}^3 seed {seed} {pname}{vname}"
+                vel_d = spread.scaled(vel_d0, p20, DENSE_CFL)
+                state = spread.to_tiles(t20, vel_d, scal_d)
+                vel_t = state.velocity
+                sdt_ = p20.dt * p20.inv_voxel_size
+                cfl = float((vel_t.abs() * sdt_).max())
+                clamped_in = int(advection.cfl_clamped_count(t20, vel_t, p20.dt,
+                                                             p20.inv_voxel_size))
+                with main_path(label, {"B1": 2, "B2": 2, "B4": 2 * p20.iterations, "B7a": 1,
+                                       "B7b": 1}):
+                    out = solver.step(t20, state, p20)
+                clamped_out = int(advection.cfl_clamped_count(t20, out.velocity, p20.dt,
+                                                              p20.inv_voxel_size))
+                print(f"[{label}] max CFL {cfl:.3f} in, cfl_clamped_count {clamped_in} in, "
+                      f"{clamped_out} on the projected velocity (the scalar pass's)",
+                      flush=True)
+                if clamped_in or clamped_out:
+                    raise AssertionError(f"phase {label}: a trace clamp can engage")
+                check_state(label, t20, out)
+                # the kernels at this path's shapes against their plain
+                # versions: the whole step, then each distinct call
+                out_p = step_vs_plain(label, lambda: solver.step(t20, state, p20), out)
+                for key, a, kw, _, _ in record(lambda: solver.step(t20, state, p20),
+                                               ("B1", "B2", "B4", "B7a", "B7b")):
+                    vs_plain(label, key, a, kw)
+                # the oracle in float64: its own f32 rounding grows with the
+                # box (absolute trace positions, an ulp of 2^-24 * n) and the
+                # confinement's normalisation amplifies it past the gate
+                vel64 = vel_d.double()
+                scal64 = {k: v.double() for k, v in scal_d.items()}
+                ref64 = step_dense(vel64, scal64, p20)
+                ref32 = step_dense(vel_d, scal_d, p20)
+                torch.cuda.synchronize()
+
+                got = spread.to_dense(t20, out, shape)
+                res = diffs(got, ref64)
+                res_p = diffs(spread.to_dense(t20, out_p, shape), ref64)
+                gate = ("abs", TOL_DENSE_ABS) if pname == "test" else ("rel", TOL_DENSE_REL)
+                worst = max(e if gate[0] == "abs" else r for e, r in res.values())
+                worst_p = max(e if gate[0] == "abs" else r for e, r in res_p.values())
+                print(f"[{label}] vs step_dense in float64, max abs/rel err per field: "
+                      f"{show(res)}; the plain versions' step {show(res_p)} (gate: {gate[0]} "
+                      f"err <= {gate[1]:g}, both) | {card}", flush=True)
+                print(f"[{label}] printed, not gated: vs step_dense in float32 "
+                      f"{show(diffs(got, ref32))}; step_dense float32 vs float64 "
+                      f"{show(diffs(ref32, ref64))} | {card}", flush=True)
+                for who, w_ in (("kernels", worst), ("plain", worst_p)):
+                    if not w_ <= gate[1]:
+                        failed.append(f"{label} ({who}): {gate[0]} err {w_} > {gate[1]}")
+                if seed == DENSE_SEEDS[0]:
+                    # printed, not gated: the bench default halo_lag 5 (B3 blocks)
+                    out5 = solver.step(t20, state, p20.replace(halo_lag=None))
+                    print(f"[{label}] halo_lag {p20.replace(halo_lag=None).effective_halo_lag} "
+                          f"(B3 blocks, another iteration) vs step_dense in float64, max abs/rel "
+                          f"err per field: {show(diffs(spread.to_dense(t20, out5, shape), ref64))}"
+                          f" | {card}", flush=True)
+                    ms_sparse = statistics.median(time_ms(lambda: solver.step(t20, state, p20),
+                                                          3))
+                    ms_dense = statistics.median(time_ms(lambda: step_dense(vel_d, scal_d, p20),
+                                                         3))
+                    ms_dense64 = statistics.median(time_ms(
+                        lambda: step_dense(vel64, scal64, p20), 3))
+                    print(f"[{label}] ms a step (median of 3, CUDA events): sparse "
+                          f"{ms_sparse:.3f}, step_dense {ms_dense:.3f} (float32), "
+                          f"{ms_dense64:.3f} (float64) | {card}", flush=True)
+                    del out5
+                del out, out_p, got, ref32, ref64, state, vel_t, vel_d, vel64, scal64
+            del vel_d0, scal_d
+        print(f"[20] {n}^3 peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB | {card}", flush=True)
+        del t20
+    if failed:
+        raise AssertionError("phase 20: " + "; ".join(failed))
+
+    # the user examples on the card at their default widths, a few frames
+    # each, as main paths (launches from the capacity each step ran at)
+    from hnanosolver_tpu_torch.examples import fireball, smoke_to_nvdb, view_and_export
+    from hnanosolver_tpu_torch.io.nvdb import read_nvdb
+
+    ex_dir = view_dir.parent / "examples"
+    shutil.rmtree(ex_dir, ignore_errors=True)
+
+    def example(label, model, p_, run):
+        caps = []
+        t0_ = time.perf_counter()
+        with step_caps(model, caps), main_path(label, totals(caps, p_)):
+            run()
+        print(f"[{label}] {len(caps)} steps at capacities {caps}, "
+              f"{time.perf_counter() - t0_:.2f} s wall | {card}", flush=True)
+
+    def finite_fields(label, fields: dict):
+        bad = [k for k, v in fields.items() if not np.isfinite(np.asarray(v)).all()]
+        if bad:
+            raise AssertionError(f"phase {label}: non-finite values in {bad}")
+
+    # fireball: 12 frames, its first checkpoint and render
+    d_ex = ex_dir / "fireball"
+    example("20 fireball", fire, fire.default_params(),
+            lambda: fireball.main(["--frames", "12", "--out", str(d_ex)]))
+    t_, s_, _, _ = load_npz(str(d_ex / "fire_0012.npz"), device=dev)
+    check_state("20 fireball", t_, s_)
+    img = png_pixels(d_ex / "fire_0012.png")
+    if img.shape != (128, 128, 3) or not np.array_equal(
+            img, as_png(render.render_state(t_, s_, (128, 128, 128)).transpose(1, 0, 2)[::-1])):
+        raise AssertionError("phase 20: fire_0012.png is not the render of its checkpoint")
+    print(f"[20 fireball] fire_0012.npz: {t_.n_active} tiles, max temperature "
+          f"{float(s_.scalars['temperature'].max()):.3f}, max flame "
+          f"{float(s_.scalars['flame'].max()):.4f}; fire_0012.png its render", flush=True)
+
+    # smoke_to_nvdb: 8 frames, one export (velocity, density, temperature)
+    d_ex = ex_dir / "smoke_to_nvdb"
+    example("20 smoke_to_nvdb", plume, SolverParams(dt=1 / 24, voxel_size=0.5, iterations=24),
+            lambda: smoke_to_nvdb.main(["--frames", "8", "--out", str(d_ex)]))
+    grids = {g[0]: g for g in (read_nvdb(str(f)) for f in sorted(d_ex.glob("*.nvdb")))}
+    if sorted(grids) != ["density", "temperature", "velocity"]:
+        raise AssertionError(f"phase 20: smoke_to_nvdb wrote {sorted(grids)}")
+    finite_fields("20 smoke_to_nvdb", {k: g[3] for k, g in grids.items()})
+    max_rho = float(np.max(grids["density"][3]))
+    if not (max_rho > 0 and png_pixels(d_ex / "preview_0008.png").shape == (128, 128, 3)):
+        raise AssertionError("phase 20: smoke_to_nvdb exported no density or no preview")
+    print(f"[20 smoke_to_nvdb] grids {sorted(grids)} of {len(grids['density'][2])} leaves, "
+          f"max density {max_rho:.4f}; preview_0008.png", flush=True)
+
+    # view_and_export: 2 frames, two .vdb files, then its viewer on port 0,
+    # read over HTTP and shut down
+    d_ex = ex_dir / "view_and_export"
+    servers, errors = [], []
+
+    class Recorded(webapp.ThreadingHTTPServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    def run_view():
+        try:
+            view_and_export.main(["--frames", "2", "--port", "0", "--out", str(d_ex)])
+        except BaseException as e:  # re-raised below, in the script's thread
+            errors.append(e)
+
+    ex_thread = threading.Thread(target=run_view, daemon=True)
+
+    def start_view():
+        """The example's thread, until its viewer listens (its frames are
+        done by then) or it ends."""
+        ex_thread.start()
+        deadline = time.monotonic() + 300
+        while not servers and ex_thread.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.05)
+
+    with mock.patch.object(webapp, "ThreadingHTTPServer", Recorded):
+        example("20 view_and_export", plume, SolverParams(iterations=20), start_view)
+    if errors or not servers:
+        raise AssertionError(f"phase 20: view_and_export never served: {errors}")
+    try:
+        base = f"http://127.0.0.1:{servers[0].server_address[1]}"
+        meta = json.loads(get(base, "/meta"))
+        if get(base, "/") != webapp.PAGE.encode() or max(get(base, "/volume?field=density")) != 255:
+            raise AssertionError("phase 20: view_and_export's viewer served a wrong page or volume")
+    finally:
+        servers[0].shutdown()
+        servers[0].server_close()
+    ex_thread.join(timeout=60)
+    if ex_thread.is_alive() or errors:
+        raise AssertionError(f"phase 20: view_and_export did not end: {errors}")
+    plain_vdb, zip_vdb = (vdb_io.read_vdb(str(d_ex / f)) for f in ("final.vdb", "final_zip.vdb"))
+    finite_fields("20 view_and_export", {g["name"]: g["values"] for g in plain_vdb})
+    if [(g["name"], g["origins"].tobytes(), g["values"].tobytes()) for g in plain_vdb] != [
+            (g["name"], g["origins"].tobytes(), g["values"].tobytes()) for g in zip_vdb]:
+        raise AssertionError("phase 20: final_zip.vdb does not hold final.vdb's grids")
+    print(f"[20 view_and_export] final.vdb and final_zip.vdb: grids "
+          f"{[g['name'] for g in plain_vdb]}, the same values; viewer on port "
+          f"{servers[0].server_address[1]}: /, /meta (dims "
+          f"{meta['fields']['density']['dims']}), /volume, then shut down", flush=True)
+    done("20")
 
     print(card)
     print(json.dumps({"kernels": [

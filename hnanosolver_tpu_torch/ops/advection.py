@@ -17,7 +17,7 @@ orders 2-4 the RK stage arithmetic is plain torch in the JAX package's op
 order, and every sampling pass (each RK stage's velocity, each SDF probe,
 the back and forward passes) is one call of kernel B8/B9
 (``ops/cuda_sample.py``). Steps 5-6 are kernel B2 (``ops/cuda_tail.py``).
-Displacements are clamped to ``cuda_bfecc.DISP_LIMIT`` voxels per axis so
+Displacements are clamped to ``DISP_LIMIT`` voxels per axis so
 every trilinear corner lies in the tile's 3x3x3 neighbourhood.
 
 The table sampler (``INTERP = "vmem"``, trace order 1, on a topology that
@@ -43,6 +43,17 @@ where either of the mixed band's plans (the dual table of every field, the
 its "back" pass builds its own (sliced, or whole and by B11 when
 COMBINE_TBL is on) and its forward pass is always the wide one (B8/B9).
 ``BANDS`` counts the passes each branch took.
+
+``INTERP`` takes the JAX package's four names with their meaning for the
+samples (the same trilinear samples under every name):
+  - None (the default), "gather", "pallas" and "mxu": the nbr-form B1 at
+    trace order 1, B8/B9 at orders 2-4. On Hopper the JAX package's
+    8-corner gather, its per-tile 27-table kernel and its one-hot
+    contraction (``ops/interp.trilinear_mxu``, ported as a public module)
+    are the same samples, so they share the one kernel path;
+  - "vmem": the table sampler above, where the topology carries chunk
+    plans, else the nbr-form B1 (JAX: "pallas" without a plan).
+Any other value raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -56,9 +67,10 @@ from hnanosolver_tpu_torch.core.topology import active_mask
 from hnanosolver_tpu_torch.ops import collision, cuda_bfecc, cuda_sample, cuda_tables, cuda_tail
 from hnanosolver_tpu_torch.ops import tables
 
-# Sampling backend at trace order 1: None = B1 through nbr (the default);
-# "vmem" = the table sampler where the topology carries chunk plans.
+# Sampling backend (the module doc): None, "gather", "pallas", "vmem", "mxu"
 INTERP: Optional[str] = None
+INTERP_NAMES = (None, "gather", "pallas", "vmem", "mxu")
+DISP_LIMIT = cuda_bfecc.DISP_LIMIT  # max |displacement| per axis per trace (voxels)
 # Table bytes (the JAX package's byte model, tables.table_bytes) above
 # which the table sampler runs in chunk slices (the JAX package's budget)
 TABLE_BYTES_BUDGET = 2 * 1024 ** 3
@@ -77,12 +89,12 @@ def cfl_clamped_count(topo, vel: torch.Tensor, dt: float, inv_dx: float) -> torc
     twice that, so the count is of active voxels with 2*|u|*dt/dx >
     DISP_LIMIT in any component: an upper bound, zero below |u|*dt/dx = 3.5."""
     d = vel.abs() * (dt * inv_dx)
-    hit = (2.0 * d > cuda_bfecc.DISP_LIMIT).any(dim=0) & (active_mask(topo) > 0)[:, None]
+    hit = (2.0 * d > DISP_LIMIT).any(dim=0) & (active_mask(topo) > 0)[:, None]
     return hit.sum().to(torch.int32)
 
 
 def _clamp(d: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(d, -cuda_bfecc.DISP_LIMIT, cuda_bfecc.DISP_LIMIT)
+    return torch.clamp(d, -DISP_LIMIT, DISP_LIMIT)
 
 
 def _backtrace(topo, vel: torch.Tensor, sdt: float, trace_order: int) -> torch.Tensor:
@@ -196,6 +208,8 @@ def _bfecc_samples(topo, fields: torch.Tensor, sdt: float, f_lo: int,
                    sdf: Optional[torch.Tensor], trace_order: int):
     """(phiF, phiB) over ``fields[f_lo:]``; ``fields[0:3]`` is the velocity
     that traces. Orders below 2 trace first-order, as the JAX package does."""
+    if INTERP not in INTERP_NAMES:
+        raise ValueError(f"INTERP must be one of {INTERP_NAMES}, got {INTERP!r}")
     if trace_order < 2:
         if INTERP == "vmem" and topo.chunk_dsrc is not None:
             return _table_samples(topo, fields, sdt, f_lo, sdf)

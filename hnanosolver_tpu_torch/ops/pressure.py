@@ -20,6 +20,9 @@ does (``hnanosolver_tpu/ops/pressure.py:69-109``), in this order:
 
 ``mask`` (multigrid coarse levels) is the in-domain voxel mask: ``p``
 enters multiplied by it and voxels outside it never update.
+
+``jacobi_pressure`` is the JAX package's weighted-Jacobi variant, plain
+torch (it was XLA there, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from hnanosolver_tpu_torch.ops import cuda_pressure, cuda_stencil
+from hnanosolver_tpu_torch.ops.shifts import neighbor_sum
 
 
 def solve_pressure(
@@ -76,3 +80,16 @@ def residual(topo, p: torch.Tensor, div: torch.Tensor, dx: float) -> torch.Tenso
     """Pointwise residual r = div - L(p), L(p) = (sum nbrs - 6 p) / dx^2
     (kernel B6)."""
     return cuda_stencil.residual(topo.nbr, p, div, dx)
+
+
+def jacobi_pressure(topo, div: torch.Tensor, iterations: int, dx: float,
+                    weight: float = 1.0) -> torch.Tensor:
+    """Weighted-Jacobi variant (fully parallel; a smoother for multigrid):
+    ``iterations`` sweeps of p += weight * ((sum nbrs - div dx^2) / 6 - p)
+    from p = 0, every voxel reading the previous sweep."""
+    dx2 = dx * dx
+    p = torch.zeros_like(div)
+    for _ in range(iterations):
+        pj = (neighbor_sum(topo, p) - div * dx2) * (1.0 / 6.0)
+        p = p + weight * (pj - p)
+    return p

@@ -307,8 +307,9 @@ def test_check_determinism():
 
 
 # The JAX package's public functions the port leaves out, with the reason
-# (ROADMAP "Not to port").
-NOT_PORTED = {("ops.pressure", "jacobi_pressure"): "neither package calls it"}
+# (ROADMAP "Not to port"): none since the dense oracle, ops/interp and
+# jacobi_pressure were ported.
+NOT_PORTED: dict = {}
 
 
 def _common_modules():
@@ -392,6 +393,8 @@ def test_public_signatures_match_jax(case, monkeypatch):
         bad, checked = _signature_mismatches()
         assert not bad, "\n".join(bad)
         assert checked > 150
+        shared = {rel for rel, _, _ in _common_modules()}
+        assert {"dense.ops", "dense.solver", "ops.interp"} <= shared
         return
     jt, tt = _pair("sparse_random")
     rng = np.random.default_rng(11)
