@@ -109,8 +109,9 @@ exit). Each phase prints the seconds it took.
      4 and 24 reps on normal and mixed-scale inputs) and every PC variant
      of the four probe scripts (one block and one per SM) against its plain
      version, bitwise, with each one's time, bound and library call (one
-     index_select of every row the launch copies: blocks x reps x n x L),
-     and ns a row copied beside index_select's; then
+     index_select of every row the launch copies: blocks x reps x n x L;
+     none for the chain), and ns a row copied beside index_select's and
+     beside every row copied over the HBM rate; then
      the probe scripts themselves as the probes' own path (counters 0 before,
      read after): the gather chain and the copy costs per copy, batched
      and drained once a rep (issue and drain apart)
@@ -213,12 +214,20 @@ exit). Each phase prints the seconds it took.
      PNG the render of the checkpoint), smoke_to_nvdb 8 frames (three .nvdb
      grids and a preview), view_and_export 2 frames (two .vdb files with the
      same grids, its viewer on port 0 read over HTTP and shut down)
+ 21. the repeat check (``tools/repeat_check.py``): its stages (the velocity
+     advection, curl, the six offset curl magnitudes, the confinement, the
+     divergence and the pressure solve) on its REPEAT_N^3 case twice
+     through the kernels, each pass a main path (1 B1, 1 B2, 2 B4 a
+     pressure iteration, 1 B7a), every stage of the second pass bitwise the
+     first; then its first offset magnitude NARROW_REPEATS times on one
+     velocity, every intermediate bitwise the first repeat's and the first
+     repeat's outputs unchanged after the last
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
 their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
 14 B1d's, and the bench and config-5 steps'.
 
-Launch counts come only from the main-path runs (phases 4, 7-14, 16-20), each
+Launch counts come only from the main-path runs (phases 4, 7-14, 16-21), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
@@ -329,6 +338,10 @@ DENSE_SEEDS = (SEED, 1, 2, 3, 4)  # the first runs every case, the rest the vort
 DENSE_CFL = 2.0
 TOL_DENSE_ABS = 2e-4
 TOL_DENSE_REL = 1e-4
+# phase 21, the repeat check: tools/repeat_check's box and the repeats of
+# its first offset magnitude
+REPEAT_N = 128
+NARROW_REPEATS = 8
 
 
 def sh(cmd: list[str]) -> str:
@@ -1623,6 +1636,17 @@ def main() -> int:
             check("PG", f"P6 chain, reps {reps}, {inp} ({float((got != x_).float().mean()):.2%}"
                   f" of values moved)", got, cuda_probe.take_chain_plain(x_, nbr6, reps),
                   0.0, "15")
+            # bound: x read once (s starts as x), the index and the output
+            # once; or a multiply and an add a value a gather, if longer
+            k_ms, p_ms = paired_ms(lambda: cuda_probe.take_chain(x_, nbr6, reps),
+                                   lambda: cuda_probe.take_chain_plain(x_, nbr6, reps))
+            b_bytes = bytes_ms(nbytes(x_) + nbytes(nbr6) + nbytes(got))
+            b_ops = 2 * reps * nbr6.shape[0] * x_.numel() / F32_OPS_PER_S * 1e3
+            print(f"[15] P6 chain, reps {reps}, {inp}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms "
+                  f"plain, bound {max(b_bytes, b_ops):.6f} ms (by "
+                  f"{'operations' if b_ops > b_bytes else 'bytes'}: bytes {b_bytes:.6f}, f32 "
+                  f"operations {b_ops:.6f}), library none (no one PyTorch call computes a "
+                  f"chain of dependent gathers) | {card}", flush=True)
     del xm, idxr
 
     def copy_n(kw) -> int:
@@ -1684,7 +1708,8 @@ def main() -> int:
             if rows_copied(kwg):
                 print(f"[15] {label}: {rows_copied(kwg)} rows copied a launch; ns a row copied: "
                       f"PC {k_ms * 1e6 / rows_copied(kwg):.4f}, index_select "
-                      f"{lib_ms * 1e6 / rows_copied(kwg):.4f} | {card}", flush=True)
+                      f"{lib_ms * 1e6 / rows_copied(kwg):.4f}; every row copied over the HBM "
+                      f"rate {bytes_ms(rows_copied(kwg) * 2048):.6f} ms | {card}", flush=True)
     pc_kw = dict(rows=rows_c, n=probe_dmacost.NS[1], span=8, reps=probe_dmacost.REPS,
                  ctas=ctas_all(dev))
     k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(xc, **pc_kw),
@@ -2922,6 +2947,30 @@ def main() -> int:
           f"{servers[0].server_address[1]}: /, /meta (dims "
           f"{meta['fields']['density']['dims']}), /volume, then shut down", flush=True)
     done("20")
+
+    # -- 21. the repeat check on the card: tools/repeat_check's stages twice -----
+    from hnanosolver_tpu_torch.tools import repeat_check
+
+    t21, s21, p21 = repeat_check.inputs(REPEAT_N, SEED, dev)
+    passes = []
+    for i in (1, 2):
+        with main_path(f"21 {REPEAT_N}^3 stages, pass {i}",
+                       {"B1": 1, "B2": 1, "B4": 2 * p21.iterations, "B7a": 1}):
+            passes.append(repeat_check.stages(t21, s21, p21))
+    diffs = repeat_check.differing(*passes, threads=1)
+    for name in passes[0]:
+        print(f"[21] {name}: pass 2 bitwise pass 1 {name not in diffs}"
+              + (f" ({diffs[name]['count']} values differ, max {diffs[name]['max']:.3e})"
+                 if name in diffs else ""), flush=True)
+    res = repeat_check.narrow(t21, passes[0]["advect"], 0.5 * p21.inv_voxel_size, NARROW_REPEATS,
+                              say=lambda line: print(f"[21] {line}", flush=True))
+    print(f"[21] first offset magnitude, {NARROW_REPEATS} repeats on one velocity: differing "
+          f"{res['differing']}, stored outputs changed {res['stored_changed']}", flush=True)
+    if diffs or res["differing"] or res["stored_changed"]:
+        raise AssertionError(f"phase 21: stages {sorted(diffs)}, repeats {res['differing']}, "
+                             f"stored {res['stored_changed']} do not repeat bitwise")
+    del t21, s21, passes
+    done("21")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -47,6 +47,10 @@ from hnanosolver_tpu_torch.ops import stencil as stn
 from hnanosolver_tpu_torch.solver import step
 from hnanosolver_tpu_torch.tools import dense_spread as spread
 
+# one thread: at more, this CPU's torch (MKL's vmsSqrt behind torch.sqrt)
+# can compute a process's first float32 sqrt wrong in one thread's chunk,
+# the confinement's first curl magnitude here (tools/first_sqrt.py,
+# ROADMAP.md queue 3)
 torch.set_num_threads(1)
 
 REL = 1e-6  # port dense op vs JAX dense op, times the reference's max|.|
