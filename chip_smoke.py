@@ -104,14 +104,21 @@ exit). Each phase prints the seconds it took.
  15. the probe kernels PG (cross-row gathers) and PC (bulk asynchronous
      row copies into shared memory), ports of the JAX package's TPU probes
      in tools/: every PG form (per-element at 8 rows with reversed indices
-     and at the bench's 4608 rows with random ones, the row form on each of
-     the six face-neighbour rows, also against index_select, the chain at
-     4 and 24 reps on normal and mixed-scale inputs) and every PC variant
-     of the four probe scripts (one block and one per SM) against its plain
-     version, bitwise, with each one's time, bound and library call (one
-     index_select of every row the launch copies: blocks x reps x n x L;
-     none for the chain), and ns a row copied beside index_select's and
-     beside every row copied over the HBM rate; then
+     and at the bench's 4608 rows with random ones, both in the slab form,
+     and at 8192 random rows, past the slab's limit, in the direct form;
+     the direct form at 4608 too, timed beside the slab form; the row form
+     on each of the six face-neighbour rows, also against index_select, the
+     chain at 4 and 24 reps on normal and mixed-scale inputs and at T - 1
+     rows, not a multiple of its block's 6) and every PC variant of the
+     four probe scripts (one block and one per SM) against its plain
+     version, bitwise, the device-memory cases in both launch forms (plain,
+     the wrapper's, and a cluster of one) and every case in the design
+     before the redesign (``tools/pc_cost.py``'s parts 0), with each one's
+     time beside the design before's and ``BEFORE_REDESIGN``, bound and
+     library call (one index_select of every row the launch copies: blocks
+     x reps x n x L; none for the chain), and ns a row copied beside
+     index_select's and beside every row copied over the HBM rate;
+     ``tools/pc_cost.py``'s breakdown of v5's fixed cost; then
      the probe scripts themselves as the probes' own path (counters 0 before,
      read after): the gather chain and the copy costs per copy, batched
      and drained once a rep (issue and drain apart)
@@ -319,7 +326,13 @@ BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
                    # the narrow step's two, the mixed band's back and fwd
                    "table": {"narrow B1d": 0.1809, "mixed back nb=3": 0.0426,
                              "mixed fwd nb=3": 0.0416, "mixed back nb=8": 0.0826,
-                             "mixed fwd nb=8": 0.0559}}
+                             "mixed fwd nb=8": 0.0559},
+                   # the probe kernels PG and PC, chip_smoke phase 15 (ms a call)
+                   "probes": {"P4 8 rows": 0.0038, "P4 4608 rows": 0.0231,
+                              "P6 reps 4, normal": 0.0490, "P6 reps 24, normal": 0.2648,
+                              "P6 reps 4, mixed scales": 0.0482,
+                              "P6 reps 24, mixed scales": 0.2605,
+                              "PC JSON launch": 0.6306, "PC v5": 0.0058}}
 B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main paths
 # phase 19: slabs on one card, the mg_tol run's tolerance and V-cycle cap,
 # and the one-device config-5 RBGS-50 step's peak (PERF.md section 5,
@@ -483,8 +496,9 @@ def main() -> int:
                                            tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
     from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
-    from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, probe_dgather,
-                                             probe_dmabisect, probe_dmabisect2, probe_dmacost)
+    from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, pc_cost,
+                                             probe_dgather, probe_dmabisect, probe_dmabisect2,
+                                             probe_dmacost)
 
     def done(phase: str):
         nonlocal t_phase
@@ -500,9 +514,14 @@ def main() -> int:
     res = build.parse_ptxas(info.log)
     print(f"[2] build: {info.seconds:.1f} s -> {info.path.name}"
           f" ({len(res)} kernel instances; one nvcc per source, no -rdc)", flush=True)
-    for r in res:  # every B kernel instance: its resources and resident warps
+    # the probe kernels' dynamic shared memory at phase 15's bench shapes
+    # (4608 source rows; PC's JSON launch: 4096 row starts)
+    probe_smem = {"take_slab_kernel": cuda_probe.slab_smem_bytes(probe_dmacost.T),
+                  "take_chain_kernel": cuda_probe.chain_smem_bytes(),
+                  "row_copy_kernel": probe.copy_smem_bytes(0, probe_dmacost.N_ROWS)}
+    for r in res:  # every kernel instance: its resources and resident warps
         if r.threads is not None:
-            print(f"[2] {r.line()}", flush=True)
+            print(f"[2] {r.line(probe_smem.get(r.name, 0))}", flush=True)
     for T_ in sorted(set(B5_LEVELS) | {cuda_pressure.CLUSTER_ROWS,
                                        cuda_pressure.CLUSTER_ROWS + 1}):  # B5's launches
         sh_ = cuda_pressure.fused_shape(T_)
@@ -1600,21 +1619,51 @@ def main() -> int:
     def bytes_ms(nb):
         return nb / HBM_BYTES_PER_S * 1e3
 
+    def along_rows(x_, idx, form):
+        """P4 through its C entry in ``form`` (the wrapper picks the form from
+        x's rows; this also runs the direct form, the design before the slab
+        form, where the slab form is the wrapper's), into a fixed output."""
+        out = torch.empty(idx.shape, device=dev)
+        code = build.library().hn_take_along_rows(
+            x_.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], x_.shape[0],
+            cuda_probe.ALONG_ROWS_FORMS[form], build.stream_ptr(dev))
+        build.check(code, "hn_take_along_rows")
+        return out
+
     nbr6 = probe.face_rows(topo.nbr)
     xg = torch.from_numpy(rng.standard_normal((T, 512)).astype(np.float32)).to(dev)
     xm = xg * torch.from_numpy(10.0 ** rng.uniform(-15, 15, (T, 1))).float().to(dev)
     idx8 = torch.arange(7, -1, -1, dtype=torch.int32, device=dev)[:, None].expand(8, 512)
     idxr = torch.from_numpy(rng.integers(0, T, (T, 512)).astype(np.int32)).to(dev)
-    for label, x_, idx in (("P4 per-element, 8 rows reversed", xg[:8], idx8.contiguous()),
-                           (f"P4 per-element, {T} rows random", xg, idxr)):
-        check("PG", label, cuda_probe.take_along_rows(x_, idx),
-              cuda_probe.take_along_rows_plain(x_, idx), 0.0, "15")
+    RX_DIRECT = 8192  # past probe.SLAB_MAX_ROWS: the wrapper's direct form
+    xd = torch.from_numpy(rng.standard_normal((RX_DIRECT, 512)).astype(np.float32)).to(dev)
+    idxd = torch.from_numpy(rng.integers(0, RX_DIRECT, (T, 512)).astype(np.int32)).to(dev)
+    before = BEFORE_REDESIGN["probes"]
+    for label, x_, idx, was in (("P4 per-element, 8 rows reversed", xg[:8], idx8.contiguous(),
+                                 before["P4 8 rows"]),
+                                (f"P4 per-element, {T} rows random", xg, idxr,
+                                 before["P4 4608 rows"]),
+                                (f"P4 per-element, {RX_DIRECT} source rows random, {T} out",
+                                 xd, idxd, None)):
+        form = cuda_probe.along_rows_form(x_.shape[0])
+        got = cuda_probe.take_along_rows(x_, idx)
+        want = cuda_probe.take_along_rows_plain(x_, idx)
+        check("PG", f"{label} ({form} form)", got, want, 0.0, "15")
+        if form == "slab":
+            check("PG", f"{label} (direct form)", along_rows(x_, idx, "direct"), want, 0.0, "15")
         k_ms, p_ms = paired_ms(lambda: cuda_probe.take_along_rows(x_, idx),
                                lambda: cuda_probe.take_along_rows_plain(x_, idx))
         i64 = idx.long()
         lib_ms = median_ms(lambda: torch.gather(x_, 0, i64), batch=10)
-        src_rows = int(torch.unique(idx).numel()) if idx is idxr else 8
-        ms_line(label, k_ms, p_ms, bytes_ms(src_rows * 2048 + 2 * nbytes(idx)), lib_ms, "gather")
+        src_rows = int(torch.unique(idx).numel()) if idx is not idx8 else 8
+        b_ms = bytes_ms(src_rows * 2048 + 2 * nbytes(idx))
+        ms_line(f"{label} ({form} form)", k_ms, p_ms, b_ms, lib_ms, "gather")
+        if form == "slab":  # the direct form, the design before, in this call
+            d_ms = median_ms(lambda: along_rows(x_, idx, "direct"), batch=10)
+            print(f"[15] {label}: slab form {k_ms:.4f} ms ({b_ms / k_ms:.1%} of its bound), "
+                  f"direct form {d_ms:.4f} ms ({b_ms / d_ms:.1%}) in this call; before the "
+                  f"redesign {was} (recorded) | {card}", flush=True)
+    del xd, idxd
     for d in range(6):
         got = cuda_probe.take_rows(xg, nbr6[d])
         check("PG", f"P5 rows, T={T}, face {d}", got, cuda_probe.take_rows_plain(xg, nbr6[d]),
@@ -1630,7 +1679,13 @@ def main() -> int:
                          library_ms=lib_ms)
     ms_line(f"P5 rows, T={T}, face 0 (one launch costs about its bound)", k_ms, p_ms, pg_bound,
             lib_ms, "index_select")
+    # T - 1 rows (not a multiple of the chain's 6 rows a block), random
+    # neighbours inside them
+    nbr6_1 = torch.from_numpy(rng.integers(0, T - 1, (6, T - 1)).astype(np.int32)).to(dev)
     for reps in probe_dgather.REPS:
+        check("PG", f"P6 chain, reps {reps}, T={T - 1} rows",
+              cuda_probe.take_chain(xg[:T - 1], nbr6_1, reps),
+              cuda_probe.take_chain_plain(xg[:T - 1], nbr6_1, reps), 0.0, "15")
         for inp, x_ in (("normal", xg), ("mixed scales", xm)):
             got = cuda_probe.take_chain(x_, nbr6, reps)
             check("PG", f"P6 chain, reps {reps}, {inp} ({float((got != x_).float().mean()):.2%}"
@@ -1642,12 +1697,13 @@ def main() -> int:
                                    lambda: cuda_probe.take_chain_plain(x_, nbr6, reps))
             b_bytes = bytes_ms(nbytes(x_) + nbytes(nbr6) + nbytes(got))
             b_ops = 2 * reps * nbr6.shape[0] * x_.numel() / F32_OPS_PER_S * 1e3
-            print(f"[15] P6 chain, reps {reps}, {inp}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms "
+            print(f"[15] P6 chain, reps {reps}, {inp}: {k_ms:.4f} ms kernel (before the "
+                  f"redesign {before[f'P6 reps {reps}, {inp}']}, recorded), {p_ms:.4f} ms "
                   f"plain, bound {max(b_bytes, b_ops):.6f} ms (by "
                   f"{'operations' if b_ops > b_bytes else 'bytes'}: bytes {b_bytes:.6f}, f32 "
                   f"operations {b_ops:.6f}), library none (no one PyTorch call computes a "
                   f"chain of dependent gathers) | {card}", flush=True)
-    del xm, idxr
+    del xm, idxr, nbr6_1
 
     def copy_n(kw) -> int:
         return int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
@@ -1690,6 +1746,10 @@ def main() -> int:
     pc_cases += [(name, xc, kw, None, None) for name, kw in probe_dmacost.cases(xc, rows_c)]
     pc_cases.append(("dmacost dynamic count", xc, dict(rows=rows_c, n=0, count=count64), None,
                      None))
+    # the design's other launch form (device-memory source: a cluster of
+    # one, where the wrapper launches plainly) and the design before
+    pc_forms = {"cluster launch": pc_cost.DESIGN & ~pc_cost.PARTS["plain launch"],
+                "design before": pc_cost.BEFORE}
     for name, x_, kw, pick, want in pc_cases:
         for g in (1, ctas_all(dev)):
             kwg = dict(kw, ctas=g)
@@ -1701,19 +1761,38 @@ def main() -> int:
             if pick is not None:  # v4's and v5's acc: one expected value for every block
                 picked = pick(*got)
                 check("PC", f"{label} vs expected", picked, want.expand_as(picked), 0.0, "15")
+            calls = {form: pc_cost.kernel_call(x_, parts, **kwg)
+                     for form, parts in pc_forms.items()}
+            for form, call in calls.items():
+                if form == "cluster launch" and kw.get("onchip_rows"):
+                    continue  # the on-chip source's only launch form: the wrapper's
+                for part, g_, p_ in zip(("stage", "acc"), call(), plain):
+                    check("PC", f"{label} {part}, {form}", g_, p_, 0.0, "15")
             k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(x_, **kwg),
                                    lambda: cuda_probe.row_copy_plain(x_, **kwg), batch=5)
+            b_ms = median_ms(calls["design before"], batch=5)
             lib_ms = copy_lib_ms(x_, kwg) if rows_copied(kwg) else float("nan")
             ms_line(label, k_ms, p_ms, copy_bound_ms(x_, kwg), lib_ms, "index_select")
+            print(f"[15] {label}: the design before the redesign {b_ms:.4f} ms in this call"
+                  + (f" ({before['PC v5']} recorded)" if name.startswith("v5") else "")
+                  + f" | {card}", flush=True)
             if rows_copied(kwg):
                 print(f"[15] {label}: {rows_copied(kwg)} rows copied a launch; ns a row copied: "
-                      f"PC {k_ms * 1e6 / rows_copied(kwg):.4f}, index_select "
+                      f"PC {k_ms * 1e6 / rows_copied(kwg):.4f} (before the redesign "
+                      f"{b_ms * 1e6 / rows_copied(kwg):.4f}), index_select "
                       f"{lib_ms * 1e6 / rows_copied(kwg):.4f}; every row copied over the HBM "
                       f"rate {bytes_ms(rows_copied(kwg) * 2048):.6f} ms | {card}", flush=True)
+    # step 0's breakdown of the fixed cost (tools/pc_cost.py) at v5, no copy
+    v5_x, v5_kw = pc_cost.cases(dev)["v5"]
+    for g in (1, ctas_all(dev)):
+        parts = pc_cost.breakdown(v5_x, dict(v5_kw, ctas=g))
+        label = f"PC fixed cost (pc_cost), v5, {g} block{'s' * (g > 1)}"
+        print(f"[15] {pc_cost.line(label, parts)} | {card}", flush=True)
     pc_kw = dict(rows=rows_c, n=probe_dmacost.NS[1], span=8, reps=probe_dmacost.REPS,
                  ctas=ctas_all(dev))
     k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(xc, **pc_kw),
                            lambda: cuda_probe.row_copy_plain(xc, **pc_kw))
+    b_ms = median_ms(pc_cost.kernel_call(xc, pc_cost.BEFORE, **pc_kw), batch=10)
     lib_ms = copy_lib_ms(xc, pc_kw)
     kernels["PC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=copy_bound_ms(xc, pc_kw),
                          bound_by="bytes", library_ms=lib_ms)
@@ -1723,7 +1802,8 @@ def main() -> int:
           f"rows {lib_ms:.4f} ms, {lib_ms * 1e6 / rows_copied(pc_kw):.4f} ns a row; bound "
           f"{kernels['PC']['bound_ms']:.6f} ms (each source row once), "
           f"{bytes_ms(rows_copied(pc_kw) * 2048):.4f} for every row copied over the HBM "
-          f"rate | {card}", flush=True)
+          f"rate; the design before the redesign {b_ms:.4f} ms in this call, "
+          f"{before['PC JSON launch']} recorded | {card}", flush=True)
     del xb, xc, rows_c
 
     # the probes' own path: the four probe scripts, counters 0 before, read after

@@ -13,6 +13,9 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <mutex>
+
 namespace hn {
 
 constexpr int TILE = 512;
@@ -59,6 +62,38 @@ __device__ __forceinline__ float face_sum(const float* p, const float* row, cons
 // jnp.clip / torch.clamp order: max with the lower bound, then min
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// a shared-memory pointer as the 32-bit address PTX's shared-state spaces take
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A kernel's limit of dynamic shared memory on each device: raise_smem_limit
+// calls cudaFuncSetAttribute once a device and size, not once a launch (the
+// attribute belongs to the current device's context and stays set), or, with
+// every_call, at each call to exactly `bytes` (PC's design before its
+// redesign, tools/pc_cost.py). One static SmemLimit a kernel; launches from
+// several threads take its lock.
+struct SmemLimit {
+  static constexpr int DEVICES = 64;
+  std::mutex lock;
+  int bytes[DEVICES] = {};
+};
+
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, size_t bytes, SmemLimit& limit,
+                             bool every_call = false) {
+  if (bytes <= 48 * 1024 && !every_call) return cudaSuccess;  // the default limit
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= SmemLimit::DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(limit.lock);
+  if (limit.bytes[dev] >= (int)bytes && !every_call) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) limit.bytes[dev] = (int)bytes;
+  return e;
 }
 
 }  // namespace hn

@@ -54,12 +54,13 @@ SIGNATURES = {
     "hn_rbsor_color": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     "hn_rbsor_fused": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _P),
     "hn_residual": (_P, _P, _P, _P, _I, _F, _P),
-    "hn_take_along_rows": (_P, _P, _P, _I, _I, _P),
+    "hn_take_along_rows": (_P, _P, _P, _I, _I, _I, _P),
     "hn_take_rows": (_P, _P, _P, _I, _I, _P),
     "hn_take_chain": (_P, _P, _P, _I, _I, _P),
     "hn_grid_sync_loop": (_I, _I, _I, _P),
     "hn_cluster_sync_loop": (_I, _I, _I, _P),
     "hn_row_copy": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "hn_row_copy_parts": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
 }
 
 
@@ -87,6 +88,12 @@ BLOCK_THREADS = {
     "sample_at_kernel": 512,
     "divergence_kernel": 512,
     "subtract_gradient_kernel": 512,
+    # the probe kernels PG (probe_gather.cu) and PC (probe_copy.cu)
+    "take_along_rows_kernel": 256,
+    "take_slab_kernel": 1024,
+    "take_rows_kernel": 256,
+    "take_chain_kernel": 192,  # CHAIN_ROWS * 32
+    "row_copy_kernel": 256,
 }
 
 
@@ -139,22 +146,24 @@ class KernelResources:
     spill_loads: int
     threads: Optional[int]  # threads a block (block_threads), None if not listed
 
-    def resident_warps(self) -> Optional[int]:
+    def resident_warps(self, dynamic: int = 0) -> Optional[int]:
         """Warps of whole blocks an SM holds at once, the least of the
-        register, shared-memory, warp and block limits."""
+        register, shared-memory, warp and block limits, with ``dynamic``
+        bytes of dynamic shared memory a block beside the static."""
         if self.threads is None:
             return None
         warps = -(-self.threads // 32)
         per_warp = -(-self.registers * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
         blocks = min(SM_WARPS // warps, SM_BLOCKS,
                      (SM_REGISTERS // per_warp) // warps if per_warp else SM_BLOCKS,
-                     SM_SHARED // (self.shared + BLOCK_SHARED_RESERVED))
+                     SM_SHARED // (self.shared + dynamic + BLOCK_SHARED_RESERVED))
         return blocks * warps
 
-    def line(self) -> str:
-        warps = self.resident_warps()
+    def line(self, dynamic: int = 0) -> str:
+        warps = self.resident_warps(dynamic)
         resident = "?" if warps is None else f"{warps}/{SM_WARPS}"
-        return (f"{self.name}: {self.registers} regs, {self.shared} B smem, spills "
+        smem = f"{self.shared} B smem" + (f" + {dynamic} B dynamic" if dynamic else "")
+        return (f"{self.name}: {self.registers} regs, {smem}, spills "
                 f"{self.spill_stores}/{self.spill_loads} B (store/load), {self.threads} threads "
                 f"a block -> {resident} resident warps an SM")
 

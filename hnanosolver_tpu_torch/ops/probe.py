@@ -47,6 +47,11 @@ STAGE_ROWS = 64  # the bisect probes' stage; probe_dmacost's 2056 rows are cut t
 ROW_BYTES = TILE * 4
 # dynamic shared memory one H100 block may use (232,448 bytes)
 SMEM_BYTES = 227 * 1024
+# PG's per-element slab form stages SLAB_COLS columns of every source row
+# (32 bytes: one sector) in one block's shared memory: it holds at most
+# SLAB_MAX_ROWS (7,264) rows, and the direct form takes larger sources
+SLAB_COLS = 8
+SLAB_MAX_ROWS = SMEM_BYTES // (SLAB_COLS * 4)
 
 
 def face_rows(nbr: torch.Tensor) -> torch.Tensor:
@@ -76,11 +81,25 @@ def take_chain(x: torch.Tensor, nbr6: torch.Tensor, reps: int) -> torch.Tensor:
     return s
 
 
+def copy_smem_bytes(onchip_rows: int, n_rows: int) -> int:
+    """Dynamic shared memory a block of PC takes: the stage, the on-chip
+    source's rows, a table of ``n_rows`` row starts and the barrier."""
+    return (STAGE_ROWS + onchip_rows) * ROW_BYTES + 16 * math.ceil(n_rows / 4) + 16
+
+
 def max_onchip_rows(n_rows: int) -> int:
     """The most source rows one block can hold in shared memory beside the
     stage, a table of ``n_rows`` row starts and the barrier:
     :func:`row_copy`'s largest ``onchip_rows``."""
-    return (SMEM_BYTES - STAGE_ROWS * ROW_BYTES - 16 * math.ceil(n_rows / 4) - 16) // ROW_BYTES
+    return (SMEM_BYTES - copy_smem_bytes(0, n_rows)) // ROW_BYTES
+
+
+def first_batch_covers(n: int, span: int, reps: int = 1) -> bool:
+    """True when the first batch of :func:`row_copy`'s copies writes every
+    stage row: its ``min(n, 64 // span)`` copies land in distinct slots
+    (``step`` is prime to ``64 // span``), so it covers the stage exactly
+    when ``n * span >= 64``. PC then skips zeroing the stage."""
+    return reps > 0 and n * span >= STAGE_ROWS
 
 
 def check_copy_args(src: torch.Tensor, rows: torch.Tensor, n: int, span: int, reps: int,
