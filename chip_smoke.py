@@ -229,12 +229,25 @@ exit). Each phase prints the seconds it took.
      first; then its first offset magnitude NARROW_REPEATS times on one
      velocity, every intermediate bitwise the first repeat's and the first
      repeat's outputs unchanged after the last
+ 22. the port's bench (``bench_torch.py``): the bench cell developed as
+     bench_torch develops it (2 steps from rest); ``make_chain`` for the
+     2- and 12-step chains as main paths (its eager warm-up and its
+     capture: 2k steps' launches), the counters across each capture alone
+     exactly k x (2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b); each chain's first
+     replay bitwise the eager chain from the same state, its second replay
+     bitwise its first, no counter moved by a replay; torch.profiler over
+     one replay of the 12-chain sees 24 B1, 24 B2, 120 B3, 12 B7a and 12
+     B7b kernels by name (and prints the replay's device kernels and device
+     ms a step); then ``bench_torch.measure`` at its defaults: its last JSON
+     line, the graph and eager chains' ms a step; last, a capture through
+     the table sampler (``advection.INTERP = "vmem"``), whose window check
+     reads the host, must raise
 
 Phases 6 and 9 print B1's and B3's times beside the records from before
 their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
 14 B1d's, and the bench and config-5 steps'.
 
-Launch counts come only from the main-path runs (phases 4, 7-14, 16-21), each
+Launch counts come only from the main-path runs (phases 4, 7-14, 16-22), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
@@ -273,6 +286,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
+import re
 import statistics
 import struct
 import subprocess
@@ -3051,6 +3066,129 @@ def main() -> int:
                              f"stored {res['stored_changed']} do not repeat bitwise")
     del t21, s21, passes
     done("21")
+
+    # -- 22. the bench's chain as one CUDA graph (bench_torch.py) -----------------
+    import bench_torch
+
+    topo22, s22 = bench_torch.develop()
+    check_state("22", topo22, s22)
+    p22, cfg22 = bench.params, bench.plume
+    per_step = {"B1": 2, "B2": 2, "B3": p22.iterations // p22.effective_halo_lag,
+                "B7a": 1, "B7b": 1}
+
+    def counts_now() -> dict:
+        return {key: k["counter"].n for key, k in kernels.items()}
+
+    def differing(a, b) -> dict:
+        """Field -> max abs difference, for the fields of two states that are
+        not bitwise equal."""
+        pairs = [("velocity", a.velocity, b.velocity)] + [
+            (n_, a.scalars[n_], b.scalars[n_]) for n_ in sorted(a.scalars)]
+        return {n_: float((x - y).abs().max()) for n_, x, y in pairs if not torch.equal(x, y)}
+
+    # the counters across each capture alone: read at capture_begin and
+    # capture_end of the graph make_chain captures (its warm-up runs before)
+    at_capture = []
+    graph_cls = torch.cuda.CUDAGraph
+    real_begin, real_end = graph_cls.capture_begin, graph_cls.capture_end
+
+    def spy_begin(self, *a, **kw):
+        at_capture.append(counts_now())
+        return real_begin(self, *a, **kw)
+
+    def spy_end(self, *a, **kw):
+        out = real_end(self, *a, **kw)
+        at_capture.append(counts_now())
+        return out
+
+    chains = {}
+    for k_ in (bench_torch.K_LO, bench_torch.CHAIN):
+        at_capture.clear()
+        with mock.patch.object(graph_cls, "capture_begin", spy_begin), \
+                mock.patch.object(graph_cls, "capture_end", spy_end), \
+                main_path(f"22 make_chain k={k_}: warm-up and capture", per_step, 2 * k_):
+            chains[k_] = bench_torch.make_chain(topo22, p22, cfg22, s22, k_)
+        across = {key: at_capture[1][key] - at_capture[0][key] for key in KEYS}
+        want = {key: per_step.get(key, 0) * k_ for key in KEYS}
+        print(f"[22] capture of the {k_}-chain: launches {across} (expected {want})", flush=True)
+        if len(at_capture) != 2 or across != want:
+            raise AssertionError(f"phase 22: capture of the {k_}-chain launched {across}, "
+                                 f"expected {want}")
+    for k_, chain in chains.items():
+        before = counts_now()
+        first = bench_torch.clone_state(chain())
+        second = bench_torch.clone_state(chain())
+        torch.cuda.synchronize()
+        moved = {key: n_ - before[key] for key, n_ in counts_now().items() if n_ != before[key]}
+        eager = bench_torch.steps_from(topo22, s22, p22, cfg22, k_)
+        check_state("22", topo22, first)
+        vs_eager, vs_first = differing(first, eager), differing(second, first)
+        print(f"[22] {k_}-chain: replay bitwise the eager chain {not vs_eager}"
+              f"{' ' + str(vs_eager) if vs_eager else ''}; second replay bitwise the first "
+              f"{not vs_first}{' ' + str(vs_first) if vs_first else ''}; counters moved by "
+              f"the replays {moved or 'none'}", flush=True)
+        if vs_eager or vs_first or moved:
+            raise AssertionError(f"phase 22: {k_}-chain replay vs eager {vs_eager}, second vs "
+                                 f"first {vs_first}, counters moved {moved}")
+    # the kernels of one replay of the long chain, by name, on the device
+    names = {"B1": "bfecc_sample_kernel", "B2": "bfecc_tail_kernel",
+             "B3": "rbsor_lagged_kernel", "B7a": "divergence_kernel",
+             "B7b": "subtract_gradient_kernel"}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        chains[bench_torch.CHAIN]()
+        torch.cuda.synchronize()
+    seen, n_all, dev_us = collections.Counter(), 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_all += e.count
+        dev_us += float(e.self_device_time_total)
+        for key, kname in names.items():
+            if re.search(rf"\b{kname}\b", e.key):
+                seen[key] += e.count
+    want = {key: per_step[key] * bench_torch.CHAIN for key in names}
+    print(f"[22] one replay of the {bench_torch.CHAIN}-chain (torch.profiler): kernels by name "
+          f"{dict(seen)} (expected {want}); {n_all} device kernels, "
+          f"{n_all / bench_torch.CHAIN:.1f} a step, device "
+          f"{dev_us / 1e3 / bench_torch.CHAIN:.4f} ms a step | {card}", flush=True)
+    if dict(seen) != want:
+        raise AssertionError(f"phase 22: the replay ran {dict(seen)}, expected {want}")
+    del chains, first, second, eager, prof
+    torch.cuda.empty_cache()
+    # the bench itself, at its defaults
+    lines = []
+    line = bench_torch.measure(emit=lines.append)
+    print(f"[22] bench_torch.measure: {len(lines)} rounds | {card}", flush=True)
+    print(f"[22] bench_torch line: {lines[-1]}", flush=True)
+    print(f"[22] bench: graph {line['step_ms']:.4f} ms/step, {line['value']:.4e} voxel-updates/s;"
+          f" eager {line['eager_step_ms']:.4f} ms/step, "
+          f"{line['active_voxels'] / line['eager_step_ms'] * 1e3:.4e} voxel-updates/s "
+          f"({line['eager_step_ms'] / line['step_ms']:.3f}x the graph's) | {card}", flush=True)
+    got = {key: line[key] for key in ("active_voxels", "capacity_tiles", "develop_steps",
+                                      "pressure_iterations")}
+    want = {"active_voxels": topo22.num_voxels, "capacity_tiles": topo22.capacity,
+            "develop_steps": bench_torch.DEVELOP, "pressure_iterations": p22.iterations}
+    if got != want or not (0 < line["step_ms"] < math.inf and 0 < line["eager_step_ms"] < math.inf):
+        raise AssertionError(f"phase 22: bench line {got} (expected {want}), step_ms "
+                             f"{line['step_ms']}, eager_step_ms {line['eager_step_ms']}")
+    # a capture that meets a host read raises, with nothing falling back to
+    # eager steps: the table sampler's window check reads max|d| on the host
+    planned = topology_mod.ensure_chunk_plans(topo22)
+    with mock.patch.object(advection, "INTERP", "vmem"):
+        try:
+            bench_torch.make_chain(planned, p22, cfg22, s22, 1)
+        except RuntimeError as e:
+            first = e  # the host read's own error, under the capture's end
+            while isinstance(first.__context__, RuntimeError):
+                first = first.__context__
+            print(f"[22] a capture through the table sampler's host read raised "
+                  + "; under it ".join(f"{type(x).__name__}: {str(x).strip().splitlines()[0][:120]}"
+                                       for x in dict.fromkeys((e, first))), flush=True)
+        else:
+            raise AssertionError("phase 22: a capture through a host read did not raise")
+    del topo22, s22, planned
+    done("22")
 
     print(card)
     print(json.dumps({"kernels": [

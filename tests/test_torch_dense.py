@@ -13,7 +13,8 @@ port's own dense oracle, on the CPU.
   the port's sparse ops and ``solver.step`` (the kernels' plain versions on
   the CPU) against the port's ``step_dense``, at JAX's tolerances (1e-5 for
   divergence and advection, 1e-4 for pressure and vorticity, 2e-4 for the
-  full step; bitwise for the box <-> tile round trip).
+  full step; bitwise for the box <-> tile round trip), and of
+  ``tests/test_golden.py``'s five chained steps (5e-4).
 - The full step at 64^3 with config 3's vorticity confinement (scale 2,
   s = 1) and traces of up to 2 voxels: the sparse step within the JAX
   test's 2e-4 of ``step_dense`` run in float64. The float32 oracle is the
@@ -275,6 +276,34 @@ def test_vorticity_parity(setup):
     want = D.vorticity_confinement(vel_d, 0.1, 1.0, 2.0, 1.0)
     got = from_flat_vec(topo, stn.vorticity_confinement(topo, vel_t, 0.1, 1.0, 2.0, 1.0))
     _atol(got, want, 1e-4)
+
+
+def test_five_step_golden():
+    """tests/test_golden.py's five chained full steps, the port's sparse
+    ``solver.step`` against the port's ``step_dense`` at 24^3: a buoyant
+    blob from rest, dt and temperatures that keep traces under the sparse
+    path's clamp (the dense oracle does not clamp). Catches drift that a
+    single step cannot show; atol 5e-4, as there."""
+    x, y, z = np.meshgrid(*(np.arange(N),) * 3, indexing="ij")
+    blob = torch.from_numpy(np.exp(
+        -((x - 12) ** 2 + (y - 6) ** 2 + (z - 12) ** 2) / 16.0).astype(np.float32))
+    vel_d = torch.zeros((N, N, N, 3), dtype=torch.float32)
+    scalars_d = {"density": blob, "temperature": 23.0 + 25.0 * blob, "fuel": 0.5 * blob,
+                 "waste": torch.zeros_like(blob), "flame": torch.zeros_like(blob)}
+    params = SolverParams(dt=0.1, iterations=8, voxel_size=0.5)
+    topo = build_topology_dense((N, N, N), device="cpu")
+    state = FieldState(velocity=to_flat_vec(topo, vel_d).contiguous(),
+                       scalars={k: to_flat_scalar(topo, v) for k, v in scalars_d.items()})
+    for _ in range(5):
+        vel_d, scalars_d = step_dense(vel_d, scalars_d, params)
+        state = step(topo, state, params)
+    _atol(from_flat_vec(topo, state.velocity), vel_d, 5e-4)
+    for k in scalars_d:
+        _atol(from_flat_scalar(topo, state.scalars[k]), scalars_d[k], 5e-4)
+    # physical sanity after 5 steps: the blob rose, every field stayed finite
+    assert float(state.velocity[1].max()) > 0.01
+    assert all(bool(torch.isfinite(f).all())
+               for f in [state.velocity, *state.scalars.values()])
 
 
 def test_full_step_with_vorticity_against_float64_oracle():
