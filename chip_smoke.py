@@ -161,7 +161,7 @@ exit). Each phase prints the seconds it took.
      /step?n=2, /meta, /volume: frame 2, 2 steps' launches) and on the plume
      checkpoint (static: /step is 404); ``utils/profiling.device_trace``
      around one bench step (the port's kernels on the trace's device
-     timeline) and ``utils/timers.Profiler.scope`` (Mvox/s, modeled GB/s);
+     timeline, the program's spans on its host rows and their records) and ``utils/timers.Profiler.scope`` (Mvox/s, modeled GB/s);
      ms a frame of the ortho render at 128^3 and of the perspective render
      at 384^2 x 256 steps
  18. the sliced table path (``advection.INTERP = "vmem"`` above
@@ -2363,17 +2363,25 @@ def main() -> int:
     btopo, bstate = bench_dev
     trace_dir = view_dir / "trace"
     with profiling.device_trace(str(trace_dir)):
-        with profiling.annotate("bench step"):
+        with profiling.span("bench step"):
             plume.plume_step(btopo, bstate, params, cfg)
         torch.cuda.synchronize()
     traces = list(trace_dir.glob("*.json"))
     events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
     hn = sorted({e["name"] for e in events if e.get("cat") == "kernel"
                  and "hn::" in e.get("name", "")})
+    spans = {e.get("name", "") for e in events} & {"bench step", "plume.step", "step.pressure"}
+    launch_spans = sorted({e["name"] for e in events if e.get("name", "").startswith("launch.")})
+    recs = profiling.records()
+    phase_ms = sum(r.device_ms for r in recs if r.name.startswith("step."))
     print(f"[17] device_trace: {[t_.name for t_ in traces]}, {len(events)} events, "
-          f"hand-written kernels on the device timeline: {hn}", flush=True)
+          f"hand-written kernels on the device timeline: {hn}; program spans {sorted(spans)}, "
+          f"{launch_spans}; {len(recs)} records, phases {phase_ms:.3f} device ms", flush=True)
     if not hn:
         raise AssertionError("phase 17: the trace holds no kernel of the port")
+    if len(spans) != 3 or not launch_spans or not phase_ms > 0:
+        raise AssertionError("phase 17: the trace lacks the program's spans")
+    profiling.clear()
     prof = timers.Profiler()
     with prof.scope("bench step", voxels=btopo.num_voxels,
                     bytes_per_voxel=timers.full_step_bytes_per_voxel(params.iterations)) as out:

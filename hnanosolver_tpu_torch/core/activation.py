@@ -27,6 +27,10 @@ from hnanosolver_tpu_torch.core import coords as C
 from hnanosolver_tpu_torch.core.topology import (
     Topology, _round_capacity, active_mask, build_topology)
 from hnanosolver_tpu_torch.fields import COLLISION_FIELD, FieldState
+from hnanosolver_tpu_torch.utils.profiling import Count, span
+
+passes = Count("grow.passes")  # activation passes (expand_for_state calls)
+discarded = Count("grow.discarded")  # passes whose rebuilt topology equalled the old one
 
 
 def _matter(state: FieldState) -> list:
@@ -141,15 +145,28 @@ def expand_for_state(topo: Topology, state: FieldState, threshold: float = 1e-4,
                      padding: Optional[int] = None):
     """One activation pass: (topo, state), the same objects when the tile
     set and the capacity are unchanged. ``padding``: dilation in voxels (the
-    reference SOP's parameter); when set it replaces the tile ``radius``."""
-    if padding is not None:
-        occ, lo, hi = occupied_voxel_bboxes(topo, state, threshold)
-        packed = torch.cat([occ[:, None].to(torch.int32), lo, hi], dim=1).cpu().numpy()
-        new = topology_from_bboxes(topo, packed[:, 0].astype(bool), packed[:, 1:4],
-                                   packed[:, 4:7], padding, keep_tiles=keep_tiles)
-    else:
-        occ = occupied_tile_mask(topo, state, threshold).cpu().numpy()
-        new = topology_from_mask(topo, occ, radius=radius, keep_tiles=keep_tiles)
-    if new.capacity == topo.capacity and torch.equal(new.keys, topo.keys):
+    reference SOP's parameter); when set it replaces the tile ``radius``.
+    Counted in :data:`passes`, and in :data:`discarded` when the rebuilt
+    topology equals the old one; traced (``utils/profiling``), its parts are
+    the spans ``grow.occupancy`` (device reduction and host read-back),
+    ``grow.rebuild`` (host tile set, tables and upload) and ``grow.remap``
+    (device)."""
+    passes.add()
+    with span("grow.occupancy", device=True):
+        if padding is not None:
+            occ, lo, hi = occupied_voxel_bboxes(topo, state, threshold)
+            packed = torch.cat([occ[:, None].to(torch.int32), lo, hi], dim=1).cpu().numpy()
+        else:
+            occ = occupied_tile_mask(topo, state, threshold).cpu().numpy()
+    with span("grow.rebuild"):
+        if padding is not None:
+            new = topology_from_bboxes(topo, packed[:, 0].astype(bool), packed[:, 1:4],
+                                       packed[:, 4:7], padding, keep_tiles=keep_tiles)
+        else:
+            new = topology_from_mask(topo, occ, radius=radius, keep_tiles=keep_tiles)
+        same = new.capacity == topo.capacity and torch.equal(new.keys, topo.keys)
+    if same:
+        discarded.add()
         return topo, state
-    return new, remap_state(topo, new, state)
+    with span("grow.remap", device=True):
+        return new, remap_state(topo, new, state)

@@ -33,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from hnanosolver_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hnanosolver_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -111,21 +113,50 @@ def block_threads(instance: str) -> Optional[int]:
     return BLOCK_THREADS.get(kernel)
 
 
-_COUNT_LOCK = threading.Lock()
+@dataclasses.dataclass(eq=False)
+class LaunchCount(profiling.Count):
+    """Kernel launches made by one wrapper (only where it launches), counted
+    around each ctypes call by :meth:`launch`."""
+
+    def __post_init__(self):
+        self._span = "launch." + self.name
+        self._quiet = _Quiet(self)
+
+    def launch(self):
+        """A context around one ctypes launch: it counts the launch on
+        leaving without an error and, while spans record (see
+        ``utils/profiling.span``), is the host span ``launch.<name>``."""
+        if not profiling.tracing():
+            return self._quiet
+        return _Spanned(self, profiling.Span(self._span, {}))
 
 
-@dataclasses.dataclass
-class LaunchCount:
-    """Kernel launches made by one wrapper (only where it launches). The
-    sharded step launches from several threads, so :meth:`add` takes a
-    lock (``n += 1`` is a read-modify-write)."""
+class _Quiet:
+    __slots__ = ("count",)
 
-    name: str
-    n: int = 0
+    def __init__(self, count: LaunchCount):
+        self.count = count
 
-    def add(self) -> None:
-        with _COUNT_LOCK:
-            self.n += 1
+    def __enter__(self):
+        return None
+
+    def __exit__(self, kind, value, tb):
+        if kind is None:
+            self.count.add()
+
+
+class _Spanned(_Quiet):
+    __slots__ = ("span",)
+
+    def __init__(self, count: LaunchCount, span):
+        self.count, self.span = count, span
+
+    def __enter__(self):
+        self.span.__enter__()
+
+    def __exit__(self, kind, value, tb):
+        self.span.__exit__(kind, value, tb)
+        super().__exit__(kind, value, tb)
 
 
 @dataclasses.dataclass(frozen=True)

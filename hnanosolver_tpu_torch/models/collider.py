@@ -28,6 +28,7 @@ from hnanosolver_tpu_torch.fields import COLLISION_FIELD, FieldState, zeros_stat
 from hnanosolver_tpu_torch.models import plume as P
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.solver import step
+from hnanosolver_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +63,16 @@ def collider_step(topo: Topology, state: FieldState, params: SolverParams,
                   cfg: P.PlumeConfig, col: ColliderConfig, frame: int,
                   hierarchy: tuple = ()) -> FieldState:
     """Refresh the animated SDF for ``frame``, emit, and take one solver
-    step (``params.has_collision`` must be set for the SDF to act)."""
-    center = collider_center(col, frame, params.dt, topo.device)
-    state = state.with_scalar(COLLISION_FIELD, sphere_sdf(topo, center, col.radius))
-    state = P.emit(topo, state, cfg, params.dt)
-    return step(topo, state, params, hierarchy)
+    step (``params.has_collision`` must be set for the SDF to act). Traced
+    (``utils/profiling``), the span ``collider.step`` starts a frame and
+    holds the device span ``step.emit`` (the SDF's refresh and the emit)
+    and the step's phase spans."""
+    with profiling.frame("collider.step"):
+        with profiling.span("step.emit", device=True):
+            center = collider_center(col, frame, params.dt, topo.device)
+            state = state.with_scalar(COLLISION_FIELD, sphere_sdf(topo, center, col.radius))
+            state = P.emit(topo, state, cfg, params.dt)
+        return step(topo, state, params, hierarchy)
 
 
 collider_step_donated = collider_step  # donation is an XLA buffer concept (solver.step_donated)
@@ -132,7 +138,8 @@ def run_collider(
                 topo, state, threshold=cfg.occupancy_threshold, radius=cfg.dilate_radius,
                 keep_tiles=keep, padding=cfg.padding)
             if topo is not prev:
-                hier = hierarchy_for(topo, params)
+                with profiling.span("grow.hierarchy"):
+                    hier = hierarchy_for(topo, params)
         if on_frame is not None:
             on_frame(f, topo, state)
     return topo, state

@@ -21,6 +21,7 @@ from hnanosolver_tpu_torch.core.topology import Topology, active_mask, build_top
 from hnanosolver_tpu_torch.fields import FieldState, zeros_state
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.solver import step
+from hnanosolver_tpu_torch.utils.profiling import frame, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +97,13 @@ def emit(topo: Topology, state: FieldState, cfg: FireConfig, dt: float) -> Field
 
 def fire_step(topo: Topology, state: FieldState, params: SolverParams, cfg: FireConfig,
               hierarchy: tuple = ()) -> FieldState:
-    """Emit + one full solver step."""
-    return step(topo, emit(topo, state, cfg, params.dt), params, hierarchy)
+    """Emit + one full solver step. Traced (``utils/profiling``), the span
+    ``fire.step`` starts a frame and holds the device span ``step.emit`` and
+    the step's phase spans."""
+    with frame("fire.step"):
+        with span("step.emit", device=True):
+            state = emit(topo, state, cfg, params.dt)
+        return step(topo, state, params, hierarchy)
 
 
 fire_step_donated = fire_step  # donation is an XLA buffer concept (solver.step_donated)
@@ -127,7 +133,8 @@ def run_fire(frames: int, params: Optional[SolverParams] = None,
                 topo, state, threshold=cfg.occupancy_threshold, radius=cfg.dilate_radius,
                 keep_tiles=keep, padding=cfg.padding)
             if topo is not prev:
-                hier = hierarchy_for(topo, params)
+                with span("grow.hierarchy"):
+                    hier = hierarchy_for(topo, params)
         if on_frame is not None:
             on_frame(f, topo, state)
     return topo, state

@@ -20,6 +20,7 @@ from hnanosolver_tpu_torch.core.topology import Topology, active_mask, build_top
 from hnanosolver_tpu_torch.fields import FieldState, zeros_state
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.solver import step
+from hnanosolver_tpu_torch.utils.profiling import frame, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +101,13 @@ def emit(topo: Topology, state: FieldState, cfg: PlumeConfig, dt: float) -> Fiel
 def plume_step(topo: Topology, state: FieldState, params: SolverParams,
                cfg: PlumeConfig, hierarchy: tuple = ()) -> FieldState:
     """Emit + one full solver step. ``hierarchy``: from
-    ``ops.multigrid.hierarchy_for`` when params selects multigrid."""
-    return step(topo, emit(topo, state, cfg, params.dt), params, hierarchy)
+    ``ops.multigrid.hierarchy_for`` when params selects multigrid. Traced
+    (``utils/profiling``), the span ``plume.step`` starts a frame and holds
+    the device span ``step.emit`` and the step's phase spans."""
+    with frame("plume.step"):
+        with span("step.emit", device=True):
+            state = emit(topo, state, cfg, params.dt)
+        return step(topo, state, params, hierarchy)
 
 
 plume_step_donated = plume_step  # donation is an XLA buffer concept (solver.step_donated)
@@ -120,7 +126,9 @@ def run_plume(
 ):
     """Frame loop: step, then every ``grow_every`` frames (0: never)
     re-activate the topology around the matter, keeping the emitter's
-    tiles. Returns (topo, state). ``device`` (default: the CUDA card) is
+    tiles (the growth pass's spans and counts: ``core/activation.py``; the
+    new topology's multigrid hierarchy is the host span ``grow.hierarchy``).
+    Returns (topo, state). ``device`` (default: the CUDA card) is
     used only when ``topo`` is not given. ``interrupter``
     (``utils/interrupt.Interrupter``) is polled before each frame; once it
     trips, the loop stops and returns the last completed state."""
@@ -142,7 +150,8 @@ def run_plume(
                 topo, state, threshold=cfg.occupancy_threshold, radius=cfg.dilate_radius,
                 keep_tiles=keep, padding=cfg.padding)
             if topo is not prev:
-                hier = hierarchy_for(topo, params)
+                with span("grow.hierarchy"):
+                    hier = hierarchy_for(topo, params)
         if on_frame is not None:
             on_frame(f, topo, state)
     return topo, state

@@ -48,6 +48,7 @@ from hnanosolver_tpu_torch.fields import (
 from hnanosolver_tpu_torch.ops.advection import cfl_clamped_count
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.solver import step
+from hnanosolver_tpu_torch.utils.profiling import frame, span
 
 
 @dataclasses.dataclass
@@ -276,7 +277,10 @@ def run_solve(
     CFL clamp (``cfl_guard``; the count is warned, since there the trace
     deviates from the reference's unbounded one), step, then re-activate
     the topology around the matter, keeping the source and collision
-    tiles, and re-scatter the SDF onto a changed topology."""
+    tiles, and re-scatter the SDF onto a changed topology. Traced
+    (``utils/profiling``), the span ``solve.step`` is a frame: the device
+    span ``step.emit`` (the source and the CFL count), then the step's
+    phase spans; the growth pass's spans follow it."""
     if inp.sdf is not None:
         params = dataclasses.replace(params, has_collision=True)
     if topo is None or state is None:
@@ -292,22 +296,25 @@ def run_solve(
     for f in range(frames):
         if interrupter is not None and interrupter.was_interrupted():
             break
-        if inp.has_source:
-            # per-cook compSum sourcing (SOP_HNanoSolver.cpp:161-181)
-            state = source_into(state, _source_state(topo, inp))
-        if cfl_guard:
-            ncl = int(cfl_clamped_count(topo, state.velocity, params.dt,
-                                        params.inv_voxel_size))
-            if ncl:
-                warn(f"WARNING frame {f + 1}: CFL clamp engaged on {ncl} voxels (|u|*dt/dx "
-                     f"near/over 7) — traces deviate from the reference's unbounded "
-                     f"backtrace; reduce dt or increase voxel size")
-        state = step(topo, state, params, hier)
+        with frame("solve.step"):
+            with span("step.emit", device=True):
+                if inp.has_source:
+                    # per-cook compSum sourcing (SOP_HNanoSolver.cpp:161-181)
+                    state = source_into(state, _source_state(topo, inp))
+                if cfl_guard:
+                    ncl = int(cfl_clamped_count(topo, state.velocity, params.dt,
+                                                params.inv_voxel_size))
+                    if ncl:
+                        warn(f"WARNING frame {f + 1}: CFL clamp engaged on {ncl} voxels "
+                             f"(|u|*dt/dx near/over 7) — traces deviate from the reference's "
+                             f"unbounded backtrace; reduce dt or increase voxel size")
+            state = step(topo, state, params, hier)
         prev = topo
         topo, state = expand_for_state(topo, state, threshold=threshold, keep_tiles=keep,
                                        padding=padding)
         if topo is not prev:
-            hier = hierarchy_for(topo, params)
+            with span("grow.hierarchy"):
+                hier = hierarchy_for(topo, params)
             if inp.sdf is not None:
                 # the SDF is a cook input: re-scatter (newly active rows
                 # would otherwise read 0 = "on the solid surface")

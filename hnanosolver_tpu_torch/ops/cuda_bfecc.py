@@ -60,13 +60,12 @@ def bfecc_sample(nbr: torch.Tensor, fields: torch.Tensor, sdt: float, f_lo: int,
     nb, T, _ = fields.shape
     out = torch.empty((2, nb - f_lo, T, TILE), dtype=torch.float32,
                       device=fields.device)
-    with torch.cuda.device(fields.device):
+    with torch.cuda.device(fields.device), launches.launch():
         code = build.library().hn_bfecc_sample(
             fields.data_ptr(), None if sdf is None else sdf.data_ptr(), nbr.data_ptr(),
             out.data_ptr(), T, nb, f_lo, float(sdt), DISP_LIMIT,
             build.stream_ptr(fields.device))
-    build.check(code, "bfecc_sample")
-    launches.add()
+        build.check(code, "bfecc_sample")
     return out[0], out[1]
 
 
@@ -142,7 +141,7 @@ def bfecc_sample_dual(tbl: torch.Tensor, ldual: torch.Tensor, vd: torch.Tensor, 
     n = nb - f_lo
     out = torch.empty((2 * n if mode == "both" else n, T, TILE), dtype=torch.float32,
                       device=vd.device)
-    with torch.cuda.device(vd.device):
+    with torch.cuda.device(vd.device), launches_dual.launch():
         if mode == "both":
             code = build.library().hn_bfecc_sample_dual(
                 tbl.data_ptr(), ldual.data_ptr(), vd.data_ptr(), out.data_ptr(), T, C, Ud,
@@ -152,8 +151,7 @@ def bfecc_sample_dual(tbl: torch.Tensor, ldual: torch.Tensor, vd: torch.Tensor, 
                 tbl.data_ptr(), ldual.data_ptr(), vd.data_ptr(), out.data_ptr(), T, C, Ud,
                 nf, f_lo, n, int(mode == "back"), float(sdt), DISP_LIMIT,
                 build.stream_ptr(vd.device))
-    build.check(code, "bfecc_sample_dual")
-    launches_dual.add()
+        build.check(code, "bfecc_sample_dual")
     return (out[:n], out[n:]) if mode == "both" else out
 
 

@@ -95,12 +95,11 @@ def rbsor_lagged(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor,
         return rbsor_lagged_plain(nbr, p, div, pairs, omega, dx2, mask)
     build.require_aligned((p, div, mask), "rbsor_lagged", 16)  # float4 loads
     out = torch.empty_like(p)
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(p.device), launches_lagged.launch():
         code = build.library().hn_rbsor_lagged(
             p.data_ptr(), div.data_ptr(), nbr.data_ptr(), _ptr(mask), out.data_ptr(),
             T, int(pairs), float(omega), float(dx2), build.stream_ptr(p.device))
-    build.check(code, "rbsor_lagged")
-    launches_lagged.add()
+        build.check(code, "rbsor_lagged")
     return out
 
 
@@ -136,12 +135,11 @@ def rbsor_color(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor, color: in
         raise ValueError(f"color must be 0 or 1, got {color}")
     if build.on_cpu(p.device):
         return p.copy_(rbsor_color_plain(nbr, p, div, color, omega, dx2, mask))
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(p.device), launches_color.launch():
         code = build.library().hn_rbsor_color(
             p.data_ptr(), div.data_ptr(), nbr.data_ptr(), _ptr(mask), T, int(color),
             float(omega), float(dx2), build.stream_ptr(p.device))
-    build.check(code, "rbsor_color")
-    launches_color.add()
+        build.check(code, "rbsor_color")
     return p
 
 
@@ -219,20 +217,19 @@ def _launch_fused(shape: FusedShape, nbr, div, iterations, omega, dx2, p0, mask)
     another form or the plain version)."""
     build.require_aligned((p0, div, mask), "rbsor_fused", 16)  # float4 loads
     out = torch.empty_like(div)
-    with torch.cuda.device(div.device):
+    with torch.cuda.device(div.device), launches_fused.launch():
         code = build.library().hn_rbsor_fused(
             p0.data_ptr(), div.data_ptr(), nbr.data_ptr(), _ptr(mask), out.data_ptr(),
             shape.T, int(iterations), float(omega), float(dx2), *shape.args(),
             build.stream_ptr(div.device))
-    if code == _COOPERATIVE_LAUNCH_TOO_LARGE:
-        raise RuntimeError(f"rbsor_fused: grid of T={shape.T} tiles not co-resident (a bug in "
-                           "the grid sizing: it is capped at the occupancy limit)")
-    if code == _CLUSTER_NOT_RESIDENT:
-        raise RuntimeError(f"rbsor_fused: the card holds no cluster of {shape.cluster} blocks "
-                           f"x {shape.threads} threads with {shape.smem} B of shared memory "
-                           "each (cudaOccupancyMaxActiveClusters = 0)")
-    build.check(code, "rbsor_fused")
-    launches_fused.add()
+        if code == _COOPERATIVE_LAUNCH_TOO_LARGE:
+            raise RuntimeError(f"rbsor_fused: grid of T={shape.T} tiles not co-resident (a bug in "
+                               "the grid sizing: it is capped at the occupancy limit)")
+        if code == _CLUSTER_NOT_RESIDENT:
+            raise RuntimeError(f"rbsor_fused: the card holds no cluster of {shape.cluster} blocks "
+                               f"x {shape.threads} threads with {shape.smem} B of shared memory "
+                               "each (cudaOccupancyMaxActiveClusters = 0)")
+        build.check(code, "rbsor_fused")
     return out
 
 

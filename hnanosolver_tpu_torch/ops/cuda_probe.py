@@ -81,10 +81,9 @@ def _rows(x: torch.Tensor) -> int:
 
 
 def _launch(entry: str, counter: build.LaunchCount, device, *args) -> None:
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), counter.launch():
         code = getattr(build.library(), entry)(*args, build.stream_ptr(device))
-    build.check(code, entry)
-    counter.add()
+        build.check(code, entry)
 
 
 def take_along_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

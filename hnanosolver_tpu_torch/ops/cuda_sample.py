@@ -37,12 +37,11 @@ def sample_at(nbr: torch.Tensor, fields: torch.Tensor, d: torch.Tensor) -> torch
     out = torch.empty_like(fields)
     for g in range(0, n, MAX_FIELDS):
         k = min(MAX_FIELDS, n - g)
-        with torch.cuda.device(fields.device):
+        with torch.cuda.device(fields.device), launches.launch():
             code = build.library().hn_sample_at(
                 fields[g].data_ptr(), d.data_ptr(), nbr.data_ptr(), out[g].data_ptr(), T, k,
                 build.stream_ptr(fields.device))
-        build.check(code, "sample_at")
-        launches.add()
+            build.check(code, "sample_at")
     return out
 
 

@@ -40,12 +40,11 @@ def residual(nbr: torch.Tensor, p: torch.Tensor, div: torch.Tensor, dx: float) -
     if build.on_cpu(p.device):
         return residual_plain(nbr, p, div, dx)
     out = torch.empty_like(p)
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(p.device), launches_residual.launch():
         code = build.library().hn_residual(
             p.data_ptr(), div.data_ptr(), nbr.data_ptr(), out.data_ptr(), T,
             float(dx) * float(dx), build.stream_ptr(p.device))
-    build.check(code, "residual")
-    launches_residual.add()
+        build.check(code, "residual")
     return out
 
 
@@ -73,12 +72,11 @@ def divergence(nbr: torch.Tensor, vel: torch.Tensor, inv_dx: float) -> torch.Ten
     if build.on_cpu(vel.device):
         return divergence_plain(nbr, vel, inv_dx)
     out = torch.empty((T, TILE), dtype=torch.float32, device=vel.device)
-    with torch.cuda.device(vel.device):
+    with torch.cuda.device(vel.device), launches_div.launch():
         code = build.library().hn_divergence(
             vel.data_ptr(), nbr.data_ptr(), out.data_ptr(), T, float(0.5 * inv_dx),
             build.stream_ptr(vel.device))
-    build.check(code, "divergence")
-    launches_div.add()
+        build.check(code, "divergence")
     return out
 
 
@@ -106,12 +104,11 @@ def subtract_gradient(nbr: torch.Tensor, vel: torch.Tensor, p: torch.Tensor,
     if build.on_cpu(vel.device):
         return subtract_gradient_plain(nbr, vel, p, inv_dx)
     out = torch.empty_like(vel)
-    with torch.cuda.device(vel.device):
+    with torch.cuda.device(vel.device), launches_subgrad.launch():
         code = build.library().hn_subtract_gradient(
             vel.data_ptr(), p.data_ptr(), nbr.data_ptr(), out.data_ptr(), T,
             float(0.5 * inv_dx), build.stream_ptr(vel.device))
-    build.check(code, "subtract_gradient")
-    launches_subgrad.add()
+        build.check(code, "subtract_gradient")
     return out
 
 

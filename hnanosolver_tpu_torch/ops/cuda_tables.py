@@ -46,12 +46,11 @@ def build_table_dual_combine(tbl27: torch.Tensor, dloc: torch.Tensor, nf: int) -
     nc, Unf = tbl27.shape[:2]
     Ud = dloc.shape[1]
     out = torch.empty((nc, Ud * nf, 8, 64), dtype=torch.float32, device=tbl27.device)
-    with torch.cuda.device(tbl27.device):
+    with torch.cuda.device(tbl27.device), launches.launch():
         code = build.library().hn_combine_dual(
             tbl27.data_ptr(), dloc.data_ptr(), out.data_ptr(), nc, Unf // nf, Ud, nf,
             build.stream_ptr(tbl27.device))
-    build.check(code, "combine_dual")
-    launches.add()
+        build.check(code, "combine_dual")
     return out
 
 

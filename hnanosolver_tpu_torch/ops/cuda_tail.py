@@ -31,12 +31,11 @@ def bfecc_tail(nbr: torch.Tensor, phi0s: torch.Tensor, pfs: torch.Tensor,
     if build.on_cpu(phi0s.device):
         return bfecc_tail_plain(nbr, phi0s, pfs, pbs)
     out = torch.empty_like(phi0s)
-    with torch.cuda.device(phi0s.device):
+    with torch.cuda.device(phi0s.device), launches.launch():
         code = build.library().hn_bfecc_tail(
             phi0s.data_ptr(), pfs.data_ptr(), pbs.data_ptr(), nbr.data_ptr(),
             out.data_ptr(), F, T, build.stream_ptr(phi0s.device))
-    build.check(code, "bfecc_tail")
-    launches.add()
+        build.check(code, "bfecc_tail")
     return out
 
 

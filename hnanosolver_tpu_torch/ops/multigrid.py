@@ -8,6 +8,10 @@ device. Counterpart of ``hnanosolver_tpu/ops/multigrid.py``:
   default, piecewise-constant injection as ``prolong``.
 - Smoother and coarsest solve: ``ops/pressure.solve_pressure`` (kernels
   B3, B4, B5 by level size), residual: kernel B6.
+- Traced (``utils/profiling``), every restriction and prolongation is a
+  device span ``mg.restrict`` / ``mg.prolong`` whose ``level`` is the
+  coarse level it restricts to or prolongs from (1 the first below the
+  fine level).
 - Each coarse level carries an in-domain voxel mask restricted from the
   fine domain (mode "all" by default: a coarse voxel is in the domain when
   all of its 2^3 fine voxels are).
@@ -38,6 +42,7 @@ from hnanosolver_tpu_torch.core import coords as C
 from hnanosolver_tpu_torch.core.topology import Topology, build_topology
 from hnanosolver_tpu_torch.ops import pressure as prs
 from hnanosolver_tpu_torch.ops import shifts as sh
+from hnanosolver_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,9 +240,11 @@ def v_cycle(
     refresh=None,
     coarse_reduce=None,
     smooth_lag: bool | str = "pair",
+    level: int = 0,
 ) -> torch.Tensor:
     """One V-cycle recursing down ``hierarchy``. ``mask`` is THIS level's
-    in-domain voxel mask (None at the fine level).
+    in-domain voxel mask (None at the fine level); ``level`` is this level's
+    depth (0 the fine one), the ``level`` attribute of the transfers' spans.
 
     ``smooth_lag``: the smoothers' halo granularity above MAX_FUSED_ROWS
     tiles: "pair" (default) one lagged B3 block per red+black pair; True
@@ -271,16 +278,17 @@ def v_cycle(
     r = prs.residual(topo, p, div, dx)
     if mask is not None:
         r = r * mask
-    rc = restrict(lvl, r)
+    with span("mg.restrict", device=True, level=level + 1):
+        rc = restrict(lvl, r)
     if coarse_reduce is not None:
         rc = coarse_reduce(rc)
     rc = rc * lvl.mask
     ec = v_cycle(lvl.topo, hierarchy[1:], rc, torch.zeros_like(rc), dx * 2.0, omega,
-                 n_pre, n_post, n_coarsest, prolongation, lvl.mask, smooth_lag=smooth_lag)
-    if prolongation == "trilinear":
-        p = p + prolong_trilinear(lvl, ec)
-    else:
-        p = p + prolong(lvl, ec)
+                 n_pre, n_post, n_coarsest, prolongation, lvl.mask, smooth_lag=smooth_lag,
+                 level=level + 1)
+    with span("mg.prolong", device=True, level=level + 1):
+        p = p + (prolong_trilinear(lvl, ec) if prolongation == "trilinear"
+                 else prolong(lvl, ec))
     if lag.get("halo_lag") is not None:
         lag["halo_lag"] = n_post
     return prs.solve_pressure(topo, div, n_post, dx, omega, p0=p, mask=mask, refresh=refresh,
@@ -310,7 +318,8 @@ def fmg_initial_guess(
     coarse solution is replicated)."""
     divs = [div]
     for i, lvl in enumerate(hierarchy):
-        r = restrict(lvl, divs[-1])
+        with span("mg.restrict", device=True, level=i + 1):
+            r = restrict(lvl, divs[-1])
         if i == 0 and coarse_reduce is not None:
             r = coarse_reduce(r)
         divs.append(r * lvl.mask)
@@ -319,7 +328,8 @@ def fmg_initial_guess(
                            omega, mask=last.mask)
     for k in reversed(range(len(hierarchy))):
         lvl = hierarchy[k]
-        p = prolong_trilinear(lvl, p) if prolongation == "trilinear" else prolong(lvl, p)
+        with span("mg.prolong", device=True, level=k + 1):
+            p = prolong_trilinear(lvl, p) if prolongation == "trilinear" else prolong(lvl, p)
         t_k = topo if k == 0 else hierarchy[k - 1].topo
         m_k = None if k == 0 else hierarchy[k - 1].mask
         if m_k is not None:
@@ -328,7 +338,7 @@ def fmg_initial_guess(
                     n_pre, n_post, n_coarsest, prolongation, m_k,
                     refresh=refresh if k == 0 else None,
                     coarse_reduce=coarse_reduce if k == 0 else None,
-                    smooth_lag=smooth_lag)
+                    smooth_lag=smooth_lag, level=k)
     return p
 
 

@@ -17,6 +17,12 @@
      ``collision_sdf``, which is carried over unchanged
  11. null and padding rows zeroed (``mask_state``)
 
+Each phase runs inside a device span of ``utils/profiling`` (on only
+while a profiler records): ``step.collide`` (1), ``step.advect_velocity``
+(2), ``step.forces`` (3-6), ``step.pressure`` (7), ``step.project`` (8-9),
+``step.advect_scalars`` (10) and ``step.mask`` (11); nothing of the step
+is launched outside them.
+
 The collision SDF is the ``collision_sdf`` scalar, used when
 ``params.has_collision`` is set; without that field the step runs without
 collision, as the JAX package's does.
@@ -43,6 +49,7 @@ from hnanosolver_tpu_torch.ops import combustion as comb
 from hnanosolver_tpu_torch.ops import multigrid as mg
 from hnanosolver_tpu_torch.ops import pressure as prs
 from hnanosolver_tpu_torch.ops import stencil as stn
+from hnanosolver_tpu_torch.utils.profiling import span
 
 
 def _require_combustion_fields(state: FieldState):
@@ -77,53 +84,59 @@ def step_impl(topo: Topology, state: FieldState, params: SolverParams,
     sdf = state.sdf() if params.has_collision else None
     vel = state.velocity
     if sdf is not None:
-        vel = refresh(col.enforce_collision(topo, vel, sdf, inv_dx))
+        with span("step.collide", device=True):
+            vel = refresh(col.enforce_collision(topo, vel, sdf, inv_dx))
 
-    u_star = refresh(adv.advect_velocity(topo, vel, dt, inv_dx, sdf))
-    u_star = refresh(stn.vorticity_confinement(
-        topo, u_star, dt, inv_dx, c.vorticity_scale, c.factor_scale))
+    with span("step.advect_velocity", device=True):
+        u_star = refresh(adv.advect_velocity(topo, vel, dt, inv_dx, sdf))
+    with span("step.forces", device=True):
+        u_star = refresh(stn.vorticity_confinement(
+            topo, u_star, dt, inv_dx, c.vorticity_scale, c.factor_scale))
+        div = stn.divergence(topo, u_star, inv_dx)
+        fuel, waste, temp, flame, div = comb.combustion_oxygen(
+            state.scalars["fuel"], state.scalars["waste"],
+            state.scalars["temperature"], state.scalars["flame"],
+            div, c.temperature_release, c.expansion_rate)
+        # buoyancy reads the POST-combustion temperature
+        u_star = comb.temperature_buoyancy(
+            u_star, temp, dt, c.ambient_temp, c.buoyancy_strength)
+        div = refresh(div)
 
-    div = stn.divergence(topo, u_star, inv_dx)
-    fuel, waste, temp, flame, div = comb.combustion_oxygen(
-        state.scalars["fuel"], state.scalars["waste"],
-        state.scalars["temperature"], state.scalars["flame"],
-        div, c.temperature_release, c.expansion_rate)
-    # buoyancy reads the POST-combustion temperature
-    u_star = comb.temperature_buoyancy(
-        u_star, temp, dt, c.ambient_temp, c.buoyancy_strength)
-
-    div = refresh(div)
     rf_solver = None if refresh is _identity else refresh
-    # "mg" with an empty hierarchy runs the RBGS solve: the JAX package's
-    # own semantics (hnanosolver_tpu/solver.py:128), not a fallback
-    if params.pressure_solver == "mg" and hierarchy:
-        p = mg.solve_pressure_mg(
-            topo, list(hierarchy), div, params.iterations, params.voxel_size,
-            params.omega, tol=params.mg_tol, refresh=rf_solver, coarse_reduce=coarse_reduce,
-            fmg=params.mg_fmg, tol_reduce=tol_reduce, n_pre=params.mg_pre,
-            n_post=params.mg_post, n_coarsest=params.mg_coarsest)
-    else:
-        p = prs.solve_pressure(topo, div, params.iterations, params.voxel_size,
-                               params.omega, refresh=rf_solver,
-                               halo_lag=params.effective_halo_lag)
-    p = refresh(p)
-    u_star = refresh(u_star)
-    vel_out = stn.subtract_pressure_gradient(topo, u_star, p, inv_dx)
-    if sdf is not None:
-        # the gradient subtraction's collision tail, then the reference's
-        # second enforceCollisionBoundaries launch
-        vel_out = col.enforce_collision(topo, vel_out, sdf, inv_dx)
-        vel_out = col.enforce_collision(topo, vel_out, sdf, inv_dx)
-    vel_out = refresh(vel_out)
+    with span("step.pressure", device=True):
+        # "mg" with an empty hierarchy runs the RBGS solve: the JAX package's
+        # own semantics (hnanosolver_tpu/solver.py:128), not a fallback
+        if params.pressure_solver == "mg" and hierarchy:
+            p = mg.solve_pressure_mg(
+                topo, list(hierarchy), div, params.iterations, params.voxel_size,
+                params.omega, tol=params.mg_tol, refresh=rf_solver,
+                coarse_reduce=coarse_reduce, fmg=params.mg_fmg, tol_reduce=tol_reduce,
+                n_pre=params.mg_pre, n_post=params.mg_post, n_coarsest=params.mg_coarsest)
+        else:
+            p = prs.solve_pressure(topo, div, params.iterations, params.voxel_size,
+                                   params.omega, refresh=rf_solver,
+                                   halo_lag=params.effective_halo_lag)
+        p = refresh(p)
+    with span("step.project", device=True):
+        u_star = refresh(u_star)
+        vel_out = stn.subtract_pressure_gradient(topo, u_star, p, inv_dx)
+        if sdf is not None:
+            # the gradient subtraction's collision tail, then the reference's
+            # second enforceCollisionBoundaries launch
+            vel_out = col.enforce_collision(topo, vel_out, sdf, inv_dx)
+            vel_out = col.enforce_collision(topo, vel_out, sdf, inv_dx)
+        vel_out = refresh(vel_out)
 
-    to_advect = dict(state.scalars)
-    to_advect.update(fuel=fuel, waste=waste, temperature=temp, flame=flame)
-    sdf_in = to_advect.pop(COLLISION_FIELD, None)
-    to_advect = {k: refresh(v) for k, v in to_advect.items()}
-    advected = adv.advect_scalars_fused(topo, vel_out, to_advect, dt, inv_dx, sdf)
+    with span("step.advect_scalars", device=True):
+        to_advect = dict(state.scalars)
+        to_advect.update(fuel=fuel, waste=waste, temperature=temp, flame=flame)
+        sdf_in = to_advect.pop(COLLISION_FIELD, None)
+        to_advect = {k: refresh(v) for k, v in to_advect.items()}
+        advected = adv.advect_scalars_fused(topo, vel_out, to_advect, dt, inv_dx, sdf)
     if sdf_in is not None:
         advected[COLLISION_FIELD] = sdf_in  # preserved, not zeroed
-    return mask_state(topo, FieldState(velocity=vel_out, scalars=advected))
+    with span("step.mask", device=True):
+        return mask_state(topo, FieldState(velocity=vel_out, scalars=advected))
 
 
 step = step_impl

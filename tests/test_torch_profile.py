@@ -84,7 +84,7 @@ def test_markdown_table_equals_jax():
 def test_timers_and_trace_on_the_cpu(tmp_path, capsys):
     """Host-clock seconds on the CPU: positive, and a scope's record
     printed in TimerRecord's form; device_trace writes a Chrome trace with
-    the annotated range in it."""
+    the program span's range in it."""
     x = torch.ones(64, 64)
     prof = ttim.Profiler(verbose=True)
     with prof.scope("matmul", voxels=4096, bytes_per_voxel=8) as out:
@@ -95,7 +95,7 @@ def test_timers_and_trace_on_the_cpu(tmp_path, capsys):
     assert ttim.time_chained(lambda v: v * 0.5 + 1.0, x, n_steps=4, repeats=2) > 0
     assert tpp.time_chained(lambda v: (v[0] + 1.0, v[1]), (x, x), 2, 4, 2) > 0
     with tprof.device_trace(str(tmp_path / "tr")) as d:
-        with tprof.annotate("phase:matmul"):
+        with tprof.span("phase:matmul"):
             (x @ x).sum()
     files = os.listdir(d)
     assert len(files) == 1 and files[0].endswith(".json")
