@@ -30,7 +30,12 @@ exit). Each phase prints the seconds it took.
      grid form, 128 and 32 in the cluster form), at CLUSTER_ROWS (the
      cluster form's largest T), CLUSTER_ROWS + 1 and 2048 (the grid form),
      with and without a mask, for 0, 2 and 24 iterations, and the cluster
-     form where the null row is not 0
+     form where the null row is not 0; multigrid's transfers MR and MP
+     bitwise in every form (masks fused or not, MP with p and in the FMG
+     form) on a planted level whose coarse tile's +y and +z face tiles are
+     absent while the corner beyond them exists (every row random, padding
+     rows too), on the bench hierarchy and on each slab's maps of a 4-slab
+     decomposition (``children_local``, ``parent_global`` with ghost rows)
   4. the main path: plume_step for 20 steps from rest on the bench domain
      with the bench SolverParams / PlumeConfig, launch counters reset just
      before and read just after (exactly 2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b
@@ -47,7 +52,7 @@ exit). Each phase prints the seconds it took.
      bitwise), timings; B5's and B6's ms a step beside their bound and
      their records from before the redesign; B5's us a half-sweep and a
      launch at each T of the step, fitted from 2 and 24 iterations on the
-     recorded inputs, in each form that holds T
+     recorded inputs, in each form that holds T; 9 MR and 9 MP a step
   8. one bench step in the "parity" precision tier (halo_lag 1: 100 B4
      colour sweeps), kernels vs plain, each B4 call vs plain, B4's time
   9. BASELINE config 5 at full size, steps through the kernels only (no
@@ -58,7 +63,10 @@ exit). Each phase prints the seconds it took.
      of one RBGS-50 step (B1, B2, B3, B7a, B7b, a kernel at a time) against
      its plain version, and the kernels' times against their HBM bounds;
      B5's and B6's MG ms a step beside their records, and B5's fits as in
-     phase 7
+     phase 7; the MG step's 30 MR and 30 MP calls (config 5's five levels,
+     on the developed residual and correction) bitwise their plain
+     versions in every form, their ms beside the plain chain's and their
+     bound, level 1's apart
  10. BASELINE config 4, the moving SDF sphere crossing the bench plume:
      run_collider for 20 frames from rest with exact launch counts (2 B1
      with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b per step); after every frame
@@ -325,7 +333,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
-KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC")
+KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC", "MR",
+        "MP")
+BITWISE = ("B5", "B6", "MR", "MP")  # kernels held to torch.equal with their plain versions
 PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 # Records from before kernels were redesigned (PERF.md §5-6, NVIDIA H100 80GB
 # HBM3 at 700 W), printed beside this run's: ms a step of the bench and
@@ -425,6 +435,10 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
         return 5.5  # half the voxels update
     if key == "B5":
         return 11.0 * args[2]
+    if key == "MR":  # a coarse voxel: 7 adds, the 1/8, 8 + 1 mask products
+        return 8.0 + 8 * (args[2] is not None) + (args[3] is not None)
+    if key == "MP":  # a fine voxel: 7 blends of 3 operations, the add, the mask
+        return 21.0 + (args[4] is not None) + (args[5] is not None)
     return 9.0  # B6
 
 
@@ -507,8 +521,8 @@ def main() -> int:
     from hnanosolver_tpu_torch.config import SolverParams
     from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
                                            cuda_pressure, cuda_probe, cuda_sample, cuda_stencil,
-                                           cuda_tables, cuda_tail, multigrid, probe, stencil,
-                                           tables)
+                                           cuda_tables, cuda_tail, cuda_transfer, multigrid,
+                                           probe, stencil, tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
     from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
     from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, pc_cost,
@@ -607,6 +621,15 @@ def main() -> int:
                    replaces="tools/probe_dmabisect.py:39, :164; tools/probe_dmabisect2.py:59, "
                             ":81, :113, :149, :184, :222; tools/probe_dmacost.py:89, :134",
                    counter=cuda_probe.launches_copy, wrap=(cuda_probe, "row_copy")),
+        "MR": dict(name="mg_restrict", source=src + "mg_transfer.cu",
+                   replaces="none (XLA computed the transfers: "
+                            "hnanosolver_tpu/ops/multigrid.py restrict)",
+                   counter=cuda_transfer.launches_restrict, wrap=(cuda_transfer, "restrict")),
+        "MP": dict(name="mg_prolong", source=src + "mg_transfer.cu",
+                   replaces="none (XLA computed the transfers: "
+                            "hnanosolver_tpu/ops/multigrid.py prolong_trilinear)",
+                   counter=cuda_transfer.launches_prolong,
+                   wrap=(cuda_transfer, "prolong_trilinear")),
     }
     # B1d's wrapper checks the window on the host (one sync) before it
     # launches: its time is the launch alone (b1d_cost.kernel_call), the
@@ -635,6 +658,8 @@ def main() -> int:
               f" bitwise {bitwise}", flush=True)
         if not rel <= tol:
             raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
+        if key in ("MR", "MP") and not bitwise:
+            raise AssertionError(f"phase {phase}: {key} {label} is not bitwise its plain version")
 
     @contextlib.contextmanager
     def main_path(label: str, per_step, steps: int = 1):
@@ -735,9 +760,26 @@ def main() -> int:
         got, want = k["kernel_fn"](*inputs(), **kw), k["plain_fn"](*inputs(), **kw)
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
-        tol = TOL_B1 if key in ("B1", "B8", "B1d") else 0.0 if key in ("B5", "B6") else TOL_B3
+        tol = TOL_B1 if key in ("B1", "B8", "B1d") else 0.0 if key in BITWISE else TOL_B3
         for g, w in zip(got, want):
             check(key, f"main-path call {call_label(key, a)}", g, w, tol, label)
+        if key in ("MR", "MP"):
+            transfer_forms(label, key, a)
+
+    def transfer_forms(label, key, a, name=""):
+        """MR or MP on the operands ``a`` in each of its forms: each of its
+        two optional operands (MR's fine and coarse masks, MP's p and mask)
+        given or left out, bitwise the plain version."""
+        k, head, opt = kernels[key], a[:-2], a[-2:]
+        for use in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            if any(u and o is None for u, o in zip(use, opt)):
+                continue
+            ops = [o if u else None for u, o in zip(use, opt)]
+            form = ", ".join(f"{n} {'given' if u else 'none'}" for n, u in
+                             zip(("fine mask", "coarse mask") if key == "MR" else ("p", "mask"),
+                                 use))
+            check(key, f"{name}{call_label(key, a)}: {form}", k["kernel_fn"](*head, *ops),
+                  k["plain_fn"](*head, *ops), 0.0, label)
 
     def time_calls(label: str, groups: list, plain: bool = True) -> dict:
         """Each recorded call against its plain version on the same inputs,
@@ -978,6 +1020,46 @@ def main() -> int:
           cuda_stencil.subtract_gradient(c5.nbr, vc, pc, 1 / 0.3),
           cuda_stencil.subtract_gradient_plain(c5.nbr, vc, pc, 1 / 0.3))
     del d2, p_k, p_p, pc, dc, m_c5, vc
+    # MR and MP in every form, every row random (the null and padding rows
+    # too): a planted level 1 whose coarse tile A = (0,0,0) has its +y and +z
+    # face tiles absent while the corner tile (0,1,1) beyond them exists (MP
+    # reaches it only through the absent face tiles), the bench hierarchy's
+    # levels, and each slab's maps of a 4-slab bench decomposition
+    from hnanosolver_tpu_torch.parallel import slab as pslab
+
+    every = lambda rows: torch.ones((rows, 1), device=dev)  # noqa: E731
+    planted = build_topology(np.array([(x, y, z) for x in range(2) for y in range(2)
+                                       for z in range(2)] + [(0, 2, 2), (1, 3, 3)]), device=dev)
+    plv = multigrid.build_hierarchy(planted, 1)[0]
+    a_row = int((plv.topo.origins == 0).all(1).nonzero()[0])  # tile A
+    nb_a = plv.topo.nbr[a_row].tolist()
+    if not (nb_a[16] == 0 and nb_a[14] == 0 and nb_a[1 * 9 + 2 * 3 + 2] != 0):
+        raise AssertionError(f"phase 3: the planted level's tile A has nbr {nb_a}")
+    bench_h = multigrid.build_hierarchy(topo, 2)
+    cases = [("planted level 1", plv, planted.capacity), ("bench level 1", bench_h[0], T),
+             ("bench level 2", bench_h[1], bench_h[0].topo.capacity)]
+    for name, lv, Tf in cases:
+        Tc = lv.topo.capacity
+        transfer_forms("3", "MR", (lv.children, field(Tf, 512, mask=every(Tf)),
+                                   in_domain(Tf, every(Tf)), in_domain(Tc, every(Tc))), name + " ")
+        transfer_forms("3", "MP", (lv.parent, lv.octant, lv.topo.nbr,
+                                   field(Tc, 512, mask=every(Tc)), field(Tf, 512, mask=every(Tf)),
+                                   in_domain(Tf, every(Tf))), name + " ")
+    sh3 = pslab.build_slab_hierarchy(topo, pslab.build_slabs(topo, SLABS), 2)
+    lv = sh3.coarse_level
+    Tl, Tc = sh3.parent_global.shape[1], lv.topo.capacity
+    for d in range(SLABS):
+        ch, pa, oc = (x[d].to(dev) for x in (sh3.children_local, sh3.parent_global,
+                                             sh3.octant_local))
+        ghosts = int(((pa > 0).sum() - (ch > 0).sum()))
+        transfer_forms("3", "MR", (ch, field(Tl, 512, mask=every(Tl)), in_domain(Tl, every(Tl)),
+                                   in_domain(Tc, every(Tc))), f"slab {d} ")
+        transfer_forms("3", "MP", (pa, oc, lv.topo.nbr, field(Tc, 512, mask=every(Tc)),
+                                   field(Tl, 512, mask=every(Tl)), in_domain(Tl, every(Tl))),
+                       f"slab {d} ({ghosts} ghost rows with a parent) ")
+        if ghosts <= 0:
+            raise AssertionError(f"phase 3: slab {d}'s maps cover no ghost row")
+    del planted, plv, bench_h, cases, sh3, lv, ch, pa, oc
     done("3")
 
     # -- 4. the main path ------------------------------------------------------
@@ -1030,13 +1112,17 @@ def main() -> int:
     # pre and post and the level-2 solve: B3 4, B5 3, B6 2. A V-cycle from
     # level 1: B5 3, B6 1. FMG: the level-2 solve (B5 1), the level-1
     # V-cycle, the fine V-cycle: B3 4, B5 7, B6 3. Then 2 V-cycles: B3 8,
-    # B5 6, B6 4. Per step: B1 2, B2 2, B3 12, B5 13, B6 7.
+    # B5 6, B6 4. Per step: B1 2, B2 2, B3 12, B5 13, B6 7. The transfers:
+    # a V-cycle from level k restricts and prolongs once a level below k,
+    # FMG restricts to each level once more and prolongs each solution up
+    # once: MR and MP 2 + (1 + 2) + 2 * 2 = 9 each.
     mg_params = CELLS["bench-mg"].params
     hier = multigrid.hierarchy_for(topo, mg_params)
     print(f"[7] bench hierarchy: tiles per level "
           f"{[topo.n_active] + [lv.topo.n_active for lv in hier]}, capacities "
           f"{[T] + [lv.topo.capacity for lv in hier]}", flush=True)
-    with main_path("7", {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1},
+    with main_path("7", {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1,
+                         "MR": 9, "MP": 9},
                    MG_STEPS):
         topo, mg_state = plume.run_plume(MG_STEPS, mg_params, cfg, topo=topo, state=state,
                                          grow_every=0)
@@ -1098,8 +1184,10 @@ def main() -> int:
     # (pre + post smoothing and one B6 each) and solves level 5 (B5 1):
     # from the fine level B3 12, B5 5, B6 5. FMG: the level-5 solve, then one
     # V-cycle from each level 4..0: B3 0+0+4+8+12, B5 1+3+5+5+5+5, B6
-    # 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2).
-    with main_path("9", {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1},
+    # 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2). MR and
+    # MP: FMG 5 + (1+2+3+4+5), the V-cycles 2 x 5: 30 each (level k k + 3).
+    with main_path("9", {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1,
+                         "MR": 30, "MP": 30},
                    C5_MG_STEPS):
         c5, st5 = plume.run_plume(C5_MG_STEPS, c5_mg, cfg5, topo=c5, state=st5,
                                   grow_every=0)
@@ -1149,6 +1237,25 @@ def main() -> int:
     redesigned("9", "c5 MG", time_calls("9", groups, plain=False))
     fit_b5("9", groups)
     del groups
+    # the transfers: each recorded call bitwise its plain version in every
+    # form, kernel and plain chain timed, level 1's totals beside its bound
+    torch.cuda.empty_cache()
+    groups = record(c5_step(c5_mg, c5_hier), ("MR", "MP"))
+    res9 = time_calls("9", groups)
+    l1 = {"MR": c5_hier[0].topo.capacity, "MP": c5.capacity}  # rows of level-1 calls
+    for key in ("MR", "MP"):
+        kernels[key].update(res9[key])
+        one = [(a_, kw_, ob_, n_) for k_, a_, kw_, ob_, n_ in groups
+               if k_ == key and a_[0].shape[0] == l1[key]]
+        ms_ = sum(median_ms(lambda: kernels[key]["kernel_fn"](*a_, **kw_), 10, 5) * n_
+                  for a_, kw_, _, n_ in one)
+        pl_ = sum(median_ms(lambda: kernels[key]["plain_fn"](*a_, **kw_), 5, 1) * n_
+                  for a_, kw_, _, n_ in one)
+        b_ = sum(bound_ms(key, a_, kw_, ob_)[0] * n_ for a_, kw_, ob_, n_ in one)
+        print(f"[9] {key} {kernels[key]['name']} at level 1, {sum(g[3] for g in one)} calls a "
+              f"step: {ms_:.4f} ms, bound {b_:.4f} ms ({b_ / ms_:.1%} of the kernel's time), "
+              f"plain chain {pl_:.4f} ms | {card}", flush=True)
+    del groups, one
     # the RBGS-50 step's kernels at their true HBM bounds, a kernel at a time
     # (the recorded inputs of all five and a plain version's temporaries
     # would not fit the card together)
@@ -2584,7 +2691,9 @@ def main() -> int:
         """Launches of one textbook step on each of ``n`` devices: B4 2 a
         fine iteration, or for multigrid (mg_levels 2: level 1 and 2 by B5)
         8 B4 a fine V-cycle, B5 3 and B6 2, FMG's extra B5 4 and B6 1, and
-        with mg_tol one B6 a stop test (V-cycles read from ``cycles``)."""
+        with mg_tol one B6 a stop test (V-cycles read from ``cycles``); MR
+        and MP 2 a V-cycle and FMG's 5 (every device runs the replicated
+        coarse levels)."""
         def want():
             c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
             if p_.pressure_solver != "mg":
@@ -2595,7 +2704,8 @@ def main() -> int:
                     raise AssertionError(f"phase 19: fine V-cycles per device {dict(cycles)}")
                 v = per.pop() - 1  # FMG's own fine V-cycle aside
                 tests = 0 if p_.mg_tol is None else v + int(v < p_.iterations)
-                c.update(B4=8 * (v + 1), B5=7 + 3 * v, B6=3 + 2 * v + tests)
+                c.update(B4=8 * (v + 1), B5=7 + 3 * v, B6=3 + 2 * v + tests, MR=5 + 2 * v,
+                         MP=5 + 2 * v)
             return {k: n * x for k, x in c.items()}
         return want
 

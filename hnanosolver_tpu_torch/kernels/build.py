@@ -63,6 +63,8 @@ SIGNATURES = {
     "hn_cluster_sync_loop": (_I, _I, _I, _P),
     "hn_row_copy": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "hn_row_copy_parts": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
+    "hn_mg_restrict": (_P, _P, _P, _P, _P, _I, _P),
+    "hn_mg_prolong": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 
@@ -96,6 +98,9 @@ BLOCK_THREADS = {
     "take_rows_kernel": 256,
     "take_chain_kernel": 192,  # CHAIN_ROWS * 32
     "row_copy_kernel": 256,
+    # multigrid's transfers MR and MP (mg_transfer.cu)
+    "mg_restrict_kernel": 256,  # MR_THREADS: a block a coarse tile
+    "mg_prolong_kernel": 128,  # MP_WARPS * 32: a warp a fine tile
 }
 
 

@@ -6,6 +6,11 @@ device. Counterpart of ``hnanosolver_tpu/ops/multigrid.py``:
   prolongation are row gathers plus fixed lane permutations.
 - Restriction: 2x2x2 averaging. Prolongation: trilinear (cell-centred) by
   default, piecewise-constant injection as ``prolong``.
+- Restriction and trilinear prolongation are one launch a level each, the
+  kernels MR and MP (``ops/cuda_transfer.py``), with the level's masks and
+  the correction's add fused; ``restrict_plain`` and
+  ``prolong_trilinear_plain`` are their plain versions (on a CPU tensor the
+  wrappers run them). Injection ``prolong`` stays plain.
 - Smoother and coarsest solve: ``ops/pressure.solve_pressure`` (kernels
   B3, B4, B5 by level size), residual: kernel B6.
 - Traced (``utils/profiling``), every restriction and prolongation is a
@@ -40,6 +45,7 @@ import torch
 
 from hnanosolver_tpu_torch.core import coords as C
 from hnanosolver_tpu_torch.core.topology import Topology, build_topology
+from hnanosolver_tpu_torch.ops import cuda_transfer as ct
 from hnanosolver_tpu_torch.ops import pressure as prs
 from hnanosolver_tpu_torch.ops import shifts as sh
 from hnanosolver_tpu_torch.utils.profiling import span
@@ -159,7 +165,15 @@ def _lanes(device: torch.device):
         return _LANES[device]
 
 
-def restrict(level: MGLevel, fine: torch.Tensor) -> torch.Tensor:
+def restrict(level: MGLevel, fine: torch.Tensor, fine_mask: torch.Tensor | None = None,
+             coarse_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[Tf,512] -> [Tc,512]: :func:`restrict_plain` of ``fine * fine_mask``,
+    times ``coarse_mask`` (each mask where given), one launch of MR on a
+    CUDA tensor."""
+    return ct.restrict(level.children, fine, fine_mask, coarse_mask)
+
+
+def restrict_plain(level: MGLevel, fine: torch.Tensor) -> torch.Tensor:
     """[Tf,512] -> [Tc,512]: average 2x2x2 fine voxels, assemble the 8
     child tiles into the coarse tile's octants."""
     down_l, assemble, _, _ = _lanes(fine.device)
@@ -204,7 +218,15 @@ def prolong(level: MGLevel, coarse: torch.Tensor,
     return _land(level, coarse, _lanes(coarse.device)[2])
 
 
-def prolong_trilinear(level: MGLevel, coarse: torch.Tensor) -> torch.Tensor:
+def prolong_trilinear(level: MGLevel, coarse: torch.Tensor, p: torch.Tensor | None = None,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[Tc,512] -> [Tf,512]: ``p`` + :func:`prolong_trilinear_plain` of
+    ``coarse``, times ``mask`` (``p`` and the mask where given), one launch
+    of MP on a CUDA tensor."""
+    return ct.prolong_trilinear(level.parent, level.octant, level.topo.nbr, coarse, p, mask)
+
+
+def prolong_trilinear_plain(level: MGLevel, coarse: torch.Tensor) -> torch.Tensor:
     """[Tc,512] -> [Tf,512]: trilinear (cell-centred) interpolation of the
     coarse correction at fine voxel centres. A fine voxel at an even (odd)
     index along an axis sits at coarse offset -0.25 (+0.25): weights 0.75
@@ -276,19 +298,19 @@ def v_cycle(
     if refresh is not None:
         p = refresh(p)
     r = prs.residual(topo, p, div, dx)
-    if mask is not None:
-        r = r * mask
+    # r * mask and rc * lvl.mask fused into the restriction, but for the
+    # sharded step's coarse_reduce, which sums the devices' partial
+    # restrictions before the mask: there the mask stays after the sum
     with span("mg.restrict", device=True, level=level + 1):
-        rc = restrict(lvl, r)
+        rc = restrict(lvl, r, mask, lvl.mask if coarse_reduce is None else None)
     if coarse_reduce is not None:
-        rc = coarse_reduce(rc)
-    rc = rc * lvl.mask
+        rc = coarse_reduce(rc) * lvl.mask
     ec = v_cycle(lvl.topo, hierarchy[1:], rc, torch.zeros_like(rc), dx * 2.0, omega,
                  n_pre, n_post, n_coarsest, prolongation, lvl.mask, smooth_lag=smooth_lag,
                  level=level + 1)
     with span("mg.prolong", device=True, level=level + 1):
-        p = p + (prolong_trilinear(lvl, ec) if prolongation == "trilinear"
-                 else prolong(lvl, ec))
+        p = (prolong_trilinear(lvl, ec, p) if prolongation == "trilinear"
+             else p + prolong(lvl, ec))
     if lag.get("halo_lag") is not None:
         lag["halo_lag"] = n_post
     return prs.solve_pressure(topo, div, n_post, dx, omega, p0=p, mask=mask, refresh=refresh,
@@ -318,22 +340,24 @@ def fmg_initial_guess(
     coarse solution is replicated)."""
     divs = [div]
     for i, lvl in enumerate(hierarchy):
+        reduce = coarse_reduce if i == 0 else None  # the mask after it, as in v_cycle
         with span("mg.restrict", device=True, level=i + 1):
-            r = restrict(lvl, divs[-1])
-        if i == 0 and coarse_reduce is not None:
-            r = coarse_reduce(r)
-        divs.append(r * lvl.mask)
+            r = restrict(lvl, divs[-1], coarse_mask=lvl.mask if reduce is None else None)
+        divs.append(r if reduce is None else reduce(r) * lvl.mask)
     last = hierarchy[-1]
     p = prs.solve_pressure(last.topo, divs[-1], n_coarsest, dx * (2.0 ** len(hierarchy)),
                            omega, mask=last.mask)
     for k in reversed(range(len(hierarchy))):
         lvl = hierarchy[k]
-        with span("mg.prolong", device=True, level=k + 1):
-            p = prolong_trilinear(lvl, p) if prolongation == "trilinear" else prolong(lvl, p)
         t_k = topo if k == 0 else hierarchy[k - 1].topo
         m_k = None if k == 0 else hierarchy[k - 1].mask
-        if m_k is not None:
-            p = p * m_k
+        with span("mg.prolong", device=True, level=k + 1):
+            if prolongation == "trilinear":
+                p = prolong_trilinear(lvl, p, mask=m_k)
+            else:
+                p = prolong(lvl, p)
+                if m_k is not None:
+                    p = p * m_k
         p = v_cycle(t_k, hierarchy[k:], divs[k], p, dx * (2.0 ** k), omega,
                     n_pre, n_post, n_coarsest, prolongation, m_k,
                     refresh=refresh if k == 0 else None,

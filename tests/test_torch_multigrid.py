@@ -39,8 +39,10 @@ from hnanosolver_tpu.ops import pressure as jprs
 from hnanosolver_tpu_torch import config as tcfg
 from hnanosolver_tpu_torch import convert
 from hnanosolver_tpu_torch import solver as tsolver
+from hnanosolver_tpu_torch.core.topology import build_topology
 from hnanosolver_tpu_torch.models import plume as tplume
 from hnanosolver_tpu_torch.ops import cuda_pressure as tcp
+from hnanosolver_tpu_torch.ops import cuda_transfer as tcu
 from hnanosolver_tpu_torch.ops import multigrid as tmg
 
 torch.set_num_threads(1)
@@ -296,3 +298,176 @@ def test_divergence_only_matches_jax(sparse, vel_field):
     want = np.asarray(jsolver.divergence_only(jt, jnp.asarray(vel_field), 0.5))
     got = tsolver.divergence_only(tt, torch.from_numpy(vel_field), 0.5).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+# -- the transfer kernels MR and MP (ops/cuda_transfer.py) -----------------------
+# The kernels run on the card only; here their wrappers run the plain
+# versions, and the kernels' own indexing (csrc/mg_transfer.cu), written
+# below in torch, is held bitwise to the plain chains on fields that are
+# random on every row (the null and padding rows too).
+
+def _planted():
+    """Level 1 of a domain whose coarse tile A = (0,0,0) has its +y and +z
+    face neighbours absent while the corner tile (0,1,1) beyond them exists
+    (the fine tiles: A's 8 children and one child of the corner), with
+    padding rows at both levels."""
+    fine = np.array([(x, y, z) for x in range(2) for y in range(2) for z in range(2)]
+                    + [(0, 2, 2), (1, 3, 3)])
+    tt = build_topology(fine, device="cpu")
+    return tt, tmg.build_hierarchy(tt, 1)[0]
+
+
+def _restrict_by_blocks(children, fine):
+    """MR's indexing: coarse lane (ox*4+a, oy*4+b, oz*4+c) of row t is the
+    block sum of child children[t, o] at (2a, 2b, 2c), pairs along z, then y,
+    then x, times 0.125."""
+    Tc = children.shape[0]
+    f = fine[children.reshape(-1).long()].reshape(Tc, 8, 8, 8, 8)
+
+    def at(dx, dy, dz):
+        return f[:, :, dx::2, dy::2, dz::2]
+
+    s = (((at(0, 0, 0) + at(0, 0, 1)) + (at(0, 1, 0) + at(0, 1, 1)))
+         + ((at(1, 0, 0) + at(1, 0, 1)) + (at(1, 1, 0) + at(1, 1, 1)))) * 0.125
+    # [Tc, (ox, oy, oz), a, b, c] -> coarse lane (ox, a, oy, b, oz, c)
+    return s.reshape(Tc, 2, 2, 2, 4, 4, 4).permute(0, 1, 4, 2, 5, 3, 6).reshape(Tc, 512)
+
+
+def _prolong_by_neighbourhood(parent, octant, nbr, coarse):
+    """MP's indexing: each fine row's 8 chain tiles (a face step off the
+    octant's side of its parent, z, then y, then x), the coarse 6^3
+    neighbourhood of its octant block through them, then 0.75/0.25 along
+    x, y and z in turn."""
+    Tf = parent.shape[0]
+    P, o, nbr = parent.long(), octant.long(), nbr.long()
+    ox, oy, oz = (o >> 2) & 1, (o >> 1) & 1, o & 1
+    steps = (torch.where(oz == 1, 14, 12), torch.where(oy == 1, 16, 10),
+             torch.where(ox == 1, 22, 4))
+    tiles = []
+    for k in range(8):
+        t = P
+        for bit, d in zip((4, 2, 1), steps):
+            if k & bit:
+                t = nbr[t, d]
+        tiles.append(t)
+    tiles = torch.stack(tiles, 1)  # [Tf, 8], entry zo*4 + yo*2 + xo
+    r = torch.arange(6)
+    cx = (ox[:, None] * 4 - 1 + r)[:, :, None, None]
+    cy = (oy[:, None] * 4 - 1 + r)[:, None, :, None]
+    cz = (oz[:, None] * 4 - 1 + r)[:, None, None, :]
+    out_of = ((cz < 0) | (cz > 7)) * 4 + ((cy < 0) | (cy > 7)) * 2 + ((cx < 0) | (cx > 7))
+    tile = tiles.gather(1, out_of.reshape(Tf, -1)).reshape(Tf, 6, 6, 6)
+    nb = coarse[tile, (cx & 7) * 64 + (cy & 7) * 8 + (cz & 7)]  # [Tf, 6, 6, 6]
+    v = torch.arange(8)
+    c0, s = v // 2 + 1, torch.where(v % 2 == 1, 1, -1)
+
+    def F(dx, dy, dz):  # each 0 or 1: a step toward the voxel's parity side
+        return nb[:, (c0 + dx * s)[:, None, None], (c0 + dy * s)[None, :, None],
+                  (c0 + dz * s)[None, None, :]]
+
+    def lerp(a, b):
+        return 0.75 * a + 0.25 * b
+
+    x = {(j, k): lerp(F(0, j, k), F(1, j, k)) for j in (0, 1) for k in (0, 1)}
+    y = {k: lerp(x[0, k], x[1, k]) for k in (0, 1)}
+    return lerp(y[0], y[1]).reshape(Tf, 512)
+
+
+def _transfer_case(case, sparse):
+    """(level, fine rows) of a case: the sparse domain's levels 1-2, the
+    planted level."""
+    if case == "planted":
+        tt, lvl = _planted()
+        return lvl, tt.capacity
+    _, tt, _, _, th = sparse
+    k = int(case[-1])
+    return th[k - 1], (tt.capacity if k == 1 else th[0].topo.capacity)
+
+
+@pytest.mark.parametrize("op", ["restrict", "prolong_trilinear"])
+@pytest.mark.parametrize("case", ["sparse_l1", "sparse_l2", "planted"])
+def test_transfer_kernel_indexing_equals_plain(sparse, monkeypatch, case, op):
+    """The kernels' indexing, bitwise the plain chains (merged and sequential
+    forms alike), every row random: the null row and padding rows included."""
+    lvl, Tf = _transfer_case(case, sparse)
+    rng = np.random.default_rng(13)
+    if op == "restrict":
+        x = torch.from_numpy(rng.standard_normal((Tf, 512)).astype(np.float32))
+        want = tmg.restrict_plain(lvl, x)
+        assert torch.equal(_restrict_by_blocks(lvl.children, x), want)
+        return
+    x = torch.from_numpy(rng.standard_normal((lvl.topo.capacity, 512)).astype(np.float32))
+    got = _prolong_by_neighbourhood(lvl.parent, lvl.octant, lvl.topo.nbr, x)
+    for budget in (1 << 60, 0):
+        monkeypatch.setattr(tmg, "PROLONG_MERGE_BUDGET", budget)
+        assert torch.equal(got, tmg.prolong_trilinear_plain(lvl, x))
+
+
+@pytest.mark.parametrize("form", ["plain", "fine_mask", "coarse_mask", "both_masks",
+                                  "add", "fmg", "fmg_mask"])
+def test_transfer_wrappers_equal_plain(sparse, form):
+    """On CPU tensors the wrappers (and multigrid's entries) are the plain
+    chains with the fused masks and the add as separate ops."""
+    _, tt, _, _, th = sparse
+    lvl, Tf, Tc = th[0], tt.capacity, th[0].topo.capacity
+    rng = np.random.default_rng(14)
+
+    def rand(rows, mask=False):
+        a = rng.standard_normal((rows, 512)) if not mask else rng.random((rows, 512)) > 0.3
+        return torch.from_numpy(a.astype(np.float32))
+
+    if form in ("plain", "fine_mask", "coarse_mask", "both_masks"):
+        fine = rand(Tf)
+        fm = rand(Tf, True) if form in ("fine_mask", "both_masks") else None
+        cm = rand(Tc, True) if form in ("coarse_mask", "both_masks") else None
+        want = tmg.restrict_plain(lvl, fine if fm is None else fine * fm)
+        want = want if cm is None else want * cm
+        assert torch.equal(tmg.restrict(lvl, fine, fm, cm), want)
+        assert torch.equal(tcu.restrict(lvl.children, fine, fm, cm), want)
+        return
+    coarse = rand(Tc)
+    p = rand(Tf) if form == "add" else None
+    m = rand(Tf, True) if form == "fmg_mask" else None
+    want = tmg.prolong_trilinear_plain(lvl, coarse)
+    want = want if p is None else p + want
+    want = want if m is None else want * m
+    assert torch.equal(tmg.prolong_trilinear(lvl, coarse, p, m), want)
+    assert torch.equal(tcu.prolong_trilinear(lvl.parent, lvl.octant, lvl.topo.nbr, coarse, p,
+                                             m), want)
+
+
+def test_prolong_through_an_absent_face_tile_reads_zero():
+    """A coarse value beyond a corner is reached through the face tiles: with
+    the face tiles absent, the corner tile's values do not reach A's fine
+    tiles although the nbr table's corner entry names it."""
+    tt, lvl = _planted()
+    keys = [tuple(o) for o in lvl.topo.origins.tolist()]
+    a, corner = keys.index((0, 0, 0)), keys.index((0, 1, 1))
+    assert int(lvl.topo.nbr[a, 1 * 9 + 2 * 3 + 2]) == corner  # the corner entry exists
+    assert int(lvl.topo.nbr[a, 16]) == 0 and int(lvl.topo.nbr[a, 14]) == 0  # +y, +z absent
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((lvl.topo.capacity, 512)).astype(np.float32))
+    x[0] = 0.0
+    x[lvl.topo.n_active + 1:] = 0.0
+    y = x.clone()
+    y[corner] = torch.from_numpy(rng.standard_normal(512).astype(np.float32))
+    ex, ey = tmg.prolong_trilinear_plain(lvl, x), tmg.prolong_trilinear_plain(lvl, y)
+    in_a = lvl.parent == a
+    assert int(in_a.sum()) == 8
+    assert torch.equal(ex[in_a], ey[in_a])
+    assert not torch.equal(ex[lvl.parent == corner], ey[lvl.parent == corner])
+
+
+def test_prolong_rows_of_parent_zero_read_coarse_row_zero(sparse):
+    """Fine rows with parent 0 (the null row, padding rows) get coarse row
+    0's octant-0 view, as the plain gather gives it: nonzero where row 0 is."""
+    _, tt, _, _, th = sparse
+    lvl = th[0]
+    zero = (lvl.parent == 0).nonzero()[:, 0]
+    assert zero.numel() > 1 and int(zero[0]) == 0  # the null row and padding rows
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((lvl.topo.capacity, 512)).astype(np.float32))
+    e = tmg.prolong_trilinear_plain(lvl, x)
+    assert bool((e[zero] == e[0]).all()) and bool(e[0].abs().max() > 0)
+    x[0] = 0.0
+    assert bool(tmg.prolong_trilinear_plain(lvl, x)[zero].abs().max() < e[0].abs().max())
