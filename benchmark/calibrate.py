@@ -10,8 +10,8 @@ one process (the topology is built once):
   and a half times ``--seconds`` (short: a run compares its last frame and
   its first; give about a cook's length, so that the last frames fall at
   every place in a cook);
-- the control: the plain reference computed in bfloat16 (the precision
-  below the configuration's float32) in the program's place, on
+- the control: the scene's plain reference computed in bfloat16 (the
+  precision below the configuration's float32) in the program's place, on
   ``--control-seeds`` other seeds: its first frame from the seeded start
   and the last of ``--frames`` frames from it, each against the reference
   in float64, as the check compares the program's.
@@ -44,31 +44,35 @@ from reference import topology as rt  # noqa: E402
 CONTROL_DTYPE = torch.bfloat16
 
 
-def control_frame(cell, topo, fields: dict, levels):
-    """The control's frame: the reference in CONTROL_DTYPE from float32
-    fields; returns (topo, float32 fields), grown where the cell grows."""
-    sp, em = cell.solver(), cell.config["emitter"]
-    out = step.frame(topo, {k: v.to(CONTROL_DTYPE) for k, v in fields.items()}, sp, em, levels)
+def control_frame(cell, topo, fields: dict, levels, index: int):
+    """The control's frame ``index`` of its cook: the scene's reference in
+    CONTROL_DTYPE from float32 fields; returns (topo, float32 fields), grown
+    where the cell grows."""
+    scene = cell.scene
+    out = scene.frame(cell, topo, {k: v.to(CONTROL_DTYPE) for k, v in fields.items()}, levels,
+                      index)
     if cell.traffic["topology"] == "grow":
-        topo, out = step.grow(topo, out, em)
+        topo, out = scene.grow(cell, topo, out, index)
     return topo, {k: v.float() for k, v in out.items()}
 
 
 def control_readings(cell, prep, seed: int, frames: int, dev) -> dict:
     """The control's numbers on ``seed``: its first frame from the seeded
-    start, and the last of ``frames`` chained frames from its own input."""
+    start, and the last of ``frames`` chained frames of one cook from its
+    own input."""
     sp = cell.solver()
     topo = rt.with_index(prep.rows, dev)
     start = inputs.start_fields(cell, prep.rows, seed, dev)
     levels = step.levels_for(topo, sp, CONTROL_DTYPE)
-    cur_t, cur = control_frame(cell, topo, start, levels)
-    gap0, off0, _ = compare.check_frame(cell, topo, compare.to64(start, dev), cur_t.keys, cur)
-    for _ in range(frames - 1):
+    cur_t, cur = control_frame(cell, topo, start, levels, 0)
+    gap0, off0, _ = compare.check_frame(cell, topo, compare.to64(start, dev), cur_t.keys, cur, 0)
+    for index in range(1, frames):
         prev_t, prev = cur_t, cur
         if prev_t is not topo:
             topo, levels = prev_t, step.levels_for(prev_t, sp, CONTROL_DTYPE)
-        cur_t, cur = control_frame(cell, prev_t, prev, levels)
-    gap, off, _ = compare.check_frame(cell, prev_t, compare.to64(prev, dev), cur_t.keys, cur)
+        cur_t, cur = control_frame(cell, prev_t, prev, levels, index)
+    gap, off, _ = compare.check_frame(cell, prev_t, compare.to64(prev, dev), cur_t.keys, cur,
+                                      index)
     found = {"start_gap": gap0, "start_tiles_off": off0, "last_gap": gap, "last_tiles_off": off}
     return {k: v for k, v in found.items() if v is not None}
 

@@ -1,5 +1,7 @@
 """The output check: one frame of the program against the plain reference
-(``reference/``) in float64 from the same input.
+in float64 from the same input: the scene's reference frame and growth rule
+(``scenes/<scene>.py``, over ``reference/``), given the frame's index within
+its cook.
 
 Numbers compared (each against its own limit in ``checks/<workload>.json``):
 
@@ -45,31 +47,32 @@ def field_gaps(prog: dict, ref: dict, rows_p=None, rows_r=None):
     return gaps, abs_err
 
 
-def check_frame(cell, topo_in: rt.Topo, inp64: dict, prog_keys: np.ndarray, prog: dict):
-    """The reference's frame from ``inp64`` on ``topo_in`` against the
-    program's output (its tile keys and fields). Returns (gap, tiles_off or
-    None, per-field gaps)."""
-    sp, em = cell.solver(), cell.config["emitter"]
-    levels = step.levels_for(topo_in, sp, torch.float64)
-    stepped = step.frame(topo_in, inp64, sp, em, levels)
+def check_frame(cell, topo_in: rt.Topo, inp64: dict, prog_keys: np.ndarray, prog: dict,
+                index: int):
+    """The reference's frame ``index`` of its cook from ``inp64`` on
+    ``topo_in`` against the program's output (its tile keys and fields).
+    Returns (gap, tiles_off or None, per-field gaps)."""
+    scene = cell.scene
+    levels = step.levels_for(topo_in, cell.solver(), torch.float64)
+    stepped = scene.frame(cell, topo_in, inp64, levels, index)
     del inp64, levels
     if cell.traffic["topology"] != "grow":
         if not np.array_equal(prog_keys, topo_in.keys):
             raise AssertionError("the program's tile rows are not the reference's")
         gaps, _ = field_gaps(prog, stepped)
         return max(gaps.values()), None, gaps
-    occ = step.occupancy(topo_in, stepped).double().cpu().numpy()
-    new, ref = step.grow(topo_in, stepped, em)
+    occ = scene.occupancy(topo_in, stepped).double().cpu().numpy()
+    new, ref = scene.grow(cell, topo_in, stepped, index)
     n_p = int(((prog_keys != rt.NULL_KEY) & (prog_keys != rt.PAD_KEY)).sum())
     keys_p, keys_r = prog_keys[1:n_p + 1], new.keys[1:new.n_active + 1]
     _, i_p, i_r = np.intersect1d(keys_p, keys_r, assume_unique=True, return_indices=True)
     dev = topo_in.device
     gaps, abs_err = field_gaps(prog, ref, torch.from_numpy(i_p + 1).to(dev),
                                torch.from_numpy(i_r + 1).to(dev))
-    thr = em["occupancy_threshold"]
+    thr = cell.config["emitter"]["occupancy_threshold"]
     band = max(BAND_SHARE * thr, BAND_ERRORS * abs_err)
-    must = set(rt.pack(step.grown_tiles(topo_in, occ, thr + band, em)).tolist())
-    may = set(rt.pack(step.grown_tiles(topo_in, occ, thr - band, em)).tolist())
+    must = set(rt.pack(scene.grown_tiles(cell, topo_in, occ, thr + band, index)).tolist())
+    may = set(rt.pack(scene.grown_tiles(cell, topo_in, occ, thr - band, index)).tolist())
     held = set(keys_p.tolist())
     off = len(must - held) + len(held - may)
     off += int(prog_keys.shape[0] != step.grown_capacity(topo_in.capacity, n_p))

@@ -4,15 +4,18 @@ and the output check. ``run.py`` calls :func:`run`.
 The window is a closed loop of one client, as a cook is: frame n + 1
 starts when frame n has ended, and a frame ends at the
 ``torch.cuda.synchronize()`` that stands for its fields being ready for the
-host. A fixed cell calls the program's ``models.plume.plume_step`` with the
-multigrid hierarchy ``ops.multigrid.hierarchy_for`` made once in set-up,
-as ``run_plume`` does; a cook restarts from the seeded start every
-``frames_per_cook`` frames. A grown cell calls ``models.plume.run_plume``
-cook after cook, growing every frame, with an ``on_frame`` that
-synchronises and an ``utils.interrupt.Interrupter`` that trips at the
-window's end. Each cook's start is the benchmark's input, not the
-program's work: it is drawn between cooks with the frame clock stopped and
-outside every traced segment. A frame's time runs from the end of the
+host. The program's frame and cook are the cell's scene's
+(``scenes/<scene>.py``; the plume's are ``models.plume.plume_step`` and
+``run_plume``), each given the frame's index within its cook. A fixed cell
+steps the scene's frame with the multigrid hierarchy
+``ops.multigrid.hierarchy_for`` made once in set-up, as ``run_plume``
+does; a cook restarts from the seeded start every ``frames_per_cook``
+frames. A grown cell runs the scene's cook cook after cook, growing every
+frame, with an ``on_frame`` that synchronises and an
+``utils.interrupt.Interrupter`` that trips at the window's end. Each
+cook's start is the benchmark's input, not the program's work: it is drawn
+between cooks with the frame clock stopped and outside every traced
+segment. A frame's time runs from the end of the
 frame before it (or from its cook's start being ready) to its own end, and
 the window's seconds are the sum of its frames' times.
 
@@ -41,7 +44,9 @@ import roofline
 import spec
 from reference import topology as rt
 
-SPANS = ("plume_step", "synchronize", "run_plume")  # the harness's spans in a trace
+# the harness's spans in a trace, around the scene's frame, the synchronize
+# after it and the scene's cook: named for the plume's calls, and read so
+SPANS = ("plume_step", "synchronize", "run_plume")
 TRACE_SHARE = 0.25  # the most of a traced run's window, at its first cook's pace, it profiles
 
 
@@ -69,23 +74,21 @@ class Run:
 
 class Program:
     """The system under test, ``hnanosolver_tpu_torch``, through its public
-    frame path. Every call looks the function up on its module at call
-    time."""
+    frame path: the scene's ``Driver``."""
 
     def __init__(self, cell, device):
         from hnanosolver_tpu_torch.config import CombustionParams, SolverParams
         from hnanosolver_tpu_torch.core import topology
         from hnanosolver_tpu_torch.fields import FieldState
         from hnanosolver_tpu_torch.kernels import build
-        from hnanosolver_tpu_torch.models import plume
         from hnanosolver_tpu_torch.ops import multigrid
         from hnanosolver_tpu_torch.utils import interrupt
 
-        self.topology_mod, self.plume, self.multigrid = topology, plume, multigrid
+        self.topology_mod, self.multigrid = topology, multigrid
         self.FieldState, self.LaunchCount, self.interrupt = FieldState, build.LaunchCount, interrupt
         self.device = device
         self.scalars = cell.config["scalars"]
-        sv, pr, em = cell.config["solver"], cell.traffic["pressure"], cell.config["emitter"]
+        sv, pr = cell.config["solver"], cell.traffic["pressure"]
         kw = dict(dt=sv["dt"], voxel_size=sv["voxel_size"],
                   combustion=CombustionParams(**sv["combustion"]))
         if pr["solver"] == "mg":
@@ -95,12 +98,8 @@ class Program:
         else:
             kw.update(pressure_solver="rbgs", iterations=pr["iterations"],
                       halo_lag=pr["halo_lag"])
-        self.params = SolverParams(**kw)
-        self.cfg = plume.PlumeConfig(
-            center=tuple(float(c) for c in em["center"]), radius=em["radius"],
-            density_rate=em["density_rate"], fuel_rate=em["fuel_rate"],
-            temperature_target=em["temperature_target"], velocity_jet=em["velocity_jet"],
-            dilate_radius=em["dilate_radius"], occupancy_threshold=em["occupancy_threshold"])
+        self.params = SolverParams(**kw, **cell.scene.SOLVER)
+        self.driver = cell.scene.Driver(cell)
 
     def topology(self, tiles, capacity):
         return self.topology_mod.build_topology(tiles, capacity=capacity, device=self.device)
@@ -109,8 +108,9 @@ class Program:
         return self.multigrid.hierarchy_for(topo, self.params)
 
     def state(self, fields: dict):
-        return self.FieldState(velocity=fields["velocity"],
-                               scalars={k: fields[k] for k in self.scalars})
+        """The configuration's scalars, then the scene's own fields."""
+        names = self.scalars + [k for k in fields if k != "velocity" and k not in self.scalars]
+        return self.FieldState(velocity=fields["velocity"], scalars={k: fields[k] for k in names})
 
     @staticmethod
     def fields(state) -> dict:
@@ -120,13 +120,13 @@ class Program:
     def keys(topo) -> np.ndarray:
         return topo.keys.cpu().numpy()
 
-    def step(self, topo, state, hier):
-        return self.plume.plume_step(topo, state, self.params, self.cfg, hier)
+    def step(self, topo, state, hier, index: int):
+        """Frame ``index`` of its cook."""
+        return self.driver.step(topo, state, self.params, hier, index)
 
     def cook(self, frames, topo, state, on_frame, stop):
         interrupter = None if stop is None else self.interrupt.Interrupter(poll=stop)
-        return self.plume.run_plume(frames, self.params, self.cfg, topo=topo, state=state,
-                                    grow_every=1, on_frame=on_frame, interrupter=interrupter)
+        return self.driver.cook(frames, self.params, topo, state, on_frame, interrupter)
 
     def launch_counts(self) -> dict:
         """Every kernel launch counter of the program's operators, by name."""
@@ -298,7 +298,7 @@ def _fixed(cell, prog, topo, rows, seed, seconds, trace, dev, clock):
     clock.mark("start")
     for i in range(tr["warmup_frames"]):
         before = prog.launch_counts()
-        state = prog.step(topo, state, hier)
+        state = prog.step(topo, state, hier, i)
         _sync(dev)
         if i == 0:
             t = time.perf_counter()
@@ -323,7 +323,7 @@ def _fixed(cell, prog, topo, rows, seed, seconds, trace, dev, clock):
         prev = state
         with win.span(SPANS[0]):
             t = time.perf_counter()
-            state = prog.step(topo, prev, hier)
+            state = prog.step(topo, prev, hier, in_cook)
             enqueue = time.perf_counter() - t
         with win.span(SPANS[1]):
             _sync(dev)
@@ -331,7 +331,7 @@ def _fixed(cell, prog, topo, rows, seed, seconds, trace, dev, clock):
         if win.frame_done(voxels, enqueue):
             break
     keys = rows.keys
-    return win, setup_s, (keys, first), (keys, prev), (keys, state)
+    return win, setup_s, (keys, first), (keys, prev), (keys, state), in_cook - 1
 
 
 def _grown(cell, prog, topo0, rows, seed, seconds, trace, dev, clock):
@@ -352,17 +352,18 @@ def _grown(cell, prog, topo0, rows, seed, seconds, trace, dev, clock):
     prog.cook(F, topo0, start(0), warm, None)
     clock.mark("warm-up")
     win = Window(seconds, dev, *_segments(cell, trace))
-    # inp: the input of the frame running; last_in / last_out: the window's
-    # last frame, one frame past the time (its input is the frame before's
-    # output, which run_plume holds: nothing is held twice)
-    st = dict(inp=(topo0, start(1)), final=False, done=False, last_in=None, last_out=None)
+    # inp: the input of the frame running; last_in / last_out / index: the
+    # window's last frame, one frame past the time (its input is the frame
+    # before's output, which the cook holds: nothing is held twice)
+    st = dict(inp=(topo0, start(1)), final=False, done=False, last_in=None, last_out=None,
+              index=None)
 
     def on_frame(f, topo, state):
         _sync(dev)
         voxels = st["inp"][0].n_active * rt.TILE
         st["inp"] = (topo, state)
         if st["final"]:
-            st["last_out"], st["done"] = (topo, state), True
+            st["last_out"], st["done"], st["index"] = (topo, state), True, f
             win.frame_done(voxels)
         elif win.frame_done(voxels):
             st["final"], st["last_in"] = True, (topo, state)
@@ -380,9 +381,9 @@ def _grown(cell, prog, topo0, rows, seed, seconds, trace, dev, clock):
         cook += 1
         st["inp"] = None
         st["inp"] = (topo0, win.new_cook(lambda: start(cook)))
-    (ti, si), (to, so) = st["last_in"], st["last_out"]
+    (ti, si), (to, so), index = st["last_in"], st["last_out"], st["index"]
     st.clear()
-    return win, setup_s, first["out"], (prog.keys(ti), si), (prog.keys(to), so)
+    return win, setup_s, first["out"], (prog.keys(ti), si), (prog.keys(to), so), index
 
 
 @dataclasses.dataclass
@@ -421,8 +422,8 @@ def run_prepared(cell, prep: Prepared, seed, seconds, trace, dev, clock, keep=Tr
     """The window, its metrics and the output check from a prepared cell;
     without ``keep`` the program's topology is released before the check."""
     drive = _grown if cell.traffic["topology"] == "grow" else _fixed
-    win, setup_s, first, last_in, last_out = drive(cell, prep.prog, prep.topo, prep.rows,
-                                                   seed, seconds, trace, dev, clock)
+    win, setup_s, first, last_in, last_out, last_index = drive(
+        cell, prep.prog, prep.topo, prep.rows, seed, seconds, trace, dev, clock)
     print("set-up: " + ", ".join(f"{k} to {v:.2f} s" for k, v in clock.marks)
           + f"; {setup_s:.2f} s counted", file=sys.stderr)
     if not keep:
@@ -448,17 +449,19 @@ def run_prepared(cell, prep: Prepared, seed, seconds, trace, dev, clock, keep=Tr
         device_info.update(busy_s=rec.busy_s(), window_s=rec.window_s)
         out["breakdown"] = devtrace.breakdown(rec)
     del win, rec, result_run
-    checks = output_check(cell, prep.prog, prep.rows, seed, dev, first, last_in, last_out)
+    checks = output_check(cell, prep.prog, prep.rows, seed, dev, first, last_in, last_out,
+                          last_index)
     out["correct"] = all(v["value"] <= v["limit"] for v in checks.values())
     out["checks"] = checks
     return out
 
 
-def output_check(cell, prog, rows, seed, dev, first, last_in, last_out) -> dict:
-    """The window's last frame from the program's own input, and the first
-    frame from the seeded start, each against the reference in float64 on
-    its own tile index, built here. Run once the program's state is all but
-    the last frame's freed."""
+def output_check(cell, prog, rows, seed, dev, first, last_in, last_out, last_index) -> dict:
+    """The window's last frame (``last_index`` within its cook) from the
+    program's own input, and the first frame (index 0) from the seeded
+    start, each against the reference in float64 on its own tile index,
+    built here. Run once the program's state is all but the last frame's
+    freed."""
     t = time.perf_counter()
     keys_out, out = last_out[0], _host(prog.fields(last_out[1]))
     keys_in, inp = last_in[0], prog.fields(last_in[1])
@@ -467,14 +470,15 @@ def output_check(cell, prog, rows, seed, dev, first, last_in, last_out) -> dict:
         torch.cuda.empty_cache()
     ref_topo = rt.with_index(rows, dev)
     topo_in = ref_topo if np.array_equal(keys_in, rows.keys) else rt.from_keys(keys_in, dev)
-    gap, off, gaps = compare.check_frame(cell, topo_in, compare.to64(inp, dev), keys_out, out)
+    gap, off, gaps = compare.check_frame(cell, topo_in, compare.to64(inp, dev), keys_out, out,
+                                         last_index)
     del inp, out, topo_in
     found = {"last_gap": gap, "last_tiles_off": off}
     start = compare.to64(inputs.start_fields(cell, rows, seed, dev), dev)
-    gap0, off0, gaps0 = compare.check_frame(cell, ref_topo, start, first[0], first[1])
+    gap0, off0, gaps0 = compare.check_frame(cell, ref_topo, start, first[0], first[1], 0)
     found.update(start_gap=gap0, start_tiles_off=off0)
-    print(f"output check: last frame {gaps}, first frame {gaps0}; "
-          f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
+    print(f"output check: last frame (index {last_index} of its cook) {gaps}, first frame "
+          f"{gaps0}; {time.perf_counter() - t:.1f} s", file=sys.stderr)
     checks = {}
     for name, value in found.items():
         if value is not None:

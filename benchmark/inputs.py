@@ -2,14 +2,14 @@
 the tile list and the start fields, handed alike to the program and to the
 reference.
 
-The tile list of a fixed cell is the configuration's developed-plume
-envelope at bench.py's tight capacity; a grown cell starts from the
-emitter's tiles. The start fields are a plume in the ranges a developed one
-holds, drawn on the card from a ``torch.Generator`` seeded with ``--seed``
-in one call: on every active voxel, with r the distance from the column's
-axis, y the height, s = exp(-(r / (share * rc(y)))^2) the column's profile
-(rc the envelope's radius at y) and h = max(0, 1 - y / height) the fall-off
-with height,
+The tile list is the scene's (``scenes/<scene>.py``): for the plume, a
+fixed cell's is the configuration's developed-plume envelope at bench.py's
+tight capacity, and a grown cell starts from the emitter's tiles. The start
+fields are a plume in the ranges a developed one holds, drawn on the card
+from a ``torch.Generator`` seeded with ``--seed`` in one call: on every
+active voxel, with r the distance from the column's axis, y the height,
+s = exp(-(r / (share * rc(y)))^2) the column's profile (rc the envelope's
+radius at y) and h = max(0, 1 - y / height) the fall-off with height,
 
 - velocity: y jet * s * (0.5 + 0.5 h), x and z a swirl of swirl * s * (2 n - 1);
 - temperature: rise * s * h (0 away from the smoke, as a cook from rest
@@ -19,7 +19,9 @@ with height,
 each but the swirl multiplied by (1 + noise * (2 n - 1)), n uniform in
 [0, 1) and drawn for each field and voxel. A start of ``region``
 "emitter" (a grown cook) puts s = 1 inside the emitter sphere and 0
-outside, h = 1. Every cook of a run draws its own start from the run's seed and
+outside, h = 1. The scene's own fields, where it has any, are drawn after
+these six from the same generator, so that they never change the six's
+draws. Every cook of a run draws its own start from the run's seed and
 its index, so that a run averages over many starts; another seed gives
 other fields on the same voxels: the same work.
 """
@@ -38,13 +40,12 @@ def envelope(cfg: dict) -> np.ndarray:
 
 
 def start_tiles(cell) -> tuple:
-    """(tiles [n, 3], capacity) of the cell's first frame."""
-    cfg = cell.config
+    """(tiles [n, 3], capacity) of the cell's first frame: the scene's
+    tiles, at the growth rule's capacity in a grown cell and at bench.py's
+    tight capacity in a fixed one."""
+    tiles = cell.scene.start_tiles(cell)
     if cell.traffic["topology"] == "grow":
-        em = cfg["emitter"]
-        tiles = rt.emitter_tiles(em["center"], em["radius"], 1)
         return tiles, rt.round_capacity(len(np.unique(rt.pack(tiles))))
-    tiles = envelope(cfg)
     return tiles, rt.tight_capacity(len(tiles))
 
 
@@ -98,9 +99,12 @@ def start_fields(cell, topo: rt.Topo, seed: int, device, cook: int = 0) -> dict:
     vel[2] = st["swirl"] * s * (2.0 * uniform() - 1.0)
     sh = s * h
     ball = ball * active
-    return {"velocity": vel,
-            "temperature": jitter(st["temperature_rise"] * sh),
-            "density": jitter(st["density"] * sh),
-            "waste": jitter(st["waste"] * sh),
-            "fuel": jitter(st["fuel"] * ball),
-            "flame": jitter(st["flame"] * ball)}
+    fields = {"velocity": vel,
+              "temperature": jitter(st["temperature_rise"] * sh),
+              "density": jitter(st["density"] * sh),
+              "waste": jitter(st["waste"] * sh),
+              "fuel": jitter(st["fuel"] * ball),
+              "flame": jitter(st["flame"] * ball)}
+    del s, h, sh, ball
+    fields.update(cell.scene.extra_fields(cell, topo, g, device))
+    return fields

@@ -40,7 +40,8 @@ def _top_levels(code: str, cwd) -> set:
 def test_the_reference_imports_nothing_of_the_program():
     code = (f"import sys; sys.path.insert(0, {str(BENCH)!r})\n"
             "import reference.ops, reference.multigrid, reference.step, reference.topology\n"
-            "import compare, inputs, roofline")
+            "import compare, inputs, roofline, spec\n"
+            f"spec.scene(__import__('pathlib').Path({str(BENCH)!r}), 'plume')")
     names = _top_levels(code, BENCH)
     assert not names & {"hnanosolver_tpu_torch", "hnanosolver_tpu", "jax", "jaxlib", "flax"}
 

@@ -29,8 +29,8 @@ def _port_and_reference(cell, frames: int):
     start = inputs.start_fields(cell, prep.rows, SEED, dev)
     state = prog.state(start)
     hier = prog.hierarchy(topo)
-    for _ in range(frames):
-        state = prog.step(topo, state, hier)
+    for i in range(frames):
+        state = prog.step(topo, state, hier, i)
     sp, em = cell.solver(), cell.config["emitter"]
     out = {}
     for dtype in (torch.float32, torch.float64):

@@ -78,6 +78,7 @@ def test_benchmark_json_keeps_its_format():
 def test_cell_files_are_found_by_name(workload):
     cell = spec.load(workload, BENCH_FILE)
     assert cell.base == BENCH
+    assert cell.scene.__name__ == "bench_scene_plume"  # no "scene" key: the plume
     assert cell.config["dtype"] == "float32"
     for m in cell.end_to_end + cell.per_layer:
         mod = spec.reader(cell, m["name"])
