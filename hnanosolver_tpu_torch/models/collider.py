@@ -66,11 +66,13 @@ def collider_step(topo: Topology, state: FieldState, params: SolverParams,
     step (``params.has_collision`` must be set for the SDF to act). Traced
     (``utils/profiling``), the span ``collider.step`` starts a frame and
     holds the device span ``step.emit`` (the SDF's refresh and the emit)
-    and the step's phase spans."""
+    and the step's phase spans; the refresh is the device span
+    ``collide.sdf`` inside ``step.emit``."""
     with profiling.frame("collider.step"):
         with profiling.span("step.emit", device=True):
-            center = collider_center(col, frame, params.dt, topo.device)
-            state = state.with_scalar(COLLISION_FIELD, sphere_sdf(topo, center, col.radius))
+            with profiling.span("collide.sdf", device=True):
+                center = collider_center(col, frame, params.dt, topo.device)
+                state = state.with_scalar(COLLISION_FIELD, sphere_sdf(topo, center, col.radius))
             state = P.emit(topo, state, cfg, params.dt)
         return step(topo, state, params, hierarchy)
 

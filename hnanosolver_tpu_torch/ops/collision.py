@@ -9,6 +9,11 @@ Pallas kernel.
   where its length is <= 1e-6).
 - Back traces that land inside the solid are rejected in the advection
   samplers (B1, ``ops/advection.py``), not here.
+
+Each :func:`enforce_collision` call is the device span ``collide.enforce``
+(``utils/profiling``: on only while a profiler records) and adds one to the
+always-on count :data:`enforces` (``collide.enforces``): four a frame of
+``solver.step_impl`` with an SDF.
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from typing import Optional
 import torch
 
 from hnanosolver_tpu_torch.ops.stencil import pressure_gradient
+from hnanosolver_tpu_torch.utils import profiling
 
 COLLISION_MARGIN = 0.1  # voxels
+enforces = profiling.Count("collide.enforces")  # enforce_collision calls
 
 
 def sdf_normal_field(topo, sdf: torch.Tensor, inv_dx: float) -> torch.Tensor:
@@ -48,8 +55,10 @@ def enforce_collision(
     quirk of blending with 1 - sdf/1.5 while gating on 0.1."""
     if blend_denom is None:
         blend_denom = margin
-    normal = sdf_normal_field(topo, sdf, inv_dx)
-    blend = torch.clamp(1.0 - sdf / blend_denom, 0.0, 1.0)[None]
-    blended = vel * (1.0 - blend) + no_slip(vel, normal) * blend
-    out = torch.where((sdf < margin)[None], blended, vel)
-    return torch.where((sdf < 0.0)[None], 0.0, out)
+    enforces.add()
+    with profiling.span("collide.enforce", device=True):
+        normal = sdf_normal_field(topo, sdf, inv_dx)
+        blend = torch.clamp(1.0 - sdf / blend_denom, 0.0, 1.0)[None]
+        blended = vel * (1.0 - blend) + no_slip(vel, normal) * blend
+        out = torch.where((sdf < margin)[None], blended, vel)
+        return torch.where((sdf < 0.0)[None], 0.0, out)

@@ -1,8 +1,8 @@
 """The port's own spans and counts (``utils/profiling.py``) on the CPU: the
-phases of a frame, multigrid's transfers and the growth pass under a CPU
-``torch.profiler``; nothing recorded, no range opened and nothing allocated
-without one; the growth counts against a count taken by hand; the launch
-counters' context."""
+phases of a frame, collision's refresh and passes, multigrid's transfers
+and the growth pass under a CPU ``torch.profiler``; nothing recorded, no
+range opened and nothing allocated without one; the growth and collision
+counts against a count taken by hand; the launch counters' context."""
 
 import collections
 import sys
@@ -18,8 +18,8 @@ from hnanosolver_tpu_torch.config import SolverParams
 from hnanosolver_tpu_torch.core import activation
 from hnanosolver_tpu_torch.fields import COLLISION_FIELD
 from hnanosolver_tpu_torch.kernels import build
-from hnanosolver_tpu_torch.models import plume
-from hnanosolver_tpu_torch.ops import cuda_stencil
+from hnanosolver_tpu_torch.models import collider, plume
+from hnanosolver_tpu_torch.ops import collision, cuda_stencil
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.utils import profiling
 
@@ -32,6 +32,9 @@ PHASES = ("step.emit", "step.collide", "step.advect_velocity", "step.forces", "s
           "step.project", "step.advect_scalars", "step.mask")
 GROWTH = ("grow.occupancy", "grow.rebuild", "grow.remap", "grow.hierarchy")
 FRAME = "plume.step"
+# collide.enforce's parents in a frame with an SDF: the collide phase, the
+# velocity advection's tail and the projection's two passes
+ENFORCE_PARENTS = ["step.collide", "step.advect_velocity", "step.project", "step.project"]
 TOL_NS = 50_000  # a record's host start and end against its profiler event
 
 
@@ -92,14 +95,18 @@ def test_a_frame_is_its_phase_spans(start):
     recs = profiling.records()
     frames = [r for r in recs if r.name == FRAME]
     assert len(frames) == 1 and frames[0].parent is None
-    assert [r.name for r in recs if r.name.startswith("step.")] == list(PHASES)
+    phases = [r for r in recs if r.name.startswith("step.")]
+    assert [r.name for r in phases] == list(PHASES)
+    assert all(r.parent is frames[0] for r in phases)
+    # the SDF's four collision passes, each under its phase
+    enforce = [r for r in recs if r.name == "collide.enforce"]
+    assert [r.parent.name for r in enforce] == ENFORCE_PARENTS
+    assert len(recs) == 1 + len(PHASES) + len(ENFORCE_PARENTS)
     for r in recs[1:]:
-        assert r.name.startswith("step.") and r.parent is frames[0], r
         assert r.frame == frames[0].frame and r.attrs == {}
         assert r.host_ms >= 0 and r.device_ms is None  # no card: host spans alone
     _check_clock(prof, recs)
     # the phases partition the frame: they lie inside it, one after another
-    phases = recs[1:]
     assert frames[0].start_ns <= phases[0].start_ns
     assert all(a.end_ns <= b.start_ns for a, b in zip(phases, phases[1:]))
     assert phases[-1].end_ns <= frames[0].end_ns
@@ -246,8 +253,47 @@ def test_no_profiler_no_record_no_range(start, monkeypatch):
         _profiled(lambda: plume.plume_step(topo, state, RBGS, CFG))
     assert profiling.records() == [] and not calls
     _profiled(lambda: plume.plume_step(topo, state, RBGS, CFG))
-    assert calls["range"] == len(profiling.records()) == 1 + len(PHASES)
+    assert calls["range"] == len(profiling.records()) == 1 + len(PHASES) + len(ENFORCE_PARENTS)
     assert calls["record_function"] == calls["event"] == 0
+
+
+def test_a_collider_frame_spans_its_collision(start):
+    """``collider_step``: the SDF's refresh is ``collide.sdf`` inside
+    ``step.emit``, and each of the frame's four ``enforce_collision`` calls
+    is a ``collide.enforce`` under its phase; the count ``collide.enforces``
+    advances by four a frame, traced or not, and untraced nothing is
+    recorded."""
+    topo, state = start
+    col = collider.ColliderConfig(center0=(28.0, 10.0, 30.0), velocity=(48.0, 0.0, 0.0),
+                                  radius=4.0)
+
+    def frames(n):
+        s = state
+        for f in range(n):
+            s = collider.collider_step(topo, s, RBGS, CFG, col, f)
+        return s
+
+    n0 = collision.enforces.n
+    _, prof = _profiled(lambda: frames(2))
+    assert collision.enforces.n - n0 == 2 * len(ENFORCE_PARENTS)
+    recs = profiling.records()
+    heads = [r for r in recs if r.name == "collider.step"]
+    assert len(heads) == 2 and heads[1].frame == heads[0].frame + 1
+    for head in heads:
+        mine = [r for r in recs if r.frame == head.frame]
+        sdf = [r for r in mine if r.name == "collide.sdf"]
+        assert len(sdf) == 1 and sdf[0].parent.name == "step.emit"
+        assert sdf[0].parent.parent is head
+        enforce = [r for r in mine if r.name == "collide.enforce"]
+        assert [r.parent.name for r in enforce] == ENFORCE_PARENTS
+        assert all(r.parent.parent is head for r in enforce)
+        assert all(r.host_ms >= 0 and r.device_ms is None for r in sdf + enforce)
+    _check_clock(prof, recs)
+    profiling.clear()
+    n0 = collision.enforces.n
+    frames(1)
+    assert collision.enforces.n - n0 == len(ENFORCE_PARENTS)
+    assert profiling.records() == []
 
 
 def test_an_off_span_costs_under_a_microsecond_and_allocates_nothing():
