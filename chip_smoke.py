@@ -35,7 +35,12 @@ exit). Each phase prints the seconds it took.
      form) on a planted level whose coarse tile's +y and +z face tiles are
      absent while the corner beyond them exists (every row random, padding
      rows too), on the bench hierarchy and on each slab's maps of a 4-slab
-     decomposition (``children_local``, ``parent_global`` with ghost rows)
+     decomposition (``children_local``, ``parent_global`` with ghost rows);
+     the collision's enforce pass CE bitwise on the config-4 cell and on the
+     benchmark's collider1024 topology (273,408 rows), the sphere's SDF at
+     frames 0 and 17.3 (voxels inside and on the shell counted, both > 0),
+     with 1 - sdf/0.1 and 1 - sdf/1.5 at two scales, and CE's ms a launch at
+     collider1024 beside its bound and the plain pass's
   4. the main path: plume_step for 20 steps from rest on the bench domain
      with the bench SolverParams / PlumeConfig, launch counters reset just
      before and read just after (exactly 2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b
@@ -69,7 +74,8 @@ exit). Each phase prints the seconds it took.
      bound, level 1's apart
  10. BASELINE config 4, the moving SDF sphere crossing the bench plume:
      run_collider for 20 frames from rest with exact launch counts (2 B1
-     with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b per step); after every frame
+     with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b, 4 CE per step; CE's launches
+     equal to ``collide.enforces``); after every frame
      velocity exactly 0 where sdf < 0, every scalar there bitwise equal to
      its value entering the scalar advection (a trace from inside the
      solid is rejected to d = 0, so phiF = phiB = phi(x)), median |u.n|/|u|
@@ -79,7 +85,8 @@ exit). Each phase prints the seconds it took.
  11. RK2-4 backtraces on the developed config-4 state: the ops-level
      advect_velocity and advect_scalars_fused at trace_order 2, 3, 4,
      without and with the SDF, exactly order - 1 + 2 B8 launches per call
-     (+2 with the SDF) and 1 B2; each call kernels vs plain, each recorded
+     (+2 with the SDF) and 1 B2 (+1 CE, the velocity's with the SDF); each
+     call kernels vs plain, each recorded
      kernel call vs plain, times
  12. BASELINE config 2: run_plume with the JAX package's defaults
      (PlumeConfig(), SolverParams(), growth every frame) for C2_FRAMES
@@ -139,7 +146,7 @@ exit). Each phase prints the seconds it took.
      emitter's tiles; the collision config 4's sphere as a narrow-band SDF
      over its shell tiles. ``solve --frames 6 --ckpt-every 3`` with the CLI
      defaults: launch counts per frame from the capacity each step ran at
-     (2 B1 with the SDF probes, 2 B2, B5 or B3 blocks + B4, B7a, B7b),
+     (2 B1 with the SDF probes, 2 B2, B5 or B3 blocks + B4, B7a, B7b, 4 CE),
      every frame's state finite with zero background rows and the SDF equal
      to the input re-scattered onto its topology bitwise; the written file
      holds every field under its name (the SDF under its input name), each
@@ -260,7 +267,8 @@ with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
 step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4 advection
-with the SDF of the config-4 state: the velocity and the scalar pass; B1d
+with the SDF of the config-4 state: the velocity and the scalar pass; CE
+the config-4 step's four enforce passes; B1d
 and B11 one table-path bench step in the narrow band with COMBINE_TBL on;
 PG one row gather at the bench, PC one launch of probe_dmacost's L = 8,
 n = 512, 8 reps from device memory on one block per SM; their launches are
@@ -334,8 +342,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
 KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC", "MR",
-        "MP")
-BITWISE = ("B5", "B6", "MR", "MP")  # kernels held to torch.equal with their plain versions
+        "MP", "CE")
+BITWISE = ("B5", "B6", "MR", "MP", "CE")  # kernels held to torch.equal with their plain versions
 PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 # Records from before kernels were redesigned (PERF.md §5-6, NVIDIA H100 80GB
 # HBM3 at 700 W), printed beside this run's: ms a step of the bench and
@@ -359,6 +367,11 @@ BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
                               "P6 reps 24, mixed scales": 0.2605,
                               "PC JSON launch": 0.6306, "PC v5": 0.0058}}
 B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main paths
+# phase 3, CE at the benchmark's collider1024 (benchmark/configs/collider1024.json):
+# the sphere, the frames of a cook its shell is kept for, (tiles, capacity)
+COL1024 = dict(center0=(416.0, 384.0, 512.0), velocity=(192.0, 0.0, 0.0), radius=48.0)
+COL1024_FRAMES = 48
+COL1024_ROWS = (273_289, 273_408)
 # phase 19: slabs on one card, the mg_tol run's tolerance and V-cycle cap,
 # and the one-device config-5 RBGS-50 step's peak (PERF.md section 5,
 # phase 18, NVIDIA H100 80GB HBM3 at 700 W)
@@ -439,6 +452,8 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
         return 8.0 + 8 * (args[2] is not None) + (args[3] is not None)
     if key == "MP":  # a fine voxel: 7 blends of 3 operations, the add, the mask
         return 21.0 + (args[4] is not None) + (args[5] is not None)
+    if key == "CE":  # the SDF's gradient, its length and normal, the blend, the projection
+        return 40.0
     return 9.0  # B6
 
 
@@ -520,9 +535,9 @@ def main() -> int:
     from hnanosolver_tpu_torch.models import collider, fire, plume
     from hnanosolver_tpu_torch.config import SolverParams
     from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
-                                           cuda_pressure, cuda_probe, cuda_sample, cuda_stencil,
-                                           cuda_tables, cuda_tail, cuda_transfer, multigrid,
-                                           probe, stencil, tables)
+                                           cuda_collision, cuda_pressure, cuda_probe,
+                                           cuda_sample, cuda_stencil, cuda_tables, cuda_tail,
+                                           cuda_transfer, multigrid, probe, stencil, tables)
     from hnanosolver_tpu_torch.ops import pressure as prs
     from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
     from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, pc_cost,
@@ -630,6 +645,11 @@ def main() -> int:
                             "hnanosolver_tpu/ops/multigrid.py prolong_trilinear)",
                    counter=cuda_transfer.launches_prolong,
                    wrap=(cuda_transfer, "prolong_trilinear")),
+        "CE": dict(name="enforce_collision", source=src + "collision.cu",
+                   replaces="none (XLA computed the collision: "
+                            "hnanosolver_tpu/ops/collision.py enforce_collision)",
+                   counter=cuda_collision.launches,
+                   wrap=(cuda_collision, "enforce_collision")),
     }
     # B1d's wrapper checks the window on the host (one sync) before it
     # launches: its time is the launch alone (b1d_cost.kernel_call), the
@@ -658,7 +678,7 @@ def main() -> int:
               f" bitwise {bitwise}", flush=True)
         if not rel <= tol:
             raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
-        if key in ("MR", "MP") and not bitwise:
+        if key in ("MR", "MP", "CE") and not bitwise:
             raise AssertionError(f"phase {phase}: {key} {label} is not bitwise its plain version")
 
     @contextlib.contextmanager
@@ -946,6 +966,53 @@ def main() -> int:
         check("B7b", f"bench T={T}, inv_dx {inv_dx:.4f}",
               cuda_stencil.subtract_gradient(topo.nbr, vel, p0, inv_dx),
               cuda_stencil.subtract_gradient_plain(topo.nbr, vel, p0, inv_dx))
+    # CE bitwise its plain version on the config-4 cell (4354 tiles at
+    # capacity 4608) and on collider1024's topology (config 5's cone and the
+    # radius-48 sphere's shell at each of a cook's 48 frames), the velocity
+    # random on every row, the sphere's SDF masked as the step leaves it at a
+    # centre on the lattice (frame 0) and one off it (frame 17.3), blended
+    # with 1 - sdf/0.1 (the gate's) and 1 - sdf/1.5 (the velocity tail's), at
+    # an exact and an inexact scale; at collider1024 its ms a launch beside
+    # its bound and the plain pass's
+    margin = collision.COLLISION_MARGIN
+    col1024 = collider.ColliderConfig(**COL1024)
+    tiles = np.concatenate([plume.build_plume_envelope(*CELLS["c5"].envelope)] + [
+        collider.collider_tiles(col1024, f, params.dt) for f in range(COL1024_FRAMES)])
+    n_t = len(np.unique(tiles, axis=0))
+    t1024 = build_topology(tiles, capacity=((n_t + 1 + 511) // 512) * 512, device=dev)
+    if (t1024.n_active, t1024.capacity) != COL1024_ROWS:
+        raise AssertionError(f"phase 3: collider1024 has {t1024.n_active} tiles at capacity "
+                             f"{t1024.capacity}, not {COL1024_ROWS}")
+    for name, topo_, col in (("config 4", CELLS["c4"].topology(dev), col4),
+                             ("collider1024", t1024, col1024)):
+        T_ = topo_.capacity
+        m_ = active_mask(topo_)[:, None]
+        v_ = field(3, T_, 512, scale=8.0, mask=torch.ones((T_, 1), device=dev))
+        for f in (0, 17.3):
+            sdf_ = collider.sphere_sdf(topo_, collider.collider_center(col, f, params.dt, dev),
+                                       col.radius) * m_
+            inside = int(((sdf_ < 0) & (m_ > 0)).sum())
+            shell = int(((sdf_ >= 0) & (sdf_ < margin) & (m_ > 0)).sum())
+            if not (inside > 0 and shell > 0):
+                raise AssertionError(f"phase 3: CE at {name}, frame {f}: {inside} voxels "
+                                     f"inside, {shell} on the shell")
+            for bd in (margin, 1.5):
+                for inv_dx in (params.inv_voxel_size, 1.0 / 0.3):
+                    a_ = (topo_.nbr, v_, sdf_, inv_dx, margin, bd)
+                    check("CE", f"{name} T={T_}, frame {f} ({inside} voxels inside, {shell} "
+                          f"on the shell), 1 - sdf/{bd}, inv_dx {inv_dx:.4f}",
+                          cuda_collision.enforce_collision(*a_),
+                          cuda_collision.enforce_collision_plain(*a_), 0.0)
+    a_ = (t1024.nbr, v_, sdf_, params.inv_voxel_size, margin, margin)
+    k_ms, p_ms = paired_ms(lambda: cuda_collision.enforce_collision(*a_),
+                           lambda: cuda_collision.enforce_collision_plain(*a_), batch=4)
+    b_ms, by, moved = bound_ms("CE", a_, {}, nbytes(v_))
+    print(f"[3] CE enforce_collision at collider1024 (T={t1024.capacity}): {k_ms:.4f} ms a "
+          f"launch ({4 * k_ms:.4f} a frame's four), bound {b_ms:.4f} ms ({by}, "
+          f"{moved / 1e6:.1f} MB; {b_ms / k_ms:.1%} of the kernel's time), plain pass "
+          f"{p_ms:.4f} ms | {card}", flush=True)
+    del tiles, t1024, v_, sdf_, m_, a_
+    torch.cuda.empty_cache()
     # B8 at displacements past the clamp, n = 11 in two launches (8 + 3)
     dd = torch.from_numpy(rng.uniform(-9.0, 9.0, (3, T, 512)).astype(np.float32)).to(dev)
     dd = torch.clamp(dd, -lim, lim)
@@ -1330,13 +1397,18 @@ def main() -> int:
         prev[0] = st
 
     t0 = time.perf_counter()
+    # CE: the four enforce passes of a step with an SDF (collide.enforces)
+    enforces0 = collision.enforces.n
     with main_path("10", {"B1": 2, "B2": 2, "B3": p4.iterations // p4.effective_halo_lag,
-                          "B7a": 1, "B7b": 1}, c4.develop):
+                          "B7a": 1, "B7b": 1, "CE": 4}, c4.develop):
         t4, st4 = collider.run_collider(c4.develop, p4, cfg4, col4, topo=t4, state=prev[0],
                                         grow_every=0, on_frame=on_frame)
     print(f"[10] {c4.develop} collider frames: {time.perf_counter() - t0:.2f} s wall with "
           f"the per-frame checks", flush=True)
     check_state("10", t4, st4)
+    if collision.enforces.n - enforces0 != kernels["CE"]["counter"].n:
+        raise AssertionError(f"phase 10: {collision.enforces.n - enforces0} enforce_collision "
+                             f"calls, {kernels['CE']['counter'].n} CE launches")
     travel = float((collider.collider_center(col4, c4.develop - 1, p4.dt)
                     - collider.collider_center(col4, 0, p4.dt)).norm())
     if not travel > 5.0:
@@ -1348,7 +1420,8 @@ def main() -> int:
     step_vs_plain("10", c4_step)
     c4_step()
     c4_ms = statistics.median(time_ms(c4_step, 7))
-    time_calls("10", record(c4_step, ("B1", "B2", "B3", "B7a", "B7b")))
+    res10 = time_calls("10", record(c4_step, ("B1", "B2", "B3", "B7a", "B7b", "CE")))
+    kernels["CE"].update(res10["CE"])
     print(f"[10] config-4 step: {c4_ms:.3f} ms/step (median of 7, CUDA events), "
           f"{t4.num_voxels / (c4_ms * 1e-3):.4e} active voxel-updates/s; the collider "
           f"travelled {travel:.1f} voxels | {card}", flush=True)
@@ -1368,7 +1441,8 @@ def main() -> int:
                         advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_,
                                                        trace_order=order))
 
-            with main_path(f"11 {tag} velocity", {"B8": n8, "B2": 1}, 1):
+            with main_path(f"11 {tag} velocity",
+                           {"B8": n8, "B2": 1, "CE": 0 if s_ is None else 1}, 1):
                 advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, trace_order=order)
             with main_path(f"11 {tag} scalars", {"B8": n8, "B2": 1}, 1):
                 advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_,
@@ -1405,10 +1479,11 @@ def main() -> int:
     from hnanosolver_tpu_torch.core import activation
 
     def step_counts(cap: int, p_) -> dict:
-        """Launches of one step without collision at capacity ``cap`` on the
-        nbr path with at most 8 scalars: the pressure solve as
-        ops/pressure.solve_pressure dispatches it."""
-        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
+        """Launches of one step at capacity ``cap`` on the nbr path with at
+        most 8 scalars: the pressure solve as ops/pressure.solve_pressure
+        dispatches it, and with ``p_.has_collision`` four CE (the step's
+        enforce passes)."""
+        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0}
         if cap <= cuda_pressure.MAX_FUSED_ROWS:
             c["B5"] = 1
         else:
@@ -2098,7 +2173,7 @@ def main() -> int:
             stack.enter_context(mock.patch.object(solve, k, timed(k, real[k])))
         stack.enter_context(mock.patch.object(solve, "run_solve", spy_run_solve))
         stack.enter_context(mock.patch.object(vdb_io, "read_vdb", timed_read))
-        stack.enter_context(main_path("16", totals(caps16, SolverParams())))
+        stack.enter_context(main_path("16", totals(caps16, SolverParams(has_collision=True))))
         cli.main(["solve", *cook_argv, "--frames", str(COOK_FRAMES), "--ckpt-every",
                   str(COOK_FRAMES // 2), "--out", paths["out"]])
     cook_wall = time.perf_counter() - t0
@@ -2147,7 +2222,7 @@ def main() -> int:
 
     # resume from the mid-run checkpoint: the same output, bitwise
     caps16.clear()
-    with main_path("16 resume", totals(caps16, SolverParams())), \
+    with main_path("16 resume", totals(caps16, SolverParams(has_collision=True))), \
             mock.patch.object(solve, "step", timed("step", real["step"])):
         cli.main(["solve", str(cook_dir / f"solve_{COOK_FRAMES // 2:04d}.npz"), *cook_argv[1:],
                   "--frames", str(COOK_FRAMES - COOK_FRAMES // 2), "--out", paths["resumed"]])
@@ -2318,7 +2393,7 @@ def main() -> int:
 
     # collide: the solid occludes (its pixel is the solid's colour, not the smoke render's)
     d_col = view_dir / "collide"
-    cli_run("17 collide", collider, SolverParams(),
+    cli_run("17 collide", collider, SolverParams(has_collision=True),
             ["collide", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_col)])
     img = png_pixels(d_col / "frame_0002.png")
     t_, s_, _, _ = load_npz(str(d_col / "frame_0002.npz"), device=dev)

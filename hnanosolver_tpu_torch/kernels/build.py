@@ -65,6 +65,7 @@ SIGNATURES = {
     "hn_row_copy_parts": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
     "hn_mg_restrict": (_P, _P, _P, _P, _P, _I, _P),
     "hn_mg_prolong": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "hn_enforce_collision": (_P, _P, _P, _P, _I, _F, _F, _F, _P),
 }
 
 
@@ -101,6 +102,8 @@ BLOCK_THREADS = {
     # multigrid's transfers MR and MP (mg_transfer.cu)
     "mg_restrict_kernel": 256,  # MR_THREADS: a block a coarse tile
     "mg_prolong_kernel": 128,  # MP_WARPS * 32: a warp a fine tile
+    # the collision's enforce pass CE (collision.cu): a block a tile
+    "enforce_collision_kernel": 512,
 }
 
 

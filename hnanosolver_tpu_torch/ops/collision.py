@@ -1,6 +1,8 @@
 """SDF collision boundaries on the flat layout ([T,512] sdf, [3,T,512]
-velocity). Plain torch: the JAX package runs these as XLA, never as a
-Pallas kernel.
+velocity). The JAX package runs these as XLA, never as a Pallas kernel;
+the port's :func:`enforce_collision` is one launch of the hand-written
+kernel CE (``ops/cuda_collision.py``, ``csrc/collision.cu``), whose plain
+version composes :func:`sdf_normal_field` and :func:`no_slip`.
 
 - sdf < 0: inside the solid, velocity is zeroed.
 - 0 <= sdf < margin (0.1 voxels): blend toward the no-slip (tangential)
@@ -22,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from hnanosolver_tpu_torch.ops import cuda_collision
 from hnanosolver_tpu_torch.ops.stencil import pressure_gradient
 from hnanosolver_tpu_torch.utils import profiling
 
@@ -50,15 +53,13 @@ def enforce_collision(
     margin: float = COLLISION_MARGIN,
     blend_denom: Optional[float] = None,
 ) -> torch.Tensor:
-    """Zero inside, distance-blended no-slip within ``margin``.
-    ``blend_denom`` (default ``margin``) reproduces the velocity advection's
-    quirk of blending with 1 - sdf/1.5 while gating on 0.1."""
+    """Zero inside, distance-blended no-slip within ``margin``: one CE
+    launch on the card (``cuda_collision.enforce_collision``).
+    ``blend_denom`` (default ``margin``) reproduces the velocity
+    advection's quirk of blending with 1 - sdf/1.5 while gating on 0.1."""
     if blend_denom is None:
         blend_denom = margin
     enforces.add()
     with profiling.span("collide.enforce", device=True):
-        normal = sdf_normal_field(topo, sdf, inv_dx)
-        blend = torch.clamp(1.0 - sdf / blend_denom, 0.0, 1.0)[None]
-        blended = vel * (1.0 - blend) + no_slip(vel, normal) * blend
-        out = torch.where((sdf < margin)[None], blended, vel)
-        return torch.where((sdf < 0.0)[None], 0.0, out)
+        return cuda_collision.enforce_collision(topo.nbr, vel.contiguous(), sdf.contiguous(),
+                                                inv_dx, margin, blend_denom)

@@ -30,6 +30,7 @@ from hnanosolver_tpu_torch.fields import COLLISION_FIELD
 from hnanosolver_tpu_torch.models import collider as tcol
 from hnanosolver_tpu_torch.models import plume as tplume
 from hnanosolver_tpu_torch.ops import collision as tcoll
+from hnanosolver_tpu_torch.ops import cuda_collision
 from hnanosolver_tpu_torch.solver import step as tstep
 
 torch.set_num_threads(1)
@@ -117,6 +118,128 @@ def test_sdf_normal_field_matches_jax(edge):
     want = np.asarray(jcoll.sdf_normal_field(jt, jnp.asarray(sdf), 2.0))
     got = tcoll.sdf_normal_field(tt, torch.from_numpy(sdf), 2.0).numpy()
     _close(got, want, 1.0)
+
+
+# -- CE's edges: the wrapper's CPU path (its plain version) against JAX ----
+
+HOLES = ((1, 1, 1), (2, 0, 1), (0, 2, 2))  # absent tiles inside the 3^3 box
+EDGE_CASES = ("null_row_face", "domain_edge", "sdf_zero", "sdf_margin", "degenerate_normal")
+MARGIN = np.float32(0.1)
+
+
+@pytest.fixture(scope="module")
+def holed():
+    """A 3^3-tile box with three tiles left out, its velocity random on
+    every row (the null and padding rows too): faces on the box's outside
+    and on the holes read the null row 0."""
+    box = np.array([(x, y, z) for x in range(3) for y in range(3) for z in range(3)
+                    if (x, y, z) not in HOLES])
+    jt = jtopo.build_topology(box)
+    rng = np.random.default_rng(29)
+    vel = (rng.standard_normal((3, jt.capacity, 512)) * 2.0).astype(np.float32)
+    return jt, _port_topo(jt), vel
+
+
+def _face_reads_null(jt):
+    """[T,512] bool: active voxels with a face neighbour in an absent tile,
+    split into (inside the box: a hole, outside it: the domain's edge)."""
+    pos = _positions(jt)
+    act = np.broadcast_to(np.asarray(jtopo.active_mask(jt))[:, None] > 0, pos.shape[:2])
+    present = {tuple(o) for o in np.asarray(jt.origins)[1:jt.n_active + 1]}
+    hole, edge = np.zeros(act.shape, bool), np.zeros(act.shape, bool)
+    for axis in range(3):
+        for step in (1, -1):
+            q = pos.copy()
+            q[..., axis] += step
+            tile = q // 8
+            absent = np.array([tuple(t) not in present for t in tile.reshape(-1, 3)]
+                              ).reshape(act.shape)
+            inside = np.all((tile >= 0) & (tile < 3), axis=-1)
+            hole |= absent & inside & act
+            edge |= absent & ~inside & act
+    return hole, edge
+
+
+def _edge_sdf(jt, case, rng):
+    """The SDF of one edge case on the active rows (0 on the null and
+    padding rows, as the step leaves it)."""
+    act = np.asarray(jtopo.active_mask(jt))[:, None] > 0
+    shape = (jt.capacity, 512)
+    if case in ("null_row_face", "domain_edge"):
+        hole, edge = _face_reads_null(jt)
+        at = hole if case == "null_row_face" else edge
+        sdf = np.where(at, rng.uniform(-0.02, 0.1, shape), 1.0)
+    else:
+        sdf = rng.uniform(-0.05, 0.15, shape)
+        pick = rng.random(shape)
+        if case == "sdf_zero":
+            sdf = np.where(pick < 0.25, 0.0, np.where(pick < 0.3, -0.0, sdf))
+        elif case == "sdf_margin":
+            below = np.nextafter(MARGIN, np.float32(0.0))
+            sdf = np.where(pick < 0.25, MARGIN, np.where(pick < 0.3, below, sdf))
+        else:  # flat tiles (no gradient) and tiles whose gradient is ulps
+            tiles = rng.random(shape[0])[:, None]
+            ulps = np.float32(0.05) + rng.integers(0, 3, shape) * np.float32(3.7252903e-09)
+            sdf = np.where(tiles < 0.3, 0.05, np.where(tiles < 0.6, ulps, sdf))
+    return (sdf * act).astype(np.float32)
+
+
+@pytest.mark.parametrize("blend_denom", [None, 1.5])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_enforce_collision_edges_match_jax(holed, case, blend_denom):
+    """The port's enforce pass on a CPU tensor (CE's wrapper runs the plain
+    version there) against the JAX package at each edge the kernel must
+    honour: a face read from the null row, at a hole and at the box's
+    outside; sdf exactly 0 (and -0) and exactly the margin (and just
+    below); a normal whose gradient is 0 or a few ulps (glen <= 1e-6)."""
+    jt, tt, vel = holed
+    sdf = _edge_sdf(jt, case, np.random.default_rng(EDGE_CASES.index(case)))
+    inv_dx = 2.0
+    kw = {} if blend_denom is None else dict(margin=0.1, blend_denom=blend_denom)
+    want = np.asarray(jcoll.enforce_collision(jt, jnp.asarray(vel), jnp.asarray(sdf),
+                                              inv_dx, **kw))
+    got = tcoll.enforce_collision(tt, torch.from_numpy(vel), torch.from_numpy(sdf),
+                                  inv_dx, **kw).numpy()
+    _close(got, want, np.abs(want).max())
+    inside, far = sdf < 0, sdf >= MARGIN
+    near = ~inside & ~far
+    assert np.all(got[:, inside] == 0.0) and np.all(np.signbit(got[:, inside]) == 0)
+    np.testing.assert_array_equal(got[:, far], vel[:, far])
+    # the edge is there, and in the blended band
+    hole, edge = _face_reads_null(jt)
+    normal = np.asarray(jcoll.sdf_normal_field(jt, jnp.asarray(sdf), inv_dx))
+    glen = np.sqrt((normal ** 2).sum(0))
+    shown = {"null_row_face": near & hole, "domain_edge": near & edge,
+             "sdf_zero": sdf == 0.0, "sdf_margin": sdf == MARGIN,
+             "degenerate_normal": near & (glen == 0.0)}[case]
+    assert shown.sum() > 100
+    if case == "degenerate_normal":  # the normal 0: v(1 - blend) + v blend, v to rounding
+        _close(got[:, shown], vel[:, shown], np.abs(vel).max())
+    if case == "null_row_face":
+        assert (near & hole & (glen > 0.5)).sum() > 100
+
+
+@pytest.mark.parametrize("bad", ["vel_dtype", "vel_shape", "sdf_shape", "sdf_device",
+                                 "nbr_dtype", "not_contiguous"])
+def test_ce_wrapper_rejects_bad_input(holed, bad):
+    _, tt, vel = holed
+    v = torch.from_numpy(vel)
+    sdf = torch.zeros(v.shape[1:])
+    nbr = tt.nbr
+    if bad == "vel_dtype":
+        v = v.double()
+    elif bad == "vel_shape":
+        v = v[:2]
+    elif bad == "sdf_shape":
+        sdf = sdf[:, :256]
+    elif bad == "sdf_device":
+        sdf = sdf.to("meta")
+    elif bad == "nbr_dtype":
+        nbr = nbr.long()
+    else:
+        v = v.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        cuda_collision.enforce_collision(nbr, v, sdf, 2.0, 0.1, 0.1)
 
 
 def _box_state(jt, rng):
