@@ -6,292 +6,37 @@ check it end to end. Run from the repository root:
 
 It needs one CUDA card and the CUDA toolkit (nvcc); it builds the
 hand-written kernels from ``hnanosolver_tpu_torch/csrc`` on first use. It
-runs in phases, one line per check, and any failing check raises (non-zero
+runs in 22 phases, one line per check, and any failing check raises (non-zero
 exit). Each phase prints the seconds it took.
 
-  1. device: nvidia-smi's card name and power limit, torch and CUDA versions
-  2. build the kernels, print the seconds it took and, for every B kernel
-     instance, what ptxas reports (registers, shared memory, spill bytes)
-     with the warps it leaves resident on an SM (kernels/build.py), and B5's
-     launch shape at each T it solves on the main paths and at its
-     threshold (cluster size, threads, tiles a block, shared bytes)
-  3. each kernel against its plain PyTorch version on the card, inputs from
-     a seed: at the bench shapes (4196-tile plume at capacity 4608) B1 in
-     velocity and scalar mode with displacements past the clamp, without
-     and with a collision SDF (the config-4 sphere; the share of traces it
-     rejects is printed and must be > 0), B2 for F = 3 and F = 5 (bitwise),
-     B3 as 10 launches of 5 pairs (also at a capacity of 7 mod 8 rows), B4
-     both colours with and without an in-domain mask, B6 at dx 0.5 and 0.3
-     (also at the capacity of 7 mod 8 rows), B7a, B7b, B8 for n = 1, 3, 8
-     and 11 fields with displacements past the clamp; on BASELINE config 5
-     (1024^3, 269,104 tiles) B3 with mask and B6 on masked inputs at level 2
-     (6,144 rows), B3 without one, B6, B7a and B7b at the fine level
-     (269,312 rows); B5 bitwise at config 5's levels 3-5 (1024 rows in the
-     grid form, 128 and 32 in the cluster form), at CLUSTER_ROWS (the
-     cluster form's largest T), CLUSTER_ROWS + 1 and 2048 (the grid form),
-     with and without a mask, for 0, 2 and 24 iterations, and the cluster
-     form where the null row is not 0; multigrid's transfers MR and MP
-     bitwise in every form (masks fused or not, MP with p and in the FMG
-     form) on a planted level whose coarse tile's +y and +z face tiles are
-     absent while the corner beyond them exists (every row random, padding
-     rows too), on the bench hierarchy and on each slab's maps of a 4-slab
-     decomposition (``children_local``, ``parent_global`` with ghost rows);
-     the collision's enforce pass CE bitwise on the config-4 cell and on the
-     benchmark's collider1024 topology (273,408 rows), the sphere's SDF at
-     frames 0 and 17.3 (voxels inside and on the shell counted, both > 0),
-     with 1 - sdf/0.1 and 1 - sdf/1.5 at two scales, and CE's ms a launch at
-     collider1024 beside its bound and the plain pass's
-  4. the main path: plume_step for 20 steps from rest on the bench domain
-     with the bench SolverParams / PlumeConfig, launch counters reset just
-     before and read just after (exactly 2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b
-     launches per step), every field finite, null and padding rows exactly 0
-  5. one more step from the developed state through the kernels and through
-     the plain versions on the card, max relative error per field
-  6. timing with CUDA events: ms/step (median of single steps), active
-     voxel-updates/s; each kernel call of one step against its plain
-     version on the same inputs, and its time per step beside the plain
-     version's and its bound
-  7. the multigrid path on the bench domain (mg_levels 2, 2 V-cycles, FMG):
-     MG_STEPS steps from the developed state with exact launch counts, one
-     step kernels vs plain, each kernel call of one step vs plain (B5, B6
-     bitwise), timings; B5's and B6's ms a step beside their bound and
-     their records from before the redesign; B5's us a half-sweep and a
-     launch at each T of the step, fitted from 2 and 24 iterations on the
-     recorded inputs, in each form that holds T; 9 MR and 9 MP a step
-  8. one bench step in the "parity" precision tier (halo_lag 1: 100 B4
-     colour sweeps), kernels vs plain, each B4 call vs plain, B4's time
-  9. BASELINE config 5 at full size, steps through the kernels only (no
-     plain step at this size): 4 RBGS-50 steps to develop the plume, MG
-     steps (mg_levels 5) with exact launch counts, a project-only solve
-     with both solvers (MG must reach max|r| <= 0.1 * max|div|), ms/step
-     of both, peak device memory; then each kernel call of one MG step and
-     of one RBGS-50 step (B1, B2, B3, B7a, B7b, a kernel at a time) against
-     its plain version, and the kernels' times against their HBM bounds;
-     B5's and B6's MG ms a step beside their records, and B5's fits as in
-     phase 7; the MG step's 30 MR and 30 MP calls (config 5's five levels,
-     on the developed residual and correction) bitwise their plain
-     versions in every form, their ms beside the plain chain's and their
-     bound, level 1's apart
- 10. BASELINE config 4, the moving SDF sphere crossing the bench plume:
-     run_collider for 20 frames from rest with exact launch counts (2 B1
-     with the SDF, 2 B2, 10 B3, 1 B7a, 1 B7b, 4 CE per step; CE's launches
-     equal to ``collide.enforces``); after every frame
-     velocity exactly 0 where sdf < 0, every scalar there bitwise equal to
-     its value entering the scalar advection (a trace from inside the
-     solid is rejected to d = 0, so phiF = phiB = phi(x)), median |u.n|/|u|
-     on the shell -0.5 <= sdf < 0.05 below 0.35, the SDF preserved on
-     active rows; the collider moved; then one step kernels vs plain, each
-     kernel call of one step vs plain, ms/step
- 11. RK2-4 backtraces on the developed config-4 state: the ops-level
-     advect_velocity and advect_scalars_fused at trace_order 2, 3, 4,
-     without and with the SDF, exactly order - 1 + 2 B8 launches per call
-     (+2 with the SDF) and 1 B2 (+1 CE, the velocity's with the SDF); each
-     call kernels vs plain, each recorded
-     kernel call vs plain, times
- 12. BASELINE config 2: run_plume with the JAX package's defaults
-     (PlumeConfig(), SolverParams(), growth every frame) for C2_FRAMES
-     frames from the emitter's topology, launch counts per frame from the
-     capacity the step ran at (B5 at T <= 2048, else B3 blocks); each
-     frame's tile count, capacity and seconds, fields finite, null and
-     padding rows 0, and every remap keeping each kept tile's values
-     exactly; then one step kernels vs plain
- 13. BASELINE config 3: run_fire with FireConfig() and default_params()
-     (vorticity confinement at s = 1) for C3_FRAMES frames, the same
-     per-frame checks, then tests/test_fire.py's: max flame > 0.3, waste
-     > 0, max temperature > 85, hot gas (T > 50) above y = 10; one step
-     kernels vs plain
- 14. the table sampler (advection.INTERP = "vmem") on the bench cell's
-     developed state, the velocity scaled into each band (narrow, mixed,
-     wide), COMBINE_TBL off and on: build_topology's host seconds with and
-     without the chunk plans (bench and config 5); B11 vs its plain version
-     and bitwise vs build_table_dual; the dual B1 (B1d: "both" at both
-     passes with and without the SDF, "back" and "fwd" at both passes) vs
-     its plain version and bitwise vs the nbr B1 and B8, at the bench, on a
-     one-chunk topology of 102 rows and on two chunks whose second is mostly
-     padding rows; one step per band and switch as a main path (launches
-     from the branches taken) vs its plain step and vs the nbr-path step;
-     times of B11 (beside its library call, one torch.gather over the index
-     of its plain version), B1d's launches alone (beside its wrapper, which
-     checks the window with one host sync, and beside the records of the
-     design before it, BEFORE_REDESIGN) in the narrow step and the mixed
-     band's back and fwd launches, the table builds and the table-path pass
-     beside the nbr B1 pass
- 15. the probe kernels PG (cross-row gathers) and PC (bulk asynchronous
-     row copies into shared memory), ports of the JAX package's TPU probes
-     in tools/: every PG form (per-element at 8 rows with reversed indices
-     and at the bench's 4608 rows with random ones, both in the slab form,
-     and at 8192 random rows, past the slab's limit, in the direct form;
-     the direct form at 4608 too, timed beside the slab form; the row form
-     on each of the six face-neighbour rows, also against index_select, the
-     chain at 4 and 24 reps on normal and mixed-scale inputs and at T - 1
-     rows, not a multiple of its block's 6) and every PC variant of the
-     four probe scripts (one block and one per SM) against its plain
-     version, bitwise, the device-memory cases in both launch forms (plain,
-     the wrapper's, and a cluster of one) and every case in the design
-     before the redesign (``tools/pc_cost.py``'s parts 0), with each one's
-     time beside the design before's and ``BEFORE_REDESIGN``, bound and
-     library call (one index_select of every row the launch copies: blocks
-     x reps x n x L; none for the chain), and ns a row copied beside
-     index_select's and beside every row copied over the HBM rate;
-     ``tools/pc_cost.py``'s breakdown of v5's fixed cost; then
-     the probe scripts themselves as the probes' own path (counters 0 before,
-     read after): the gather chain and the copy costs per copy, batched
-     and drained once a rep (issue and drain apart)
- 16. the cook on user files at bench size (``models/solve.py`` through
-     ``python -m hnanosolver_tpu_torch.cli``), inputs written by the port's
-     own writers into build/chip_smoke/cook/: the feedback is phase 4's
-     developed bench state (velocity, density and the four combustion
-     fields) plus a second Vec3 grid that must pass through, blosc-framed;
-     the source one frame of emit's density, temperature and fuel on the
-     emitter's tiles; the collision config 4's sphere as a narrow-band SDF
-     over its shell tiles. ``solve --frames 6 --ckpt-every 3`` with the CLI
-     defaults: launch counts per frame from the capacity each step ran at
-     (2 B1 with the SDF probes, 2 B2, B5 or B3 blocks + B4, B7a, B7b, 4 CE),
-     every frame's state finite with zero background rows and the SDF equal
-     to the input re-scattered onto its topology bitwise; the written file
-     holds every field under its name (the SDF under its input name), each
-     equal to the state's active rows bitwise, and the passthrough grid
-     bitwise; ``solve solve_0003.npz --frames 3`` writes the same grids
-     bitwise; one cook frame kernels vs plain; a poll-based interrupter
-     stops run_solve after exactly 2 frames; the operator nodes (advect,
-     advect-velocity, project, project --outdiv) with their launch counts,
-     finite outputs and project lowering max|div|. Times: the feedback's
-     read and write seconds, plain and blosc, and the median seconds a
-     frame of the cook split into source scatter, CFL guard, step (CUDA
-     events), growth and SDF re-scatter
- 17. the viewer and the profiling entry points on the card, outputs under
-     build/chip_smoke/view/: through ``cli.main``, ``plume --frames 4
-     --render --render-every 2 --view-box 128 128 128 --ckpt-every 4`` (two
-     valid PNGs with smoke at the emitter brighter than a corner; the
-     checkpoint's render on the card equal to its render on the CPU within
-     1e-5), ``collide --frames 2 --render`` (the sphere's pixel is the
-     solid's colour, not the smoke render's), ``fire --frames 2 --render``
-     (the PNG is the card's render of its checkpoint), ``turntable --frames 8
-     --size 384`` (8 PNGs and an APNG whose acTL counts 8, its frames the
-     PNGs) and ``bench-report`` at its defaults (every phase above the
-     chain-slope floor but the no-op vorticity; launches counted from the
-     phase bodies' applications), each a main path with launch counts from
-     the capacities its steps ran at; ``webapp.serve(port=0, block=False)``
-     on the live plume at the ``view`` subcommand's 256^3 box (GET /,
-     /step?n=2, /meta, /volume: frame 2, 2 steps' launches) and on the plume
-     checkpoint (static: /step is 404); ``utils/profiling.device_trace``
-     around one bench step (the port's kernels on the trace's device
-     timeline, the program's spans on its host rows and their records) and ``utils/timers.Profiler.scope`` (Mvox/s, modeled GB/s);
-     ms a frame of the ortho render at 128^3 and of the perspective render
-     at 384^2 x 256 steps
- 18. the sliced table path (``advection.INTERP = "vmem"`` above
-     ``TABLE_BYTES_BUDGET``): at the bench with the budget at a third of the
-     velocity pass's table (3 slices at 3 fields, 8 at 8), one step in the
-     narrow and the mixed band, COMBINE_TBL off and on, each bitwise the
-     unsliced step with B1d, B11 and B8 launches as the JAX package's
-     dispatch gives them (``jax_dispatch``: a sliced pass builds no table by
-     B11, the sliced mixed band samples forward by B8); at config 5 with its
-     chunk plans (phase 14's) and the real budget: 4 developing RBGS-50
-     steps, then one table-path step, its slices ``tables.pick_slices``'s
-     (the JAX package's ``_pick_slices``), within TOL_STEP of the nbr-path
-     step, its ms beside the nbr path's and its peak device memory
- 19. the sharded step (``parallel/``): the developed bench state over a
-     mesh of 4 entries of this card, 4 x-slabs (``build_slabs``), one step
-     each of RBGS-50, multigrid (mg_levels 2, 2 V-cycles, FMG) and
-     multigrid with ``mg_tol`` (a cap of MG_TOL_CAP V-cycles), and a
-     (2, 2, 1) box grid (``build_boxes``) RBGS-50; each held bitwise to
-     the one-device step under the JAX package's sharded semantics (a
-     refresh hook: textbook per-colour B4 at the fine level, ``halo_lag``
-     ignored; coarse levels replicated, B5), and within TOL_STEP of the
-     same sharded step with every kernel replaced by its plain version
-     (the kernels at the slabs' and boxes' shapes), with exact launch
-     counts of both (the tol run's from the V-cycles it ran, the same on
-     every slab), their ms (median of 3, CUDA events: one card, one
-     stream), the RBGS step's also over each of SLAB_SWEEP slabs (one
-     thread a slab); config 5 over 4 slabs, RBGS-50, one step held the
-     same ways (the one-device step computed first, its output kept on the
-     host), its peak device memory beside the one-device step's record
-     scaled by the slabs' rows; B4 at the config-5 slab shape (131,072
-     rows, operands past the L2) a launch at a time beside its HBM bound;
-     the convergence chain: CHAIN_STEPS consecutive bench MG + FMG +
-     ``mg_tol`` steps over the 4 slabs beside the one-device chain, each
-     with exact launch counts, the same V-cycles as one device, max|r| <=
-     0.1 max|div| (every answer, by B6's plain version) and every field
-     bitwise; over min(4, count) distinct cards where the machine has two
-     or more (the bench RBGS step), else a line saying it was not made
- 20. the dense oracle (``dense/``): on each of DENSE_BOXES (128^3: 4,096
-     tiles; 256^3: 32,768) covered exactly by ``build_topology_dense``,
-     tests/test_parity.py's smooth fields (numpy, seeded) with the velocity
-     scaled to a max CFL of DENSE_CFL (traces cross tile seams;
-     ``cfl_clamped_count`` 0 on the input and the projected velocity), one
-     ``solver.step`` through the kernels (exact launches: 2 B1, 2 B2, 2 B4 a
-     pressure iteration, B7a, B7b; null and padding rows 0) against one
-     ``step_dense`` on the card: at the JAX parity test's parameters (dt
-     0.2, 6 iterations) every field within TOL_DENSE_ABS, at the bench's (dt
-     1/24, dx 0.5, 50 iterations) within TOL_DENSE_REL of its max|.|, both
-     at halo_lag 1 and with and without config 3's vorticity confinement,
-     for the first of DENSE_SEEDS; the others run the vorticity case at the
-     test parameters. In every case the plain versions' step is gated the
-     same way, and each step and each distinct B1, B2, B4, B7a, B7b call at
-     these shapes is held against its plain version; printed only: the same
-     comparison at the bench default halo_lag 5 (B3 blocks), both steps' ms
-     and the peak device memory. Then the three user examples
-     (``hnanosolver_tpu_torch/examples/``) on the card at their default
-     widths as main paths: fireball 12 frames (its checkpoint and PNG, the
-     PNG the render of the checkpoint), smoke_to_nvdb 8 frames (three .nvdb
-     grids and a preview), view_and_export 2 frames (two .vdb files with the
-     same grids, its viewer on port 0 read over HTTP and shut down)
- 21. the repeat check (``tools/repeat_check.py``): its stages (the velocity
-     advection, curl, the six offset curl magnitudes, the confinement, the
-     divergence and the pressure solve) on its REPEAT_N^3 case twice
-     through the kernels, each pass a main path (1 B1, 1 B2, 2 B4 a
-     pressure iteration, 1 B7a), every stage of the second pass bitwise the
-     first; then its first offset magnitude NARROW_REPEATS times on one
-     velocity, every intermediate bitwise the first repeat's and the first
-     repeat's outputs unchanged after the last
- 22. the port's bench (``bench_torch.py``): the bench cell developed as
-     bench_torch develops it (2 steps from rest); ``make_chain`` for the
-     2- and 12-step chains as main paths (its eager warm-up and its
-     capture: 2k steps' launches), the counters across each capture alone
-     exactly k x (2 B1, 2 B2, 10 B3, 1 B7a, 1 B7b); each chain's first
-     replay bitwise the eager chain from the same state, its second replay
-     bitwise its first, no counter moved by a replay; torch.profiler over
-     one replay of the 12-chain sees 24 B1, 24 B2, 120 B3, 12 B7a and 12
-     B7b kernels by name (and prints the replay's device kernels and device
-     ms a step); then ``bench_torch.measure`` at its defaults: its last JSON
-     line, the graph and eager chains' ms a step; last, a capture through
-     the table sampler (``advection.INTERP = "vmem"``), whose window check
-     reads the host, must raise
-
-Phases 6 and 9 print B1's and B3's times beside the records from before
-their redesign (``BEFORE_REDESIGN``), phases 7 and 9 B5's and B6's, phase
-14 B1d's, and the bench and config-5 steps'.
+Each phase is one function, ``phase_<n>_<name>``, whose docstring says what
+it checks. Its parameters are what it reads from earlier phases and it
+returns what later phases read, so :func:`main`, which runs them in order,
+is the map of which phase feeds which. Every phase shares one :class:`Card`:
+the card's name and power limit, the kernels table and the phase clock. The
+launches a step of each main path that the phases hold exactly are module
+data (``RBGS50_STEP`` and the rest below).
 
 Launch counts come only from the main-path runs (phases 4, 7-14, 16-22), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
 line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
 step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4 advection
-with the SDF of the config-4 state: the velocity and the scalar pass; CE
-the config-4 step's four enforce passes; B1d
-and B11 one table-path bench step in the narrow band with COMBINE_TBL on;
-PG one row gather at the bench, PC one launch of probe_dmacost's L = 8,
-n = 512, 8 reps from device memory on one block per SM; their launches are
-those of phase 15's probe-script run, none on the plume path):
-per-launch medians over runs of 10
-back-to-back calls at the inputs recorded from one such step, times that
-step's launches. ``bound_ms`` is the larger of the bytes the calls must
-move (each input read once, each output written once; B11 reads each
-distinct table value it copies once, B1d the dual rows its ldual names, once
-a chunk, in the fields its mode samples: tools/b1d_cost.read_bytes) over
-3.35 TB/s and their f32 operations over 67 TFLOP/s (the H100 SXM data
-sheet); B1d's time is its launches alone (its wrapper's host check of the
-window is printed apart); B11's library time is one torch.gather of the
-27-table over a precomputed index, PC's one index_select of every row its
-launch copies. On the
-bench domain a launch's operands fit the 50 MB L2 and stay there between
-back-to-back calls, as they largely do in the step, so its HBM bound is
-not a floor on its time; the per-launch lines say where that holds. Only
-the config-5 levels (551 MB a field at the fine one) and the bench's chunk
-tables (133-353 MB a launch) are held to a true HBM bound.
-
-The cells (domains, solver settings, develop steps) come from
-``hnanosolver_tpu_torch/cells.py``, which ``profile_step`` reads too.
+with the SDF of the config-4 state, CE the config-4 step's four enforce
+passes, B1d and B11 one table-path bench step in the narrow band with
+COMBINE_TBL on, PG one row gather at the bench, PC one launch of
+probe_dmacost's L = 8, n = 512, 8 reps on one block per SM): per-launch
+medians over runs of 10 back-to-back calls at the inputs recorded from one
+such step, times that step's launches, beside the plain version's, a
+library call's where there is one, and ``bound_ms`` (the H100 SXM data
+sheet's 3.35 TB/s and 67 TFLOP/s). On the bench domain a launch's operands
+fit the 50 MB L2 and stay there between back-to-back calls, as they largely
+do in the step, so its HBM bound is not a floor on its time; only the
+config-5 levels (551 MB a field at the fine one) and the bench's chunk
+tables (133-353 MB a launch) are held to a true HBM bound. Phases 6, 7, 9,
+14 and 15 print kernels' times beside their records from before their
+redesign (``BEFORE_REDESIGN``). The cells come from
+``hnanosolver_tpu_torch/cells.py``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -301,20 +46,62 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
-import math
+import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 import zlib
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
+import torch
 
+from hnanosolver_tpu_torch import cli, solver
+from hnanosolver_tpu_torch.cells import CELLS
+from hnanosolver_tpu_torch.config import CombustionParams, SolverParams
+from hnanosolver_tpu_torch.core import activation
+from hnanosolver_tpu_torch.core import topology as topology_mod
+from hnanosolver_tpu_torch.core.convert import tiles_to_dense
+from hnanosolver_tpu_torch.core.layout import positions_flat
+from hnanosolver_tpu_torch.core.topology import (active_mask, build_topology,
+                                                 build_topology_dense, lookup_tiles)
+from hnanosolver_tpu_torch.dense.solver import step_dense
+from hnanosolver_tpu_torch.examples import fireball, smoke_to_nvdb, view_and_export
+from hnanosolver_tpu_torch.fields import COLLISION_FIELD, FieldState, zeros_state
+from hnanosolver_tpu_torch.io import vdb as vdb_io
+from hnanosolver_tpu_torch.io.nvdb import read_nvdb
+from hnanosolver_tpu_torch.io.state import load_npz
+from hnanosolver_tpu_torch.kernels import build
+from hnanosolver_tpu_torch.models import collider, fire, plume, solve
+from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
+                                       cuda_collision, cuda_pressure, cuda_probe, cuda_sample,
+                                       cuda_stencil, cuda_tables, cuda_tail, cuda_transfer,
+                                       multigrid, probe, stencil, tables)
+from hnanosolver_tpu_torch.ops import pressure as prs
+from hnanosolver_tpu_torch.parallel import boxes as pboxes
+from hnanosolver_tpu_torch.parallel import slab as pslab
+from hnanosolver_tpu_torch.parallel.mesh import make_mesh
+from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
+from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, pc_cost, probe_dgather,
+                                         probe_dmabisect, probe_dmabisect2, probe_dmacost,
+                                         repeat_check)
+from hnanosolver_tpu_torch.tools import dense_spread as spread
+from hnanosolver_tpu_torch.utils import phase_profile, profiling, timers
+from hnanosolver_tpu_torch.utils.interrupt import Interrupter
+from hnanosolver_tpu_torch.viewer import render, webapp
+
+DEV = torch.device("cuda")
+OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"  # phases 16, 17 and 20 write here
 MG_STEPS = 3  # multigrid steps on the bench domain
 C2_FRAMES = 48  # config-2 plume frames from rest (growth every frame)
 C3_FRAMES = 48  # config-3 fire frames from rest
@@ -348,7 +135,7 @@ PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 # Records from before kernels were redesigned (PERF.md §5-6, NVIDIA H100 80GB
 # HBM3 at 700 W), printed beside this run's: ms a step of the bench and
 # config-5 RBGS-50 steps and B1's and B3's ms a step of each (config 5:
-# device time from profile_step); B5's and B6's ms a step of the bench and
+# device time from torch.profiler); B5's and B6's ms a step of the bench and
 # config-5 MG steps and the config-5 MG step's ms, as chip_smoke measured
 # them before B5 and B6 were redesigned
 BEFORE_REDESIGN = {"bench step": 1.723, "c5 RBGS-50 step": "74.3-74.9",
@@ -393,10 +180,44 @@ TOL_DENSE_REL = 1e-4
 # its first offset magnitude
 REPEAT_N = 128
 NARROW_REPEATS = 8
+# phase 22: plume steps that develop the bench state from rest, and the chains
+# captured as CUDA graphs (bench.py's chain lengths)
+GRAPH_DEVELOP = 2
+CHAINS = (2, 12)
 
-
-def sh(cmd: list[str]) -> str:
-    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+# Launches a step of each main path that the phases hold exactly
+# (tests/test_torch_chip_smoke.py holds them to the program's dispatch on
+# the CPU). RBGS-50 at halo_lag 5 above MAX_FUSED_ROWS rows: 50 // 5 B3
+# blocks (the bench, config 5; phases 4, 9, 18 and 22).
+RBGS50_STEP = {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1}
+# halo_lag 1, the "parity" tier (phase 8): two B4 colour sweeps an iteration
+PARITY_STEP = {"B1": 2, "B2": 2, "B4": 100, "B7a": 1, "B7b": 1}
+# Config 4 (phase 10): with the SDF, four CE (collide.enforces)
+C4_STEP = {**RBGS50_STEP, "CE": 4}
+# The bench MG step (phase 7; mg_levels 2, iterations = 2 V-cycles, FMG,
+# n_pre = n_post = 2, n_coarsest 24, smooth_lag "pair"): the fine level
+# (4608 rows) is above MAX_FUSED_ROWS, so each smoothing call is n_pre = 2
+# one-pair B3 blocks; level 1 (1024 rows) and level 2 (128) take one B5 per
+# solve. A V-cycle from the fine level: B3 2 + 2, B6 at fine and level 1, B5
+# at level 1 pre and post and the level-2 solve: B3 4, B5 3, B6 2. A V-cycle
+# from level 1: B5 3, B6 1. FMG: the level-2 solve (B5 1), the level-1
+# V-cycle, the fine V-cycle: B3 4, B5 7, B6 3. Then 2 V-cycles: B3 8, B5 6,
+# B6 4. Per step: B1 2, B2 2, B3 12, B5 13, B6 7. The transfers: a V-cycle
+# from level k restricts and prolongs once a level below k, FMG restricts to
+# each level once more and prolongs each solution up once: MR and MP 2 + (1
+# + 2) + 2 * 2 = 9 each.
+BENCH_MG_STEP = {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1, "MR": 9,
+                 "MP": 9}
+# The config-5 MG step (phase 9; mg_levels 5): fine 269,312, L1 45,056 and
+# L2 6,144 rows smooth with one-pair B3 blocks (L1, L2 masked); L3 1,024, L4
+# 128, L5 32 rows with one B5 per solve. A V-cycle from level k visits
+# levels k..4 (pre + post smoothing and one B6 each) and solves level 5 (B5
+# 1): from the fine level B3 12, B5 5, B6 5. FMG: the level-5 solve, then
+# one V-cycle from each level 4..0: B3 0+0+4+8+12, B5 1+3+5+5+5+5, B6
+# 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2). MR and MP:
+# FMG 5 + (1+2+3+4+5), the V-cycles 2 x 5: 30 each (level k k + 3).
+C5_MG_STEP = {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1, "MR": 30,
+              "MP": 30}
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -492,8 +313,6 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out_bytes: int) -> tuple[float
     bytes moved). Each input is read once and each output (``out_bytes``)
     written once; B11's reads are the table values its dloc picks (the data
     decides them): :func:`b11_read_bytes`."""
-    import torch
-
     seen, moved = set(), 0
     for a in list(args) + list(kwargs.values()):
         if isinstance(a, torch.Tensor) and a.data_ptr() not in seen:
@@ -502,57 +321,391 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out_bytes: int) -> tuple[float
     if key == "B11":  # it reads each distinct 27-table value it copies once
         moved = nbytes(args[1]) + b11_read_bytes(args[1], args[2])
     if key == "B1d":  # the dual rows its ldual names, the fields its mode samples
-        from hnanosolver_tpu_torch.tools.b1d_cost import read_bytes
-
-        moved += read_bytes(args[0], args[1], *b1d_mode(args, kwargs)) - nbytes(args[0])
+        moved += b1d_cost.read_bytes(args[0], args[1], *b1d_mode(args, kwargs)) - nbytes(args[0])
     moved += out_bytes
     ops = ops_per_voxel(key, args, kwargs) * rows(key, args) * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
 
 
-def main() -> int:
-    import torch
+def kernel_table() -> dict:
+    """The hand-written kernels by key: what the JSON line prints of each,
+    its launch counter, its wrapper and its plain version."""
+    jax, xla = "hnanosolver_tpu/ops/", "none (XLA computed the "
+    rows_ = (  # key, name, source in csrc/, what it replaces, counter, wrapper
+        ("B1", "bfecc_sample", "bfecc_sample.cu", jax + "pallas_bfecc.py:303",
+         cuda_bfecc.launches, cuda_bfecc, "bfecc_sample"),
+        ("B2", "bfecc_tail", "bfecc_tail.cu", jax + "pallas_tail.py:85", cuda_tail.launches,
+         cuda_tail, "bfecc_tail"),
+        ("B3", "rbsor_lagged", "rbsor_lagged.cu", jax + "pallas_pressure.py:199",
+         cuda_pressure.launches_lagged, cuda_pressure, "rbsor_lagged"),
+        ("B4", "rbsor_color", "rbsor_color.cu", jax + "pallas_pressure.py:290",
+         cuda_pressure.launches_color, cuda_pressure, "rbsor_color"),
+        ("B5", "rbsor_fused", "rbsor_fused.cu", jax + "pallas_pressure.py:356",
+         cuda_pressure.launches_fused, cuda_pressure, "rbsor_fused"),
+        ("B6", "residual", "residual.cu", jax + "pallas_stencil.py:184",
+         cuda_stencil.launches_residual, cuda_stencil, "residual"),
+        ("B7a", "divergence", "stencil.cu", jax + "pallas_stencil.py:89",
+         cuda_stencil.launches_div, cuda_stencil, "divergence"),
+        ("B7b", "subtract_gradient", "stencil.cu", jax + "pallas_stencil.py:151",
+         cuda_stencil.launches_subgrad, cuda_stencil, "subtract_gradient"),
+        ("B8", "sample_at", "sample_at.cu", f"{jax}pallas_interp2.py:54, {jax}pallas_interp.py:51",
+         cuda_sample.launches, cuda_sample, "sample_at"),
+        ("B1d", "bfecc_sample_dual", "bfecc_sample.cu",
+         jax + "pallas_bfecc.py:303 (use_dual, :899-913, :974-984)", cuda_bfecc.launches_dual,
+         cuda_bfecc, "bfecc_sample_dual"),
+        ("B11", "combine_dual", "combine_dual.cu", jax + "pallas_bfecc.py:676",
+         cuda_tables.launches, cuda_tables, "build_table_dual_combine"),
+        ("PG", "probe_gather", "probe_gather.cu", "tools/probe_dgather.py:59, :79, :109",
+         cuda_probe.launches_gather, cuda_probe, "take_rows"),
+        ("PC", "probe_copy", "probe_copy.cu", "tools/probe_dmabisect.py:39, :164; "
+         "tools/probe_dmabisect2.py:59, :81, :113, :149, :184, :222; tools/probe_dmacost.py:89, "
+         ":134", cuda_probe.launches_copy, cuda_probe, "row_copy"),
+        ("MR", "mg_restrict", "mg_transfer.cu", xla + f"transfers: {jax}multigrid.py restrict)",
+         cuda_transfer.launches_restrict, cuda_transfer, "restrict"),
+        ("MP", "mg_prolong", "mg_transfer.cu",
+         xla + f"transfers: {jax}multigrid.py prolong_trilinear)", cuda_transfer.launches_prolong,
+         cuda_transfer, "prolong_trilinear"),
+        ("CE", "enforce_collision", "collision.cu",
+         xla + f"collision: {jax}collision.py enforce_collision)", cuda_collision.launches,
+         cuda_collision, "enforce_collision"),
+    )
+    kernels = {key: dict(name=name, source="hnanosolver_tpu_torch/csrc/" + src, replaces=rep,
+                         counter=counter, wrap=(mod, attr), route="cuda", launches=0,
+                         max_abs_err=0.0, library_ms=None, kernel_fn=getattr(mod, attr),
+                         plain_fn=getattr(mod, attr + "_plain"))
+               for key, name, src, rep, counter, mod, attr in rows_}
+    # B1d's wrapper checks the window on the host (one sync) before it
+    # launches: its time is the launch alone (b1d_cost.kernel_call), the
+    # wrapper's printed beside it. B11's library call: one torch.gather of
+    # the 27-table over the index its plain version builds, built beforehand.
+    kernels["B1d"]["launch"] = lambda a, kw: b1d_cost.kernel_call(*a, **kw)
+    kernels["B11"]["library"] = b11_gather
+    return kernels
 
-    # -- 1. device -----------------------------------------------------------
-    t_phase = time.perf_counter()
+
+def b11_gather(a, kw):
+    idx = cuda_tables.combine_index(a[1], a[2])
+    flat = a[0].reshape(a[0].shape[0], -1)
+    out = torch.empty(idx.shape, device=flat.device)
+    return lambda: torch.gather(flat, 1, idx, out=out)
+
+
+class Card:
+    """What every phase shares: the card's name and power limit as
+    nvidia-smi gives them (``str(card)``, printed beside every time), the
+    kernels table (:func:`kernel_table`) and the phase clock."""
+
+    def __init__(self, label: str, start: float):
+        self.label, self.kernels, self.start = label, kernel_table(), start
+
+    def __str__(self) -> str:
+        return self.label
+
+    def done(self, phase: str) -> None:
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        print(f"[{phase}] phase took {now - self.start:.1f} s", flush=True)
+        self.start = now
+
+    def counts(self) -> dict:
+        """Every kernel's launch counter, now."""
+        return {key: k["counter"].n for key, k in self.kernels.items()}
+
+
+def check(card, key, label, got, want, tol=TOL_B3, phase="3"):
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    bitwise = bool(torch.equal(got, want))
+    card.kernels[key]["max_abs_err"] = max(card.kernels[key]["max_abs_err"], err)
+    print(f"[{phase}] {key} {label}: max abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}),"
+          f" bitwise {bitwise}", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
+    if key in ("MR", "MP", "CE") and not bitwise:
+        raise AssertionError(f"phase {phase}: {key} {label} is not bitwise its plain version")
+
+
+@contextlib.contextmanager
+def main_path(card, label: str, per_step, steps: int = 1):
+    """Counters to 0 just before the run, read just after; the counts
+    must be exactly ``per_step`` times ``steps`` (``per_step`` a
+    callable: the run's total counts, asked after the run)."""
+    for k in card.kernels.values():
+        k["counter"].n = 0
+    torch.cuda.synchronize()
+    yield
+    torch.cuda.synchronize()
+    counts = card.counts()
+    if callable(per_step):
+        per_step, steps = per_step(), 1
+    want = {key: per_step.get(key, 0) * steps for key in KEYS}
+    for key, k in card.kernels.items():
+        k["launches"] += counts[key]
+    print(f"[{label}] launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"phase {label}: launch counts {counts} != {want}")
+
+
+def check_state(label, topo_, state):
+    fields = {"velocity": state.velocity, **state.scalars}
+    bad = [name for name, f in fields.items()
+           if not bool(torch.isfinite(f).all())
+           or bool(f[..., 0, :].any()) or bool(f[..., topo_.n_active + 1:, :].any())]
+    if bad:
+        raise AssertionError(f"phase {label}: non-finite or non-zero background in {bad}")
+    if not float(state.scalars["density"].max()) > 0:
+        raise AssertionError(f"phase {label}: the emitter sourced no density")
+
+
+def plain_versions(card):
+    """Every kernel wrapper replaced by its plain version."""
+    stack = contextlib.ExitStack()
+    for k in card.kernels.values():
+        mod, attr = k["wrap"]
+        stack.enter_context(mock.patch.object(mod, attr, k["plain_fn"]))
+    return stack
+
+
+def field_errors(got, want, bitwise: bool = False) -> tuple[float, list]:
+    """(the largest, one "name err" a field) of state ``got``'s relative
+    errors against ``want``, marked bitwise where ``bitwise`` asks and holds."""
+    worst, parts = 0.0, []
+    for name in ["velocity"] + sorted(got.scalars):
+        g = got.velocity if name == "velocity" else got.scalars[name]
+        w = want.velocity if name == "velocity" else want.scalars[name]
+        _, rel = rel_err(g, w)
+        worst = max(worst, rel)
+        parts.append(f"{name} {rel:.2e}"
+                     + (" (bitwise)" if bitwise and torch.equal(g, w) else ""))
+    return worst, parts
+
+
+def step_vs_plain(card, label, run, out_k=None):
+    """``run`` again with every wrapper replaced by its plain version (the
+    patches are module-global, so the sharded step's threads see them
+    too): no kernel may launch, every field within TOL_STEP of ``out_k``
+    (``run``'s own output through the kernels where not given). Returns
+    the plain run's output."""
+    if out_k is None:
+        out_k = run()
+    before = card.counts()
+    with plain_versions(card):
+        out_p = run()
+    torch.cuda.synchronize()
+    if card.counts() != before:
+        raise AssertionError(f"phase {label}: the plain step launched a kernel")
+    worst, parts = field_errors(out_k, out_p)
+    print(f"[{label}] one step, kernels vs plain on the card, max rel err per field: "
+          f"{', '.join(parts)} (tol {TOL_STEP:g})", flush=True)
+    if not worst <= TOL_STEP:
+        raise AssertionError(f"phase {label}: step rel err {worst} > {TOL_STEP}")
+    return out_p
+
+
+def record(card, run, keys) -> list:
+    """Run ``run`` once with the wrappers of ``keys`` recording their
+    calls: [key, args, kwargs, output bytes, count] per distinct call
+    (the first one's inputs are kept)."""
+    def sig(key, args, kwargs):
+        def one(a):
+            return (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+        return (key, tuple(one(a) for a in args),
+                tuple(sorted((n, one(v)) for n, v in kwargs.items())))
+
+    groups = {}
+    with contextlib.ExitStack() as stack:
+        for key in keys:
+            def rec(*a, _fn=card.kernels[key]["kernel_fn"], _key=key, **kw):
+                out = _fn(*a, **kw)
+                groups.setdefault(sig(_key, a, kw), [_key, a, kw, nbytes(out), 0])[4] += 1
+                return out
+            stack.enter_context(mock.patch.object(*card.kernels[key]["wrap"], rec))
+        run()
+    torch.cuda.synchronize()
+    return list(groups.values())
+
+
+def vs_plain(card, label, key, a, kw):
+    """One recorded call through the kernel and through its plain
+    version (B4, which updates p in place, each on its own copy)."""
+    def inputs():
+        if key != "B4":
+            return a
+        return [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+
+    k = card.kernels[key]
+    got, want = k["kernel_fn"](*inputs(), **kw), k["plain_fn"](*inputs(), **kw)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    tol = TOL_B1 if key in ("B1", "B8", "B1d") else 0.0 if key in BITWISE else TOL_B3
+    for g, w in zip(got, want):
+        check(card, key, f"main-path call {call_label(key, a)}", g, w, tol, label)
+    if key in ("MR", "MP"):
+        transfer_forms(card, label, key, a)
+
+
+def transfer_forms(card, label, key, a, name=""):
+    """MR or MP on the operands ``a`` in each of its forms: each of its
+    two optional operands (MR's fine and coarse masks, MP's p and mask)
+    given or left out, bitwise the plain version."""
+    k, head, opt = card.kernels[key], a[:-2], a[-2:]
+    for use in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        if any(u and o is None for u, o in zip(use, opt)):
+            continue
+        ops = [o if u else None for u, o in zip(use, opt)]
+        form = ", ".join(f"{n} {'given' if u else 'none'}" for n, u in
+                         zip(("fine mask", "coarse mask") if key == "MR" else ("p", "mask"),
+                             use))
+        check(card, key, f"{name}{call_label(key, a)}: {form}", k["kernel_fn"](*head, *ops),
+              k["plain_fn"](*head, *ops), 0.0, label)
+
+
+def time_calls(card, label: str, groups: list, plain: bool = True) -> dict:
+    """Each recorded call against its plain version on the same inputs,
+    then per-step kernel, plain and bound ms: one timed launch per
+    distinct call, times its count. ``plain=False`` times the kernels
+    alone."""
+    res = {}
+    for key, a, kw, out_bytes, count in groups:
+        k = card.kernels[key]
+        vs_plain(card, label, key, a, kw)
+        launch = k["launch"](a, kw) if "launch" in k else lambda: k["kernel_fn"](*a, **kw)
+        if plain:
+            k_ms, p_ms = paired_ms(launch, lambda: k["plain_fn"](*a, **kw))
+        else:
+            k_ms = median_ms(launch, 5, 10)  # behind the spin
+            p_ms = float("nan")
+        b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
+        r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
+        r["ms"] += k_ms * count
+        r["plain_ms"] += p_ms * count
+        r["bound_ms"] += b_ms * count
+        r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms * count
+        extra = ""
+        if "launch" in k:  # the wrapper with its host work, as the path calls it
+            w_ms = median_ms(lambda: k["kernel_fn"](*a, **kw), 10, 10)
+            r["wrapper_ms"] = r.get("wrapper_ms", 0.0) + w_ms * count
+            extra += f", {w_ms:.4f} ms through the wrapper"
+        if "library" in k:
+            l_ms = median_ms(k["library"](a, kw), 10, 10)
+            r["library_ms"] = r.get("library_ms", 0.0) + l_ms * count
+            extra += f", {l_ms:.4f} ms library"
+        in_l2 = " (operands fit the L2: HBM bound)" if moved <= L2_BYTES else ""
+        print(f"[{label}] {key} {call_label(key, a)} x{count}/step: {k_ms:.4f} ms kernel,"
+              f" {p_ms:.4f} ms plain{extra}, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} "
+              f"MB){in_l2} per launch | {card}", flush=True)
+    for key, r in res.items():
+        r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get) if r["bound_by"] else "bytes"
+        extra = "".join(f", {r[x]:.4f} {x[:-3]}" for x in ("wrapper_ms", "library_ms")
+                        if x in r)
+        print(f"[{label}] {key} {card.kernels[key]['name']}: {r['ms']:.4f} ms/step kernel vs "
+              f"{r['plain_ms']:.4f} plain{extra}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of the kernel's time) | "
+              f"{card}", flush=True)
+    return res
+
+
+def path_timed(card, label: str, step, runs: int, keys: tuple) -> tuple[float, list, dict]:
+    """A path's ms a step (median of ``runs`` after a warm-up), then each
+    call of ``keys`` in one step vs plain and timed (:func:`time_calls`).
+    Returns (ms a step, the recorded calls, time_calls' results)."""
+    step()
+    ms = statistics.median(time_ms(step, runs))
+    groups = record(card, step, keys)
+    return ms, groups, time_calls(card, label, groups)
+
+
+def fit_b5(card, label: str, groups: list):
+    """B5's us a half-sweep and a launch, fitted from 2 and 24 iterations
+    (tools/b5_cost.fit), in each form that holds T, at each T of a path's
+    recorded calls, on their inputs."""
+    seen = set()
+    for key, a, kw, _, _ in groups:
+        T_ = a[0].shape[0]
+        if key != "B5" or T_ in seen:
+            continue
+        seen.add(T_)
+        parts = []
+        for form in ("cluster", "grid"):
+            if form == "cluster" and T_ > cuda_pressure.CLUSTER_CAPACITY:
+                continue
+            half, launch = b5_cost.fit(b5_cost.form_solver(form, a[0], a[1], kw.get("mask"),
+                                                           a[3], a[4]))
+            parts.append(f"{form} form {half:.3f} us a half-sweep, {launch:.3f} us a launch")
+        print(f"[{label}] B5 T={T_} ({cuda_pressure.fused_shape(T_).form} form on the path): "
+              + "; ".join(parts) + f" (the grid form is the design before the redesign) | "
+              f"{card}", flush=True)
+
+
+def redesigned(card, label: str, path: str, res: dict):
+    """B5's and B6's ms a step of a path beside their bound and their
+    records from before the redesign."""
+    for key in ("B5", "B6"):
+        r = res[key]
+        print(f"[{label}] {key} {card.kernels[key]['name']}, {path} step: {r['ms']:.4f} "
+              f"ms/step, {r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f}; before "
+              f"the redesign {BEFORE_REDESIGN[path][key]} | {card}", flush=True)
+
+
+def field(rng, mask, *shape, scale=1.0):
+    """Standard normal float32 values of ``shape`` from ``rng`` on the card,
+    times ``scale`` and ``mask``."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(DEV)
+    return x * scale * mask
+
+
+def in_domain(rng, rows, mask):
+    """A random in-domain mask of ``rows`` rows (70% ones), times ``mask``."""
+    return (torch.from_numpy(rng.random((rows, 512))).to(DEV) > 0.3).float() * mask
+
+
+def step_counts(cap: int, p_) -> dict:
+    """Launches of one step at capacity ``cap`` on the nbr path with at
+    most 8 scalars: the pressure solve as ops/pressure.solve_pressure
+    dispatches it, and with ``p_.has_collision`` four CE (the step's
+    enforce passes)."""
+    c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0}
+    if cap <= cuda_pressure.MAX_FUSED_ROWS:
+        c["B5"] = 1
+    else:
+        lag_ = p_.effective_halo_lag
+        blocks = p_.iterations // lag_ if lag_ > 1 else 0
+        c["B3"], c["B4"] = blocks, 2 * (p_.iterations - blocks * lag_)
+    return c
+
+
+def totals(caps: list, p_):
+    """The launches of one step at each capacity of ``caps`` (filled while
+    the run goes), summed: a callable for :func:`main_path`."""
+    def want():
+        out = {}
+        for cap in caps:
+            for key, n in step_counts(cap, p_).items():
+                out[key] = out.get(key, 0) + n
+        return out
+    return want
+
+
+def phase_1_device() -> Card | None:
+    """The card's name and power limit, torch and CUDA versions. Returns the
+    run's :class:`Card`, or None without a card."""
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    card = card.splitlines()[0]
+        return None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    card = Card(smi.stdout.strip().splitlines()[0], start)
     print(f"[1] device: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}"
           f" | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    card.done("1")
+    return card
 
-    from hnanosolver_tpu_torch import solver
-    from hnanosolver_tpu_torch.cells import CELLS
-    from hnanosolver_tpu_torch.core.topology import active_mask, build_topology
-    from hnanosolver_tpu_torch.fields import COLLISION_FIELD, zeros_state
-    from hnanosolver_tpu_torch.kernels import build
-    from hnanosolver_tpu_torch.core import topology as topology_mod
-    from hnanosolver_tpu_torch.core.layout import positions_flat
-    from hnanosolver_tpu_torch.fields import FieldState
-    from hnanosolver_tpu_torch.models import collider, fire, plume
-    from hnanosolver_tpu_torch.config import SolverParams
-    from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
-                                           cuda_collision, cuda_pressure, cuda_probe,
-                                           cuda_sample, cuda_stencil, cuda_tables, cuda_tail,
-                                           cuda_transfer, multigrid, probe, stencil, tables)
-    from hnanosolver_tpu_torch.ops import pressure as prs
-    from hnanosolver_tpu_torch.timing import median_ms, paired_ms, time_ms
-    from hnanosolver_tpu_torch.tools import (b1d_cost, b5_cost, ctas_all, pc_cost,
-                                             probe_dgather, probe_dmabisect, probe_dmabisect2,
-                                             probe_dmacost)
 
-    def done(phase: str):
-        nonlocal t_phase
-        now = time.perf_counter()
-        print(f"[{phase}] phase took {now - t_phase:.1f} s", flush=True)
-        t_phase = now
-
-    done("1")
-
-    # -- 2. build ------------------------------------------------------------
+def phase_2_build(card: Card) -> None:
+    """Build the kernels; print ptxas's resources of every kernel instance
+    with its resident warps, and B5's launch shape at each T it solves."""
     info = build.build()
     build.library()
     res = build.parse_ptxas(info.log)
@@ -577,332 +730,51 @@ def main() -> int:
         else:
             print(f"[2] B5 at T={T_}: the grid form (rbsor_fused_kernel, {sh_.threads}-thread "
                   "blocks, at most 4 resident an SM, grid barriers)", flush=True)
-    done("2")
+    card.done("2")
 
-    dev = torch.device("cuda")
+
+def lagged_chain(nbr, div, launches: int, pairs: int, omega: float, dx2: float, mask=None):
+    """``launches`` B3 launches of ``pairs`` pairs from p = 0, through the
+    kernel and through its plain version: (kernel's p, plain version's p)."""
+    p_k = p_p = torch.zeros_like(div)
+    for _ in range(launches):
+        p_k = cuda_pressure.rbsor_lagged(nbr, p_k, div, pairs, omega, dx2, mask)
+        p_p = cuda_pressure.rbsor_lagged_plain(nbr, p_p, div, pairs, omega, dx2, mask)
+    return p_k, p_p
+
+
+def transfer_cases(card, rng, names: tuple, maps: tuple, nbr, Tf: int, Tc: int):
+    """MR and MP in every form (:func:`transfer_forms`) on one level's
+    maps (children, parent, octant; ``nbr`` the coarse level's), every
+    operand random on every row, the null and padding rows too; ``names``
+    label MR's lines and MP's."""
+    children, parent, octant = maps
+    transfer_forms(card, "3", "MR", (children, field(rng, 1.0, Tf, 512),
+                                     in_domain(rng, Tf, 1.0), in_domain(rng, Tc, 1.0)), names[0])
+    transfer_forms(card, "3", "MP", (parent, octant, nbr, field(rng, 1.0, Tc, 512),
+                                     field(rng, 1.0, Tf, 512), in_domain(rng, Tf, 1.0)), names[1])
+
+
+def phase_3_kernels(card: Card, rng) -> tuple:
+    """Each kernel against its plain version on inputs from ``rng``, at the
+    bench shapes, at 7 mod 8 rows, on config 5's levels (B5 in both forms,
+    MR and MP in every form, bitwise) and at collider1024 (CE, timed).
+    Returns config 5's topology and multigrid hierarchy."""
     bench = CELLS["bench"]
-    topo = bench.topology(dev)
-    T = topo.capacity
-    params, cfg = bench.params, bench.plume
-    sdt = params.dt * params.inv_voxel_size
-    lag = params.effective_halo_lag
-    omega, dx2 = params.omega, params.voxel_size ** 2
-    src = "hnanosolver_tpu_torch/csrc/"
-    kernels = {
-        "B1": dict(name="bfecc_sample", source=src + "bfecc_sample.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_bfecc.py:303",
-                   counter=cuda_bfecc.launches, wrap=(cuda_bfecc, "bfecc_sample")),
-        "B2": dict(name="bfecc_tail", source=src + "bfecc_tail.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_tail.py:85",
-                   counter=cuda_tail.launches, wrap=(cuda_tail, "bfecc_tail")),
-        "B3": dict(name="rbsor_lagged", source=src + "rbsor_lagged.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_pressure.py:199",
-                   counter=cuda_pressure.launches_lagged,
-                   wrap=(cuda_pressure, "rbsor_lagged")),
-        "B4": dict(name="rbsor_color", source=src + "rbsor_color.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_pressure.py:290",
-                   counter=cuda_pressure.launches_color,
-                   wrap=(cuda_pressure, "rbsor_color")),
-        "B5": dict(name="rbsor_fused", source=src + "rbsor_fused.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_pressure.py:356",
-                   counter=cuda_pressure.launches_fused,
-                   wrap=(cuda_pressure, "rbsor_fused")),
-        "B6": dict(name="residual", source=src + "residual.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_stencil.py:184",
-                   counter=cuda_stencil.launches_residual, wrap=(cuda_stencil, "residual")),
-        "B7a": dict(name="divergence", source=src + "stencil.cu",
-                    replaces="hnanosolver_tpu/ops/pallas_stencil.py:89",
-                    counter=cuda_stencil.launches_div, wrap=(cuda_stencil, "divergence")),
-        "B7b": dict(name="subtract_gradient", source=src + "stencil.cu",
-                    replaces="hnanosolver_tpu/ops/pallas_stencil.py:151",
-                    counter=cuda_stencil.launches_subgrad,
-                    wrap=(cuda_stencil, "subtract_gradient")),
-        "B8": dict(name="sample_at", source=src + "sample_at.cu",
-                   replaces="hnanosolver_tpu/ops/pallas_interp2.py:54, "
-                            "hnanosolver_tpu/ops/pallas_interp.py:51",
-                   counter=cuda_sample.launches, wrap=(cuda_sample, "sample_at")),
-        "B1d": dict(name="bfecc_sample_dual", source=src + "bfecc_sample.cu",
-                    replaces="hnanosolver_tpu/ops/pallas_bfecc.py:303 (use_dual, :899-913, "
-                             ":974-984)",
-                    counter=cuda_bfecc.launches_dual, wrap=(cuda_bfecc, "bfecc_sample_dual")),
-        "B11": dict(name="combine_dual", source=src + "combine_dual.cu",
-                    replaces="hnanosolver_tpu/ops/pallas_bfecc.py:676",
-                    counter=cuda_tables.launches,
-                    wrap=(cuda_tables, "build_table_dual_combine")),
-        "PG": dict(name="probe_gather", source=src + "probe_gather.cu",
-                   replaces="tools/probe_dgather.py:59, :79, :109",
-                   counter=cuda_probe.launches_gather, wrap=(cuda_probe, "take_rows")),
-        "PC": dict(name="probe_copy", source=src + "probe_copy.cu",
-                   replaces="tools/probe_dmabisect.py:39, :164; tools/probe_dmabisect2.py:59, "
-                            ":81, :113, :149, :184, :222; tools/probe_dmacost.py:89, :134",
-                   counter=cuda_probe.launches_copy, wrap=(cuda_probe, "row_copy")),
-        "MR": dict(name="mg_restrict", source=src + "mg_transfer.cu",
-                   replaces="none (XLA computed the transfers: "
-                            "hnanosolver_tpu/ops/multigrid.py restrict)",
-                   counter=cuda_transfer.launches_restrict, wrap=(cuda_transfer, "restrict")),
-        "MP": dict(name="mg_prolong", source=src + "mg_transfer.cu",
-                   replaces="none (XLA computed the transfers: "
-                            "hnanosolver_tpu/ops/multigrid.py prolong_trilinear)",
-                   counter=cuda_transfer.launches_prolong,
-                   wrap=(cuda_transfer, "prolong_trilinear")),
-        "CE": dict(name="enforce_collision", source=src + "collision.cu",
-                   replaces="none (XLA computed the collision: "
-                            "hnanosolver_tpu/ops/collision.py enforce_collision)",
-                   counter=cuda_collision.launches,
-                   wrap=(cuda_collision, "enforce_collision")),
-    }
-    # B1d's wrapper checks the window on the host (one sync) before it
-    # launches: its time is the launch alone (b1d_cost.kernel_call), the
-    # wrapper's printed beside it. B11's library call: one torch.gather of
-    # the 27-table over the index its plain version builds, built beforehand.
-    kernels["B1d"]["launch"] = lambda a, kw: b1d_cost.kernel_call(*a, **kw)
-
-    def b11_gather(a, kw):
-        idx = cuda_tables.combine_index(a[1], a[2])
-        flat = a[0].reshape(a[0].shape[0], -1)
-        out = torch.empty(idx.shape, device=flat.device)
-        return lambda: torch.gather(flat, 1, idx, out=out)
-
-    kernels["B11"]["library"] = b11_gather
-    for k in kernels.values():
-        k.update(route="cuda", launches=0, max_abs_err=0.0, library_ms=None)
-        mod, attr = k["wrap"]
-        k["kernel_fn"], k["plain_fn"] = getattr(mod, attr), getattr(mod, attr + "_plain")
-
-    def check(key, label, got, want, tol=TOL_B3, phase="3"):
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, want)
-        bitwise = bool(torch.equal(got, want))
-        kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], err)
-        print(f"[{phase}] {key} {label}: max abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}),"
-              f" bitwise {bitwise}", flush=True)
-        if not rel <= tol:
-            raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
-        if key in ("MR", "MP", "CE") and not bitwise:
-            raise AssertionError(f"phase {phase}: {key} {label} is not bitwise its plain version")
-
-    @contextlib.contextmanager
-    def main_path(label: str, per_step, steps: int = 1):
-        """Counters to 0 just before the run, read just after; the counts
-        must be exactly ``per_step`` times ``steps`` (``per_step`` a
-        callable: the run's total counts, asked after the run)."""
-        for k in kernels.values():
-            k["counter"].n = 0
-        torch.cuda.synchronize()
-        yield
-        torch.cuda.synchronize()
-        counts = {key: k["counter"].n for key, k in kernels.items()}
-        if callable(per_step):
-            per_step, steps = per_step(), 1
-        want = {key: per_step.get(key, 0) * steps for key in KEYS}
-        for key, k in kernels.items():
-            k["launches"] += counts[key]
-        print(f"[{label}] launches {counts} (expected {want})", flush=True)
-        if counts != want:
-            raise AssertionError(f"phase {label}: launch counts {counts} != {want}")
-
-    def check_state(label, topo_, state):
-        fields = {"velocity": state.velocity, **state.scalars}
-        bad = [name for name, f in fields.items()
-               if not bool(torch.isfinite(f).all())
-               or bool(f[..., 0, :].any()) or bool(f[..., topo_.n_active + 1:, :].any())]
-        if bad:
-            raise AssertionError(f"phase {label}: non-finite or non-zero background in {bad}")
-        if not float(state.scalars["density"].max()) > 0:
-            raise AssertionError(f"phase {label}: the emitter sourced no density")
-
-    def plain_versions():
-        """Every kernel wrapper replaced by its plain version."""
-        stack = contextlib.ExitStack()
-        for k in kernels.values():
-            mod, attr = k["wrap"]
-            stack.enter_context(mock.patch.object(mod, attr, k["plain_fn"]))
-        return stack
-
-    def step_vs_plain(label, run, out_k=None):
-        """``run`` again with every wrapper replaced by its plain version (the
-        patches are module-global, so the sharded step's threads see them
-        too): no kernel may launch, every field within TOL_STEP of ``out_k``
-        (``run``'s own output through the kernels where not given). Returns
-        the plain run's output."""
-        if out_k is None:
-            out_k = run()
-        before = {key: k["counter"].n for key, k in kernels.items()}
-        with plain_versions():
-            out_p = run()
-        torch.cuda.synchronize()
-        if {key: k["counter"].n for key, k in kernels.items()} != before:
-            raise AssertionError(f"phase {label}: the plain step launched a kernel")
-        worst, parts = 0.0, []
-        for name in ["velocity"] + sorted(out_k.scalars):
-            g = out_k.velocity if name == "velocity" else out_k.scalars[name]
-            w = out_p.velocity if name == "velocity" else out_p.scalars[name]
-            _, rel = rel_err(g, w)
-            worst = max(worst, rel)
-            parts.append(f"{name} {rel:.2e}")
-        print(f"[{label}] one step, kernels vs plain on the card, max rel err per field: "
-              f"{', '.join(parts)} (tol {TOL_STEP:g})", flush=True)
-        if not worst <= TOL_STEP:
-            raise AssertionError(f"phase {label}: step rel err {worst} > {TOL_STEP}")
-        return out_p
-
-    def sig(key, args, kwargs):
-        def one(a):
-            return (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
-        return (key, tuple(one(a) for a in args),
-                tuple(sorted((n, one(v)) for n, v in kwargs.items())))
-
-    def record(run, keys) -> list:
-        """Run ``run`` once with the wrappers of ``keys`` recording their
-        calls: [key, args, kwargs, output bytes, count] per distinct call
-        (the first one's inputs are kept)."""
-        groups = {}
-        with contextlib.ExitStack() as stack:
-            for key in keys:
-                def rec(*a, _fn=kernels[key]["kernel_fn"], _key=key, **kw):
-                    out = _fn(*a, **kw)
-                    groups.setdefault(sig(_key, a, kw), [_key, a, kw, nbytes(out), 0])[4] += 1
-                    return out
-                stack.enter_context(mock.patch.object(*kernels[key]["wrap"], rec))
-            run()
-        torch.cuda.synchronize()
-        return list(groups.values())
-
-    def vs_plain(label, key, a, kw):
-        """One recorded call through the kernel and through its plain
-        version (B4, which updates p in place, each on its own copy)."""
-        def inputs():
-            if key != "B4":
-                return a
-            return [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
-
-        k = kernels[key]
-        got, want = k["kernel_fn"](*inputs(), **kw), k["plain_fn"](*inputs(), **kw)
-        if not isinstance(got, tuple):
-            got, want = (got,), (want,)
-        tol = TOL_B1 if key in ("B1", "B8", "B1d") else 0.0 if key in BITWISE else TOL_B3
-        for g, w in zip(got, want):
-            check(key, f"main-path call {call_label(key, a)}", g, w, tol, label)
-        if key in ("MR", "MP"):
-            transfer_forms(label, key, a)
-
-    def transfer_forms(label, key, a, name=""):
-        """MR or MP on the operands ``a`` in each of its forms: each of its
-        two optional operands (MR's fine and coarse masks, MP's p and mask)
-        given or left out, bitwise the plain version."""
-        k, head, opt = kernels[key], a[:-2], a[-2:]
-        for use in ((0, 0), (1, 0), (0, 1), (1, 1)):
-            if any(u and o is None for u, o in zip(use, opt)):
-                continue
-            ops = [o if u else None for u, o in zip(use, opt)]
-            form = ", ".join(f"{n} {'given' if u else 'none'}" for n, u in
-                             zip(("fine mask", "coarse mask") if key == "MR" else ("p", "mask"),
-                                 use))
-            check(key, f"{name}{call_label(key, a)}: {form}", k["kernel_fn"](*head, *ops),
-                  k["plain_fn"](*head, *ops), 0.0, label)
-
-    def time_calls(label: str, groups: list, plain: bool = True) -> dict:
-        """Each recorded call against its plain version on the same inputs,
-        then per-step kernel, plain and bound ms: one timed launch per
-        distinct call, times its count. ``plain=False`` times the kernels
-        alone."""
-        res = {}
-        for key, a, kw, out_bytes, count in groups:
-            k = kernels[key]
-            vs_plain(label, key, a, kw)
-            launch = k["launch"](a, kw) if "launch" in k else lambda: k["kernel_fn"](*a, **kw)
-            if plain:
-                k_ms, p_ms = paired_ms(launch, lambda: k["plain_fn"](*a, **kw))
-            else:
-                k_ms = median_ms(launch, 5, 10)  # behind the spin
-                p_ms = float("nan")
-            b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
-            r = res.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={}))
-            r["ms"] += k_ms * count
-            r["plain_ms"] += p_ms * count
-            r["bound_ms"] += b_ms * count
-            r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms * count
-            extra = ""
-            if "launch" in k:  # the wrapper with its host work, as the path calls it
-                w_ms = median_ms(lambda: k["kernel_fn"](*a, **kw), 10, 10)
-                r["wrapper_ms"] = r.get("wrapper_ms", 0.0) + w_ms * count
-                extra += f", {w_ms:.4f} ms through the wrapper"
-            if "library" in k:
-                l_ms = median_ms(k["library"](a, kw), 10, 10)
-                r["library_ms"] = r.get("library_ms", 0.0) + l_ms * count
-                extra += f", {l_ms:.4f} ms library"
-            in_l2 = " (operands fit the L2: HBM bound)" if moved <= L2_BYTES else ""
-            print(f"[{label}] {key} {call_label(key, a)} x{count}/step: {k_ms:.4f} ms kernel,"
-                  f" {p_ms:.4f} ms plain{extra}, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} "
-                  f"MB){in_l2} per launch | {card}", flush=True)
-        for key, r in res.items():
-            r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get) if r["bound_by"] else "bytes"
-            extra = "".join(f", {r[x]:.4f} {x[:-3]}" for x in ("wrapper_ms", "library_ms")
-                            if x in r)
-            print(f"[{label}] {key} {kernels[key]['name']}: {r['ms']:.4f} ms/step kernel vs "
-                  f"{r['plain_ms']:.4f} plain{extra}, bound {r['bound_ms']:.4f} "
-                  f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of the kernel's time) | "
-                  f"{card}", flush=True)
-        return res
-
-    def fit_b5(label: str, groups: list):
-        """B5's us a half-sweep and a launch, fitted from 2 and 24 iterations
-        (tools/b5_cost.fit), in each form that holds T, at each T of a path's
-        recorded calls, on their inputs."""
-        seen = set()
-        for key, a, kw, _, _ in groups:
-            T_ = a[0].shape[0]
-            if key != "B5" or T_ in seen:
-                continue
-            seen.add(T_)
-            parts = []
-            for form in ("cluster", "grid"):
-                if form == "cluster" and T_ > cuda_pressure.CLUSTER_CAPACITY:
-                    continue
-                half, launch = b5_cost.fit(b5_cost.form_solver(form, a[0], a[1], kw.get("mask"),
-                                                               a[3], a[4]))
-                parts.append(f"{form} form {half:.3f} us a half-sweep, {launch:.3f} us a launch")
-            print(f"[{label}] B5 T={T_} ({cuda_pressure.fused_shape(T_).form} form on the path): "
-                  + "; ".join(parts) + f" (the grid form is the design before the redesign) | "
-                  f"{card}", flush=True)
-
-    def redesigned(label: str, path: str, res: dict):
-        """B5's and B6's ms a step of a path beside their bound and their
-        records from before the redesign."""
-        for key in ("B5", "B6"):
-            r = res[key]
-            print(f"[{label}] {key} {kernels[key]['name']}, {path} step: {r['ms']:.4f} ms/step, "
-                  f"{r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f}; before the "
-                  f"redesign {BEFORE_REDESIGN[path][key]} | {card}", flush=True)
-
-    # -- 3. kernels vs plain versions ------------------------------------------
-    rng = np.random.default_rng(SEED)
+    topo, params = bench.topology(DEV), bench.params
+    T, sdt, lag = topo.capacity, params.dt * params.inv_voxel_size, params.effective_halo_lag
+    omega, dx2, lim = params.omega, params.voxel_size ** 2, cuda_bfecc.DISP_LIMIT
     m = active_mask(topo)[:, None]
-
-    def field(*shape, scale=1.0, mask=m):
-        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
-        return x * scale * mask
-
-    def in_domain(rows, mask):
-        return (torch.from_numpy(rng.random((rows, 512))).to(dev) > 0.3).float() * mask
-
-    vel = field(3, T, 512, scale=40.0)  # |u|*sdt reaches the 7-voxel clamp
-    scal = field(5, T, 512)
-    clamped = float(((vel * sdt).abs() > cuda_bfecc.DISP_LIMIT).float().mean())
+    vel = field(rng, m, 3, T, 512, scale=40.0)  # |u|*sdt reaches the 7-voxel clamp
+    scal = field(rng, m, 5, T, 512)
+    clamped = float(((vel * sdt).abs() > lim).float().mean())
     if clamped <= 0:
         raise AssertionError("phase 3: no displacement reaches the clamp")
-    for mode, fields, f_lo in (("velocity", vel, 0),
-                               ("scalars", torch.cat([vel, scal]).contiguous(), 3)):
-        got = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo)
-        want = cuda_bfecc.bfecc_sample_plain(topo.nbr, fields, sdt, f_lo)
-        for part, g, w in zip(("phiF", "phiB"), got, want):
-            check("B1", f"{mode:8s} {part} ({clamped:.1%} of traces clamped)", g, w, TOL_B1)
-    # B1 with the config-4 sphere at frame 0 as the collision SDF (masked,
-    # as mask_state leaves it)
+    # B1 also with the config-4 sphere at frame 0 as the collision SDF
+    # (masked, as mask_state leaves it)
     col4 = CELLS["c4"].collider
-    sdf3 = collider.sphere_sdf(topo, collider.collider_center(col4, 0, params.dt, dev),
+    sdf3 = collider.sphere_sdf(topo, collider.collider_center(col4, 0, params.dt, DEV),
                                col4.radius) * m
-    lim = cuda_bfecc.DISP_LIMIT
     d = torch.clamp(-vel * sdt, -lim, lim)
     hit = cuda_sample.sample_at_plain(topo.nbr, sdf3[None], d)[0] < 0
     d = torch.where(hit, 0.0, d)
@@ -911,59 +783,55 @@ def main() -> int:
     share = (float(hit.sum()) / topo.num_voxels, float(hit2.sum()) / topo.num_voxels)
     if not min(share) > 0:
         raise AssertionError(f"phase 3: the SDF rejected no trace at a probe: {share}")
-    for mode, fields, f_lo in (("velocity", vel, 0),
-                               ("scalars", torch.cat([vel, scal]).contiguous(), 3)):
-        got = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo, sdf3)
-        want = cuda_bfecc.bfecc_sample_plain(topo.nbr, fields, sdt, f_lo, sdf3)
-        for part, g, w in zip(("phiF", "phiB"), got, want):
-            check("B1", f"{mode:8s} {part} with SDF ({share[0]:.2%} of back traces, "
-                  f"{share[1]:.2%} of re-traces rejected)", g, w, TOL_B1)
     del d, d2, hit, hit2
+    for sdf_, note in ((None, f"({clamped:.1%} of traces clamped)"),
+                       (sdf3, f"with SDF ({share[0]:.2%} of back traces, {share[1]:.2%} of "
+                              "re-traces rejected)")):
+        for mode, fields, f_lo in (("velocity", vel, 0),
+                                   ("scalars", torch.cat([vel, scal]).contiguous(), 3)):
+            got = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, f_lo, sdf_)
+            want = cuda_bfecc.bfecc_sample_plain(topo.nbr, fields, sdt, f_lo, sdf_)
+            for part, g, w in zip(("phiF", "phiB"), got, want):
+                check(card, "B1", f"{mode:8s} {part} {note}", g, w, TOL_B1)
     for F in (3, 5):
-        phi0, pf, pb = field(F, T, 512), field(F, T, 512), field(F, T, 512)
+        phi0, pf, pb = (field(rng, m, F, T, 512) for _ in range(3))
         got = cuda_tail.bfecc_tail(topo.nbr, phi0, pf, pb)
         want = cuda_tail.bfecc_tail_plain(topo.nbr, phi0, pf, pb)
-        check("B2", f"F={F}", got, want, 0.0)
-    div = field(T, 512)
-    p_k = p_p = torch.zeros_like(div)
-    for _ in range(params.iterations // lag):
-        p_k = cuda_pressure.rbsor_lagged(topo.nbr, p_k, div, lag, omega, dx2)
-        p_p = cuda_pressure.rbsor_lagged_plain(topo.nbr, p_p, div, lag, omega, dx2)
-    check("B3", f"{params.iterations // lag} launches x {lag} pairs", p_k, p_p)
+        check(card, "B2", f"F={F}", got, want, 0.0)
+    div = field(rng, m, T, 512)
+    launches = params.iterations // lag
+    check(card, "B3", f"{launches} launches x {lag} pairs",
+          *lagged_chain(topo.nbr, div, launches, lag, omega, dx2))
     # a capacity of 7 mod 8 rows: B3's last block is short, and the +-z
     # links of the bench tiles break at every place inside its blocks
     tiles = plume.build_plume_envelope(*bench.envelope)
     n_t = len(np.unique(tiles, axis=0))
-    t_odd = build_topology(tiles, capacity=n_t + 1 + (6 - n_t) % 8, device=dev)
-    m_odd = active_mask(t_odd)[:, None]
-    d_odd = field(t_odd.capacity, 512, mask=m_odd)
-    p_k = p_p = torch.zeros_like(d_odd)
-    for _ in range(params.iterations // lag):
-        p_k = cuda_pressure.rbsor_lagged(t_odd.nbr, p_k, d_odd, lag, omega, dx2)
-        p_p = cuda_pressure.rbsor_lagged_plain(t_odd.nbr, p_p, d_odd, lag, omega, dx2)
-    check("B3", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8), "
-          f"{params.iterations // lag} launches x {lag} pairs", p_k, p_p)
+    t_odd = build_topology(tiles, capacity=n_t + 1 + (6 - n_t) % 8, device=DEV)
+    d_odd = field(rng, active_mask(t_odd)[:, None], t_odd.capacity, 512)
+    p_k, p_p = lagged_chain(t_odd.nbr, d_odd, launches, lag, omega, dx2)
+    check(card, "B3", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8), "
+          f"{launches} launches x {lag} pairs", p_k, p_p)
     # B6's tail block too: G = 4 tiles a block, so 7 mod 8 rows leave it 3
-    check("B6", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8)",
+    check(card, "B6", f"T={t_odd.capacity} ({t_odd.capacity % 8} mod 8)",
           cuda_stencil.residual(t_odd.nbr, p_k, d_odd, 0.5),
           cuda_stencil.residual_plain(t_odd.nbr, p_k, d_odd, 0.5), 0.0)
-    del tiles, t_odd, m_odd, d_odd
-    mask = in_domain(T, m)
-    p0 = field(T, 512)
+    mask = in_domain(rng, T, m)
+    p0 = field(rng, m, T, 512)
     for mk in (None, mask):
         for color in (0, 1):
             pk = p0.clone() if mk is None else p0 * mk
             want = cuda_pressure.rbsor_color_plain(topo.nbr, pk, div, color, omega, dx2, mk)
             cuda_pressure.rbsor_color(topo.nbr, pk, div, color, omega, dx2, mk)
-            check("B4", f"colour {color}, {'mask' if mk is not None else 'no mask'}", pk, want)
+            check(card, "B4", f"colour {color}, {'mask' if mk is not None else 'no mask'}", pk,
+                  want)
     for dx_ in (0.5, 0.3):  # an exact and an inexact dx^2
-        check("B6", f"bench T={T}, dx {dx_}", cuda_stencil.residual(topo.nbr, p0, div, dx_),
+        check(card, "B6", f"bench T={T}, dx {dx_}", cuda_stencil.residual(topo.nbr, p0, div, dx_),
               cuda_stencil.residual_plain(topo.nbr, p0, div, dx_), 0.0)
     for inv_dx in (params.inv_voxel_size, 1.0 / 0.3):  # an exact and an inexact scale
-        check("B7a", f"bench T={T}, inv_dx {inv_dx:.4f}",
+        check(card, "B7a", f"bench T={T}, inv_dx {inv_dx:.4f}",
               cuda_stencil.divergence(topo.nbr, vel, inv_dx),
               cuda_stencil.divergence_plain(topo.nbr, vel, inv_dx))
-        check("B7b", f"bench T={T}, inv_dx {inv_dx:.4f}",
+        check(card, "B7b", f"bench T={T}, inv_dx {inv_dx:.4f}",
               cuda_stencil.subtract_gradient(topo.nbr, vel, p0, inv_dx),
               cuda_stencil.subtract_gradient_plain(topo.nbr, vel, p0, inv_dx))
     # CE bitwise its plain version on the config-4 cell (4354 tiles at
@@ -979,17 +847,17 @@ def main() -> int:
     tiles = np.concatenate([plume.build_plume_envelope(*CELLS["c5"].envelope)] + [
         collider.collider_tiles(col1024, f, params.dt) for f in range(COL1024_FRAMES)])
     n_t = len(np.unique(tiles, axis=0))
-    t1024 = build_topology(tiles, capacity=((n_t + 1 + 511) // 512) * 512, device=dev)
+    t1024 = build_topology(tiles, capacity=((n_t + 1 + 511) // 512) * 512, device=DEV)
     if (t1024.n_active, t1024.capacity) != COL1024_ROWS:
         raise AssertionError(f"phase 3: collider1024 has {t1024.n_active} tiles at capacity "
                              f"{t1024.capacity}, not {COL1024_ROWS}")
-    for name, topo_, col in (("config 4", CELLS["c4"].topology(dev), col4),
+    for name, topo_, col in (("config 4", CELLS["c4"].topology(DEV), col4),
                              ("collider1024", t1024, col1024)):
         T_ = topo_.capacity
         m_ = active_mask(topo_)[:, None]
-        v_ = field(3, T_, 512, scale=8.0, mask=torch.ones((T_, 1), device=dev))
+        v_ = field(rng, 1.0, 3, T_, 512, scale=8.0)
         for f in (0, 17.3):
-            sdf_ = collider.sphere_sdf(topo_, collider.collider_center(col, f, params.dt, dev),
+            sdf_ = collider.sphere_sdf(topo_, collider.collider_center(col, f, params.dt, DEV),
                                        col.radius) * m_
             inside = int(((sdf_ < 0) & (m_ > 0)).sum())
             shell = int(((sdf_ >= 0) & (sdf_ < margin) & (m_ > 0)).sum())
@@ -999,8 +867,8 @@ def main() -> int:
             for bd in (margin, 1.5):
                 for inv_dx in (params.inv_voxel_size, 1.0 / 0.3):
                     a_ = (topo_.nbr, v_, sdf_, inv_dx, margin, bd)
-                    check("CE", f"{name} T={T_}, frame {f} ({inside} voxels inside, {shell} "
-                          f"on the shell), 1 - sdf/{bd}, inv_dx {inv_dx:.4f}",
+                    check(card, "CE", f"{name} T={T_}, frame {f} ({inside} voxels inside, "
+                          f"{shell} on the shell), 1 - sdf/{bd}, inv_dx {inv_dx:.4f}",
                           cuda_collision.enforce_collision(*a_),
                           cuda_collision.enforce_collision_plain(*a_), 0.0)
     a_ = (t1024.nbr, v_, sdf_, params.inv_voxel_size, margin, margin)
@@ -1014,19 +882,18 @@ def main() -> int:
     del tiles, t1024, v_, sdf_, m_, a_
     torch.cuda.empty_cache()
     # B8 at displacements past the clamp, n = 11 in two launches (8 + 3)
-    dd = torch.from_numpy(rng.uniform(-9.0, 9.0, (3, T, 512)).astype(np.float32)).to(dev)
+    dd = torch.from_numpy(rng.uniform(-9.0, 9.0, (3, T, 512)).astype(np.float32)).to(DEV)
     dd = torch.clamp(dd, -lim, lim)
-    allf = torch.cat([vel, scal, field(3, T, 512)])
+    allf = torch.cat([vel, scal, field(rng, m, 3, T, 512)])
     for n in (1, 3, 8, 11):
         fn = allf[:n].contiguous()
-        check("B8", f"n={n} fields, {float((dd.abs() >= lim).float().mean()):.1%} of "
+        check(card, "B8", f"n={n} fields, {float((dd.abs() >= lim).float().mean()):.1%} of "
               f"displacements at the clamp", cuda_sample.sample_at(topo.nbr, fn, dd),
               cuda_sample.sample_at_plain(topo.nbr, fn, dd), TOL_B1)
     del dd, allf, fn
-    # BASELINE config 5: the domain and its hierarchy (reused in phase 9)
-    c5 = CELLS["c5"].topology(dev)
-    c5_mg = CELLS["c5-mg"].params
-    c5_hier = multigrid.hierarchy_for(c5, c5_mg)
+    # BASELINE config 5: the domain and its hierarchy (phase 9 steps on them)
+    c5 = CELLS["c5"].topology(DEV)
+    c5_hier = multigrid.hierarchy_for(c5, CELLS["c5-mg"].params)
     lv2 = c5_hier[1]
 
     # B5 in both forms at every level it solves on the main paths (config 5's
@@ -1038,14 +905,14 @@ def main() -> int:
                 for k, lv in enumerate(c5_hier, 1) if lv.topo.capacity in B5_LEVELS]
     tiles = np.unique(plume.build_plume_envelope(40, 256), axis=0)
     for cap in (cuda_pressure.CLUSTER_ROWS, cuda_pressure.CLUSTER_ROWS + 1, 2048):
-        t5 = build_topology(tiles[:cap - 2], capacity=cap, device=dev)
+        t5 = build_topology(tiles[:cap - 2], capacity=cap, device=DEV)
         b5_cases.append((t5, active_mask(t5)[:, None], dx2))
     for t5, m5, dx2_ in b5_cases:
         T5 = t5.capacity
-        d5, k5, p05 = field(T5, 512, mask=m5), in_domain(T5, m5), field(T5, 512, mask=m5)
+        d5, k5, p05 = field(rng, m5, T5, 512), in_domain(rng, T5, m5), field(rng, m5, T5, 512)
         for mk in (None, k5):
             for it in (0, 2, 24):
-                check("B5", f"T={T5} ({cuda_pressure.fused_shape(T5).form} form), {it} "
+                check(card, "B5", f"T={T5} ({cuda_pressure.fused_shape(T5).form} form), {it} "
                       f"iterations, {'mask' if mk is not None else 'no mask'}",
                       cuda_pressure.rbsor_fused(t5.nbr, d5, it, omega, dx2_, p0=p05, mask=mk),
                       cuda_pressure.rbsor_fused_plain(t5.nbr, d5, it, omega, dx2_, p0=p05,
@@ -1054,36 +921,34 @@ def main() -> int:
     # every row, the null and padding rows too): its reads of row 0 then go
     # to block 0's shared memory instead of a local zero tile
     t5 = next(lv.topo for lv in c5_hier if lv.topo.capacity <= cuda_pressure.CLUSTER_ROWS)
-    every = torch.ones((t5.capacity, 1), device=dev)
-    d5, p05 = field(t5.capacity, 512, mask=every), field(t5.capacity, 512, mask=every)
-    for mk in (None, in_domain(t5.capacity, every)):
-        check("B5", f"T={t5.capacity} (cluster form), a null row not 0, 24 iterations, "
+    d5, p05 = field(rng, 1.0, t5.capacity, 512), field(rng, 1.0, t5.capacity, 512)
+    for mk in (None, in_domain(rng, t5.capacity, 1.0)):
+        check(card, "B5", f"T={t5.capacity} (cluster form), a null row not 0, 24 iterations, "
               f"{'mask' if mk is not None else 'no mask'}",
               cuda_pressure.rbsor_fused(t5.nbr, d5, 24, omega, dx2, p0=p05, mask=mk),
               cuda_pressure.rbsor_fused_plain(t5.nbr, d5, 24, omega, dx2, p0=p05, mask=mk), 0.0)
-    del b5_cases, tiles, t5, m5, d5, k5, p05, every
-    d2 = field(lv2.topo.capacity, 512, mask=lv2.mask)
-    p_k = p_p = torch.zeros_like(d2)
-    for _ in range(2):
-        p_k = cuda_pressure.rbsor_lagged(lv2.topo.nbr, p_k, d2, 1, omega, 4 * dx2, lv2.mask)
-        p_p = cuda_pressure.rbsor_lagged_plain(lv2.topo.nbr, p_p, d2, 1, omega, 4 * dx2,
-                                               lv2.mask)
-    check("B3", f"mask, config-5 level 2 T={lv2.topo.capacity}, 2 launches x 1 pair", p_k, p_p)
-    check("B6", f"config-5 level 2 T={lv2.topo.capacity}, masked p and div, dx 1.0",
+    del b5_cases, tiles, t5, m5, d5, k5, p05
+    d2 = field(rng, lv2.mask, lv2.topo.capacity, 512)
+    p_k, p_p = lagged_chain(lv2.topo.nbr, d2, 2, 1, omega, 4 * dx2, lv2.mask)
+    check(card, "B3", f"mask, config-5 level 2 T={lv2.topo.capacity}, 2 launches x 1 pair", p_k,
+          p_p)
+    check(card, "B6", f"config-5 level 2 T={lv2.topo.capacity}, masked p and div, dx 1.0",
           cuda_stencil.residual(lv2.topo.nbr, p_k, d2, 1.0),
           cuda_stencil.residual_plain(lv2.topo.nbr, p_k, d2, 1.0), 0.0)
     m_c5 = active_mask(c5)[:, None]
-    pc, dc = field(c5.capacity, 512, mask=m_c5), field(c5.capacity, 512, mask=m_c5)
-    check("B3", f"config-5 fine T={c5.capacity}, 1 launch x {lag} pairs",
+    pc, dc = field(rng, m_c5, c5.capacity, 512), field(rng, m_c5, c5.capacity, 512)
+    check(card, "B3", f"config-5 fine T={c5.capacity}, 1 launch x {lag} pairs",
           cuda_pressure.rbsor_lagged(c5.nbr, pc, dc, lag, omega, dx2),
           cuda_pressure.rbsor_lagged_plain(c5.nbr, pc, dc, lag, omega, dx2))
-    check("B6", f"config-5 fine T={c5.capacity}", cuda_stencil.residual(c5.nbr, pc, dc, 0.5),
+    check(card, "B6", f"config-5 fine T={c5.capacity}",
+          cuda_stencil.residual(c5.nbr, pc, dc, 0.5),
           cuda_stencil.residual_plain(c5.nbr, pc, dc, 0.5), 0.0)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    vc = torch.randn((3, c5.capacity, 512), generator=gen, device=dev) * m_c5
-    check("B7a", f"config-5 fine T={c5.capacity}", cuda_stencil.divergence(c5.nbr, vc, 1 / 0.3),
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    vc = torch.randn((3, c5.capacity, 512), generator=gen, device=DEV) * m_c5
+    check(card, "B7a", f"config-5 fine T={c5.capacity}",
+          cuda_stencil.divergence(c5.nbr, vc, 1 / 0.3),
           cuda_stencil.divergence_plain(c5.nbr, vc, 1 / 0.3))
-    check("B7b", f"config-5 fine T={c5.capacity}",
+    check(card, "B7b", f"config-5 fine T={c5.capacity}",
           cuda_stencil.subtract_gradient(c5.nbr, vc, pc, 1 / 0.3),
           cuda_stencil.subtract_gradient_plain(c5.nbr, vc, pc, 1 / 0.3))
     del d2, p_k, p_p, pc, dc, m_c5, vc
@@ -1092,170 +957,146 @@ def main() -> int:
     # face tiles absent while the corner tile (0,1,1) beyond them exists (MP
     # reaches it only through the absent face tiles), the bench hierarchy's
     # levels, and each slab's maps of a 4-slab bench decomposition
-    from hnanosolver_tpu_torch.parallel import slab as pslab
-
-    every = lambda rows: torch.ones((rows, 1), device=dev)  # noqa: E731
     planted = build_topology(np.array([(x, y, z) for x in range(2) for y in range(2)
-                                       for z in range(2)] + [(0, 2, 2), (1, 3, 3)]), device=dev)
+                                       for z in range(2)] + [(0, 2, 2), (1, 3, 3)]), device=DEV)
     plv = multigrid.build_hierarchy(planted, 1)[0]
     a_row = int((plv.topo.origins == 0).all(1).nonzero()[0])  # tile A
     nb_a = plv.topo.nbr[a_row].tolist()
     if not (nb_a[16] == 0 and nb_a[14] == 0 and nb_a[1 * 9 + 2 * 3 + 2] != 0):
         raise AssertionError(f"phase 3: the planted level's tile A has nbr {nb_a}")
     bench_h = multigrid.build_hierarchy(topo, 2)
-    cases = [("planted level 1", plv, planted.capacity), ("bench level 1", bench_h[0], T),
-             ("bench level 2", bench_h[1], bench_h[0].topo.capacity)]
-    for name, lv, Tf in cases:
-        Tc = lv.topo.capacity
-        transfer_forms("3", "MR", (lv.children, field(Tf, 512, mask=every(Tf)),
-                                   in_domain(Tf, every(Tf)), in_domain(Tc, every(Tc))), name + " ")
-        transfer_forms("3", "MP", (lv.parent, lv.octant, lv.topo.nbr,
-                                   field(Tc, 512, mask=every(Tc)), field(Tf, 512, mask=every(Tf)),
-                                   in_domain(Tf, every(Tf))), name + " ")
+    for name, lv, Tf in (("planted level 1", plv, planted.capacity),
+                         ("bench level 1", bench_h[0], T),
+                         ("bench level 2", bench_h[1], bench_h[0].topo.capacity)):
+        transfer_cases(card, rng, (name + " ",) * 2, (lv.children, lv.parent, lv.octant),
+                       lv.topo.nbr, Tf, lv.topo.capacity)
     sh3 = pslab.build_slab_hierarchy(topo, pslab.build_slabs(topo, SLABS), 2)
     lv = sh3.coarse_level
-    Tl, Tc = sh3.parent_global.shape[1], lv.topo.capacity
     for d in range(SLABS):
-        ch, pa, oc = (x[d].to(dev) for x in (sh3.children_local, sh3.parent_global,
-                                             sh3.octant_local))
-        ghosts = int(((pa > 0).sum() - (ch > 0).sum()))
-        transfer_forms("3", "MR", (ch, field(Tl, 512, mask=every(Tl)), in_domain(Tl, every(Tl)),
-                                   in_domain(Tc, every(Tc))), f"slab {d} ")
-        transfer_forms("3", "MP", (pa, oc, lv.topo.nbr, field(Tc, 512, mask=every(Tc)),
-                                   field(Tl, 512, mask=every(Tl)), in_domain(Tl, every(Tl))),
-                       f"slab {d} ({ghosts} ghost rows with a parent) ")
+        maps = [x[d].to(DEV) for x in (sh3.children_local, sh3.parent_global, sh3.octant_local)]
+        ghosts = int(((maps[1] > 0).sum() - (maps[0] > 0).sum()))
+        transfer_cases(card, rng, (f"slab {d} ", f"slab {d} ({ghosts} ghost rows with a parent) "),
+                       maps, lv.topo.nbr, sh3.parent_global.shape[1], lv.topo.capacity)
         if ghosts <= 0:
             raise AssertionError(f"phase 3: slab {d}'s maps cover no ghost row")
-    del planted, plv, bench_h, cases, sh3, lv, ch, pa, oc
-    done("3")
+    card.done("3")
+    return c5, c5_hier
 
-    # -- 4. the main path ------------------------------------------------------
-    state = zeros_state(topo)
+
+def phase_4_main_path(card: Card) -> tuple:
+    """The main path: 20 bench steps from rest, exactly RBGS50_STEP's
+    launches a step. Returns the developed bench (topology, state)."""
+    bench = CELLS["bench"]
+    params = bench.params
+    topo = bench.topology(DEV)
     t0 = time.perf_counter()
-    with main_path("4", {"B1": 2, "B2": 2, "B3": params.iterations // lag, "B7a": 1, "B7b": 1},
-                   bench.develop):
-        topo, state = plume.run_plume(bench.develop, params, cfg, topo=topo, state=state,
-                                      grow_every=0)
+    with main_path(card, "4", RBGS50_STEP, bench.develop):
+        topo, state = plume.run_plume(bench.develop, params, bench.plume, topo=topo,
+                                      state=zeros_state(topo), grow_every=0)
     wall = time.perf_counter() - t0
     print(f"[4] main path: {bench.develop} plume steps on {topo.n_active} tiles "
-          f"({topo.num_voxels} active voxels, capacity {T}), {params.iterations} "
-          f"iterations at halo_lag {lag}: {wall:.2f} s wall; max density "
+          f"({topo.num_voxels} active voxels, capacity {topo.capacity}), {params.iterations} "
+          f"iterations at halo_lag {params.effective_halo_lag}: {wall:.2f} s wall; max density "
           f"{float(state.scalars['density'].max()):.4f}, max |u| "
           f"{float(state.velocity.abs().max()):.3f}", flush=True)
     check_state("4", topo, state)
-    done("4")
+    card.done("4")
+    return topo, state
 
-    # -- 5. one step through the kernels vs through the plain versions ----------
-    step_vs_plain("5", lambda: plume.plume_step(topo, state, params, cfg))
-    done("5")
 
-    # -- 6. timing ---------------------------------------------------------------
-    s = state
+def phase_5_step_vs_plain(card: Card, topo, state) -> None:
+    """One step from the developed bench state, kernels vs plain."""
+    bench = CELLS["bench"]
+    step_vs_plain(card, "5", lambda: plume.plume_step(topo, state, bench.params, bench.plume))
+    card.done("5")
 
-    def one_step():
-        plume.plume_step(topo, s, params, cfg)
 
-    one_step()
-    step_ms = statistics.median(time_ms(one_step, 15))
+def phase_6_timing(card: Card, topo, state) -> float:
+    """The bench step's ms and voxel-updates/s; each of its kernel calls vs
+    plain, timed beside its bound. Returns the ms a step."""
+    params, cfg = CELLS["bench"].params, CELLS["bench"].plume
+    step_ms, _, res = path_timed(card, "6", lambda: plume.plume_step(topo, state, params, cfg),
+                                 15, ("B1", "B2", "B3", "B7a", "B7b"))
     vups = topo.num_voxels / (step_ms * 1e-3)
-    for key, r in time_calls("6", record(one_step, ("B1", "B2", "B3", "B7a", "B7b"))).items():
-        kernels[key].update(r)
+    for key, r in res.items():
+        card.kernels[key].update(r)
     for key in ("B1", "B3"):
-        r = kernels[key]
-        print(f"[6] {key} {r['name']}: {r['ms']:.4f} ms/step, {r['bound_ms'] / r['ms']:.1%} of its "
-              f"bound {r['bound_ms']:.4f}; before the redesign {BEFORE_REDESIGN['bench'][key]} | "
-              f"{card}", flush=True)
+        r = card.kernels[key]
+        print(f"[6] {key} {r['name']}: {r['ms']:.4f} ms/step, {r['bound_ms'] / r['ms']:.1%} of "
+              f"its bound {r['bound_ms']:.4f}; before the redesign "
+              f"{BEFORE_REDESIGN['bench'][key]} | {card}", flush=True)
     print(f"[6] step: {step_ms:.3f} ms/step (median of 15, CUDA events; before the redesign of "
           f"B1 and B3 {BEFORE_REDESIGN['bench step']}), {vups:.4e} active voxel-updates/s, "
           f"{topo.num_voxels} voxels, {params.iterations} iterations | {card}", flush=True)
-    done("6")
+    card.done("6")
+    return step_ms
 
-    # -- 7. multigrid on the bench domain ----------------------------------------
-    # Per step (mg_levels 2, iterations = 2 V-cycles, FMG, n_pre = n_post = 2,
-    # n_coarsest 24, smooth_lag "pair"): the fine level (4608 rows) is above
-    # MAX_FUSED_ROWS, so each smoothing call is n_pre = 2 one-pair B3 blocks;
-    # level 1 (1024 rows) and level 2 (128) take one B5 per solve. A V-cycle
-    # from the fine level: B3 2 + 2, B6 at fine and level 1, B5 at level 1
-    # pre and post and the level-2 solve: B3 4, B5 3, B6 2. A V-cycle from
-    # level 1: B5 3, B6 1. FMG: the level-2 solve (B5 1), the level-1
-    # V-cycle, the fine V-cycle: B3 4, B5 7, B6 3. Then 2 V-cycles: B3 8,
-    # B5 6, B6 4. Per step: B1 2, B2 2, B3 12, B5 13, B6 7. The transfers:
-    # a V-cycle from level k restricts and prolongs once a level below k,
-    # FMG restricts to each level once more and prolongs each solution up
-    # once: MR and MP 2 + (1 + 2) + 2 * 2 = 9 each.
-    mg_params = CELLS["bench-mg"].params
+
+def phase_7_multigrid(card: Card, topo, state, step_ms: float) -> None:
+    """The bench under multigrid (mg_levels 2): MG_STEPS steps, exactly
+    BENCH_MG_STEP's launches a step; one step and its kernel calls vs plain,
+    timed; B5 fitted at each T of the step."""
+    cfg, mg_params = CELLS["bench"].plume, CELLS["bench-mg"].params
     hier = multigrid.hierarchy_for(topo, mg_params)
     print(f"[7] bench hierarchy: tiles per level "
           f"{[topo.n_active] + [lv.topo.n_active for lv in hier]}, capacities "
-          f"{[T] + [lv.topo.capacity for lv in hier]}", flush=True)
-    with main_path("7", {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1,
-                         "MR": 9, "MP": 9},
-                   MG_STEPS):
+          f"{[topo.capacity] + [lv.topo.capacity for lv in hier]}", flush=True)
+    with main_path(card, "7", BENCH_MG_STEP, MG_STEPS):
         topo, mg_state = plume.run_plume(MG_STEPS, mg_params, cfg, topo=topo, state=state,
                                          grow_every=0)
     check_state("7", topo, mg_state)
-    step_vs_plain("7", lambda: plume.plume_step(topo, mg_state, mg_params, cfg, hier))
 
     def mg_step():
-        plume.plume_step(topo, mg_state, mg_params, cfg, hier)
+        return plume.plume_step(topo, mg_state, mg_params, cfg, hier)
 
-    mg_step()
-    mg_ms = statistics.median(time_ms(mg_step, 7))
-    groups = record(mg_step, ("B3", "B5", "B6"))
-    res7 = time_calls("7", groups)
+    step_vs_plain(card, "7", mg_step)
+    mg_ms, groups, res7 = path_timed(card, "7", mg_step, 7, ("B3", "B5", "B6"))
     for key in ("B5", "B6"):  # B3's row stays the bench RBGS step's
-        kernels[key].update(res7[key])
-    redesigned("7", "bench MG", res7)
-    fit_b5("7", groups)
+        card.kernels[key].update(res7[key])
+    redesigned(card, "7", "bench MG", res7)
+    fit_b5(card, "7", groups)
     print(f"[7] bench MG step: {mg_ms:.3f} ms/step (median of 7, CUDA events) vs RBGS-50 "
           f"{step_ms:.3f} | {card}", flush=True)
-    done("7")
+    card.done("7")
 
-    # -- 8. the "parity" precision tier: halo_lag 1 ---------------------------
-    par_params = params.replace(precision="parity")
+
+def phase_8_parity(card: Card, topo, state) -> None:
+    """One bench step in the "parity" tier (halo_lag 1: 100 B4 sweeps),
+    kernels vs plain, each B4 call vs plain, timed."""
+    cfg, par_params = CELLS["bench"].plume, CELLS["bench"].params.replace(precision="parity")
     assert par_params.effective_halo_lag == 1
-    with main_path("8", {"B1": 2, "B2": 2, "B4": 2 * params.iterations, "B7a": 1, "B7b": 1}, 1):
+    with main_path(card, "8", PARITY_STEP):
         topo, par_state = plume.run_plume(1, par_params, cfg, topo=topo, state=state,
                                           grow_every=0)
     check_state("8", topo, par_state)
-    step_vs_plain("8", lambda: plume.plume_step(topo, state, par_params, cfg))
 
     def par_step():
-        plume.plume_step(topo, state, par_params, cfg)
+        return plume.plume_step(topo, state, par_params, cfg)
 
-    par_step()
-    par_ms = statistics.median(time_ms(par_step, 5))
-    kernels["B4"].update(time_calls("8", record(par_step, ("B4",)))["B4"])
+    step_vs_plain(card, "8", par_step)
+    par_ms, _, res = path_timed(card, "8", par_step, 5, ("B4",))
+    card.kernels["B4"].update(res["B4"])
     print(f"[8] bench parity-tier step: {par_ms:.3f} ms/step (median of 5) | {card}",
           flush=True)
-    bench_state = state  # the developed bench state, for phase 14
-    cook_feedback = (topo, state)  # the developed bench state, phase 16's feedback
-    bench_dev = (topo, state)  # and phases 17-18's
-    del mg_state, par_state, s, state
-    done("8")
+    card.done("8")
 
-    # -- 9. BASELINE config 5 at full size, kernels only -------------------------
+
+def phase_9_config5(card: Card, c5, c5_hier) -> None:
+    """BASELINE config 5 on phase 3's topology and hierarchy, kernels only:
+    RBGS-50 and MG steps with exact launches (C5_MG_STEP), a project-only
+    solve (MG max|r| <= 0.1 max|div|), ms a step, peak memory; each kernel
+    call of an MG and an RBGS-50 step vs plain and its HBM bound."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    c5_rb, cfg5 = CELLS["c5"].params, CELLS["c5"].plume
+    c5_rb, cfg5, c5_mg = CELLS["c5"].params, CELLS["c5"].plume, CELLS["c5-mg"].params
     print(f"[9] config 5: {c5.n_active} tiles = {c5.num_voxels} voxels (capacity "
           f"{c5.capacity}); hierarchy tiles per level "
           f"{[c5.n_active] + [lv.topo.n_active for lv in c5_hier]}, capacities "
           f"{[c5.capacity] + [lv.topo.capacity for lv in c5_hier]}", flush=True)
-    with main_path("9", {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1}, CELLS["c5"].develop):
+    with main_path(card, "9", RBGS50_STEP, CELLS["c5"].develop):
         c5, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5, grow_every=0)
     check_state("9", c5, st5)
-    # Per MG step (mg_levels 5): fine 269,312, L1 45,056 and L2 6,144 rows
-    # smooth with one-pair B3 blocks (L1, L2 masked); L3 1,024, L4 128, L5 32
-    # rows with one B5 per solve. A V-cycle from level k visits levels k..4
-    # (pre + post smoothing and one B6 each) and solves level 5 (B5 1):
-    # from the fine level B3 12, B5 5, B6 5. FMG: the level-5 solve, then one
-    # V-cycle from each level 4..0: B3 0+0+4+8+12, B5 1+3+5+5+5+5, B6
-    # 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2). MR and
-    # MP: FMG 5 + (1+2+3+4+5), the V-cycles 2 x 5: 30 each (level k k + 3).
-    with main_path("9", {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1,
-                         "MR": 30, "MP": 30},
-                   C5_MG_STEPS):
+    with main_path(card, "9", C5_MG_STEP, C5_MG_STEPS):
         c5, st5 = plume.run_plume(C5_MG_STEPS, c5_mg, cfg5, topo=c5, state=st5,
                                   grow_every=0)
     check_state("9", c5, st5)
@@ -1300,28 +1141,28 @@ def main() -> int:
         raise AssertionError(f"phase 9: MG max|r| {rmax['MG']} > {C5_RMAX_OVER_DIV0} * "
                              f"div0 {div0}")
     # after the peak is read: the plain versions' temporaries are not the step's
-    groups = record(c5_step(c5_mg, c5_hier), ("B3", "B5", "B6", "B7a", "B7b"))
-    redesigned("9", "c5 MG", time_calls("9", groups, plain=False))
-    fit_b5("9", groups)
+    groups = record(card, c5_step(c5_mg, c5_hier), ("B3", "B5", "B6", "B7a", "B7b"))
+    redesigned(card, "9", "c5 MG", time_calls(card, "9", groups, plain=False))
+    fit_b5(card, "9", groups)
     del groups
     # the transfers: each recorded call bitwise its plain version in every
     # form, kernel and plain chain timed, level 1's totals beside its bound
     torch.cuda.empty_cache()
-    groups = record(c5_step(c5_mg, c5_hier), ("MR", "MP"))
-    res9 = time_calls("9", groups)
+    groups = record(card, c5_step(c5_mg, c5_hier), ("MR", "MP"))
+    res9 = time_calls(card, "9", groups)
     l1 = {"MR": c5_hier[0].topo.capacity, "MP": c5.capacity}  # rows of level-1 calls
     for key in ("MR", "MP"):
-        kernels[key].update(res9[key])
+        card.kernels[key].update(res9[key])
         one = [(a_, kw_, ob_, n_) for k_, a_, kw_, ob_, n_ in groups
                if k_ == key and a_[0].shape[0] == l1[key]]
-        ms_ = sum(median_ms(lambda: kernels[key]["kernel_fn"](*a_, **kw_), 10, 5) * n_
+        ms_ = sum(median_ms(lambda: card.kernels[key]["kernel_fn"](*a_, **kw_), 10, 5) * n_
                   for a_, kw_, _, n_ in one)
-        pl_ = sum(median_ms(lambda: kernels[key]["plain_fn"](*a_, **kw_), 5, 1) * n_
+        pl_ = sum(median_ms(lambda: card.kernels[key]["plain_fn"](*a_, **kw_), 5, 1) * n_
                   for a_, kw_, _, n_ in one)
         b_ = sum(bound_ms(key, a_, kw_, ob_)[0] * n_ for a_, kw_, ob_, n_ in one)
-        print(f"[9] {key} {kernels[key]['name']} at level 1, {sum(g[3] for g in one)} calls a "
-              f"step: {ms_:.4f} ms, bound {b_:.4f} ms ({b_ / ms_:.1%} of the kernel's time), "
-              f"plain chain {pl_:.4f} ms | {card}", flush=True)
+        print(f"[9] {key} {card.kernels[key]['name']} at level 1, {sum(g[3] for g in one)} "
+              f"calls a step: {ms_:.4f} ms, bound {b_:.4f} ms ({b_ / ms_:.1%} of the kernel's "
+              f"time), plain chain {pl_:.4f} ms | {card}", flush=True)
     del groups, one
     # the RBGS-50 step's kernels at their true HBM bounds, a kernel at a time
     # (the recorded inputs of all five and a plain version's temporaries
@@ -1329,20 +1170,23 @@ def main() -> int:
     rb5 = {}
     for key in ("B1", "B2", "B3", "B7a", "B7b"):
         torch.cuda.empty_cache()
-        rb5.update(time_calls("9 RBGS-50", record(c5_step(c5_rb, ()), (key,)), plain=False))
+        rb5.update(time_calls(card, "9 RBGS-50", record(card, c5_step(c5_rb, ()), (key,)),
+                              plain=False))
     for key in ("B1", "B3"):
         print(f"[9] {key} at config 5, RBGS-50: {rb5[key]['ms']:.4f} ms/step, "
               f"{rb5[key]['bound_ms'] / rb5[key]['ms']:.1%} of its bound "
               f"{rb5[key]['bound_ms']:.4f}; before the redesign {BEFORE_REDESIGN['c5'][key]} | "
               f"{card}", flush=True)
-    del c5, st5, c5_hier, lv2, div5
-    torch.cuda.empty_cache()
-    done("9")
+    card.done("9")
 
-    # -- 10. BASELINE config 4: the moving SDF sphere ----------------------------
+
+def phase_10_collider(card: Card) -> tuple:
+    """BASELINE config 4, the moving SDF sphere: 20 frames with exact launches
+    (C4_STEP), each frame's solid, shell and SDF checked; one step and its
+    kernel calls vs plain, timed. Returns the developed (topology, state)."""
     c4 = CELLS["c4"]
-    p4, cfg4 = c4.params, c4.plume
-    t4 = c4.topology(dev)
+    p4, cfg4, col4 = c4.params, c4.plume, c4.collider
+    t4 = c4.topology(DEV)
     inv4, act = p4.inv_voxel_size, slice(1, t4.n_active + 1)
     print(f"[10] config 4: {t4.n_active} tiles = {t4.num_voxels} voxels (capacity "
           f"{t4.capacity}), sphere radius {col4.radius} from {col4.center0} at "
@@ -1362,7 +1206,7 @@ def main() -> int:
 
     def on_frame(f, topo_, st):
         sdf = st.scalars[COLLISION_FIELD]
-        want = collider.sphere_sdf(topo_, collider.collider_center(col4, f, p4.dt, dev),
+        want = collider.sphere_sdf(topo_, collider.collider_center(col4, f, p4.dt, DEV),
                                    col4.radius)
         inside = sdf < 0
         n_in = int(inside.sum())
@@ -1399,16 +1243,15 @@ def main() -> int:
     t0 = time.perf_counter()
     # CE: the four enforce passes of a step with an SDF (collide.enforces)
     enforces0 = collision.enforces.n
-    with main_path("10", {"B1": 2, "B2": 2, "B3": p4.iterations // p4.effective_halo_lag,
-                          "B7a": 1, "B7b": 1, "CE": 4}, c4.develop):
+    with main_path(card, "10", C4_STEP, c4.develop):
         t4, st4 = collider.run_collider(c4.develop, p4, cfg4, col4, topo=t4, state=prev[0],
                                         grow_every=0, on_frame=on_frame)
     print(f"[10] {c4.develop} collider frames: {time.perf_counter() - t0:.2f} s wall with "
           f"the per-frame checks", flush=True)
     check_state("10", t4, st4)
-    if collision.enforces.n - enforces0 != kernels["CE"]["counter"].n:
+    if collision.enforces.n - enforces0 != card.kernels["CE"]["counter"].n:
         raise AssertionError(f"phase 10: {collision.enforces.n - enforces0} enforce_collision "
-                             f"calls, {kernels['CE']['counter'].n} CE launches")
+                             f"calls, {card.kernels['CE']['counter'].n} CE launches")
     travel = float((collider.collider_center(col4, c4.develop - 1, p4.dt)
                     - collider.collider_center(col4, 0, p4.dt)).norm())
     if not travel > 5.0:
@@ -1417,18 +1260,21 @@ def main() -> int:
     def c4_step():
         return collider.collider_step(t4, st4, p4, cfg4, col4, c4.develop)
 
-    step_vs_plain("10", c4_step)
-    c4_step()
-    c4_ms = statistics.median(time_ms(c4_step, 7))
-    res10 = time_calls("10", record(c4_step, ("B1", "B2", "B3", "B7a", "B7b", "CE")))
-    kernels["CE"].update(res10["CE"])
+    step_vs_plain(card, "10", c4_step)
+    c4_ms, _, res10 = path_timed(card, "10", c4_step, 7, ("B1", "B2", "B3", "B7a", "B7b", "CE"))
+    card.kernels["CE"].update(res10["CE"])
     print(f"[10] config-4 step: {c4_ms:.3f} ms/step (median of 7, CUDA events), "
           f"{t4.num_voxels / (c4_ms * 1e-3):.4e} active voxel-updates/s; the collider "
           f"travelled {travel:.1f} voxels | {card}", flush=True)
-    done("10")
+    card.done("10")
+    return t4, st4
 
-    # -- 11. RK2-4 backtraces on the developed config-4 state ---------------------
-    vel4, sdf4 = st4.velocity, st4.scalars[COLLISION_FIELD]
+
+def phase_11_rk(card: Card, t4, st4) -> None:
+    """RK2-4 advection on the developed config-4 state, with and without the
+    SDF: each call's launches exact, kernels vs plain, timed."""
+    p4 = CELLS["c4"].params
+    inv4, vel4, sdf4 = p4.inv_voxel_size, st4.velocity, st4.scalars[COLLISION_FIELD]
     sc4 = {k: v for k, v in st4.scalars.items() if k != COLLISION_FIELD}
     for order in (2, 3, 4):
         for s_ in (None, sdf4):
@@ -1441,151 +1287,130 @@ def main() -> int:
                         advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_,
                                                        trace_order=order))
 
-            with main_path(f"11 {tag} velocity",
+            with main_path(card, f"11 {tag} velocity",
                            {"B8": n8, "B2": 1, "CE": 0 if s_ is None else 1}, 1):
                 advection.advect_velocity(t4, vel4, p4.dt, inv4, s_, trace_order=order)
-            with main_path(f"11 {tag} scalars", {"B8": n8, "B2": 1}, 1):
+            with main_path(card, f"11 {tag} scalars", {"B8": n8, "B2": 1}, 1):
                 advection.advect_scalars_fused(t4, vel4, sc4, p4.dt, inv4, s_,
                                                trace_order=order)
-            (uk, sk) = rk()
-            with plain_versions():
+            uk, sk = rk()
+            with plain_versions(card):
                 up, sp = rk()
-            worst, parts = 0.0, []
-            for name, g, w in [("velocity", uk, up)] + [(k, sk[k], sp[k]) for k in sorted(sk)]:
-                if not bool(torch.isfinite(g).all()):
-                    raise AssertionError(f"phase 11 {tag}: {name} not finite")
-                _, rel = rel_err(g, w)
-                worst = max(worst, rel)
-                parts.append(f"{name} {rel:.2e}")
+            bad = [k for k, f in [("velocity", uk)] + sorted(sk.items())
+                   if not bool(torch.isfinite(f).all())]
+            if bad:
+                raise AssertionError(f"phase 11 {tag}: {bad[0]} not finite")
+            worst, parts = field_errors(FieldState(velocity=uk, scalars=sk),
+                                        FieldState(velocity=up, scalars=sp))
             print(f"[11] {tag}: kernels vs plain, max rel err per field {', '.join(parts)} "
                   f"(tol {TOL_STEP:g})", flush=True)
             if not worst <= TOL_STEP:
                 raise AssertionError(f"phase 11 {tag}: rel err {worst} > {TOL_STEP}")
-            groups = record(rk, ("B8", "B2"))
+            groups = record(card, rk, ("B8", "B2"))
             if order == 4 and s_ is not None:
-                kernels["B8"].update(time_calls("11", groups)["B8"])
+                card.kernels["B8"].update(time_calls(card, "11", groups)["B8"])
             else:
                 for key, a, kw, _, _ in groups:
-                    vs_plain("11", key, a, kw)
+                    vs_plain(card, "11", key, a, kw)
             rk()
             print(f"[11] {tag}: velocity + scalar advection "
                   f"{statistics.median(time_ms(rk, 5)):.3f} ms (median of 5) | {card}",
                   flush=True)
-    done("11")
-    del t4, st4, vel4, sdf4, sc4, prev
-    torch.cuda.empty_cache()
+    card.done("11")
 
-    # -- 12-13. growing topologies: BASELINE configs 2 and 3 -------------------
-    from hnanosolver_tpu_torch.core import activation
 
-    def step_counts(cap: int, p_) -> dict:
-        """Launches of one step at capacity ``cap`` on the nbr path with at
-        most 8 scalars: the pressure solve as ops/pressure.solve_pressure
-        dispatches it, and with ``p_.has_collision`` four CE (the step's
-        enforce passes)."""
-        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0}
-        if cap <= cuda_pressure.MAX_FUSED_ROWS:
-            c["B5"] = 1
-        else:
-            lag_ = p_.effective_halo_lag
-            blocks = p_.iterations // lag_ if lag_ > 1 else 0
-            c["B3"], c["B4"] = blocks, 2 * (p_.iterations - blocks * lag_)
-        return c
+@contextlib.contextmanager
+def growth_checked(label: str, model, caps: list, clock: dict):
+    """``model.expand_for_state`` wrapped: records the capacity each
+    frame's step ran at and the seconds of the step (from the frame's
+    start) and of the growth pass, and holds every remap to the tile
+    keys, found on the host: a tile in both topologies keeps its values
+    exactly, a new tile and every padding row read 0."""
+    real = activation.expand_for_state
 
-    def totals(caps: list, p_):
-        def want():
-            out = {}
-            for cap in caps:
-                for key, n in step_counts(cap, p_).items():
-                    out[key] = out.get(key, 0) + n
-            return out
-        return want
-
-    @contextlib.contextmanager
-    def growth_checked(label: str, model, caps: list, clock: dict):
-        """``model.expand_for_state`` wrapped: records the capacity each
-        frame's step ran at and the seconds of the step (from the frame's
-        start) and of the growth pass, and holds every remap to the tile
-        keys, found on the host: a tile in both topologies keeps its values
-        exactly, a new tile and every padding row read 0."""
-        real = activation.expand_for_state
-
-        def wrapped(topo_, st, *a, **kw):
-            caps.append(topo_.capacity)
-            torch.cuda.synchronize()
-            t_a = time.perf_counter()
-            new_t, new_s = real(topo_, st, *a, **kw)
-            torch.cuda.synchronize()
-            t_b = time.perf_counter()
-            clock["step"].append(t_a - clock["start"])
-            clock["grow"].append(t_b - t_a)
-            if new_t is topo_:
-                return new_t, new_s
-            ok_ = np.asarray(topo_.keys[1:topo_.n_active + 1].cpu())
-            nk = np.asarray(new_t.keys[1:new_t.n_active + 1].cpu())
-            _, io, in_ = np.intersect1d(ok_, nk, return_indices=True)
-            io, in_ = torch.from_numpy(io + 1).to(dev), torch.from_numpy(in_ + 1).to(dev)
-            fresh = torch.ones(new_t.capacity, dtype=torch.bool, device=dev)
-            fresh[in_] = False
-            fresh[0] = True
-            for name, old_f, new_f in [("velocity", st.velocity, new_s.velocity)] + [
-                    (k, st.scalars[k], new_s.scalars[k]) for k in sorted(st.scalars)]:
-                if not torch.equal(new_f[..., in_, :], old_f[..., io, :]):
-                    raise AssertionError(f"phase {label}: the remap changed kept {name}")
-                if bool(new_f[..., fresh, :].any()):
-                    raise AssertionError(f"phase {label}: a new or padding row of {name} != 0")
+    def wrapped(topo_, st, *a, **kw):
+        caps.append(topo_.capacity)
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        new_t, new_s = real(topo_, st, *a, **kw)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        clock["step"].append(t_a - clock["start"])
+        clock["grow"].append(t_b - t_a)
+        if new_t is topo_:
             return new_t, new_s
+        ok_ = np.asarray(topo_.keys[1:topo_.n_active + 1].cpu())
+        nk = np.asarray(new_t.keys[1:new_t.n_active + 1].cpu())
+        _, io, in_ = np.intersect1d(ok_, nk, return_indices=True)
+        io, in_ = torch.from_numpy(io + 1).to(DEV), torch.from_numpy(in_ + 1).to(DEV)
+        fresh = torch.ones(new_t.capacity, dtype=torch.bool, device=DEV)
+        fresh[in_] = False
+        fresh[0] = True
+        for name, old_f, new_f in [("velocity", st.velocity, new_s.velocity)] + [
+                (k, st.scalars[k], new_s.scalars[k]) for k in sorted(st.scalars)]:
+            if not torch.equal(new_f[..., in_, :], old_f[..., io, :]):
+                raise AssertionError(f"phase {label}: the remap changed kept {name}")
+            if bool(new_f[..., fresh, :].any()):
+                raise AssertionError(f"phase {label}: a new or padding row of {name} != 0")
+        return new_t, new_s
 
-        with mock.patch.object(model, "expand_for_state", wrapped):
-            yield
+    with mock.patch.object(model, "expand_for_state", wrapped):
+        yield
 
-    def frame_printer(label: str, caps: list, clock: dict):
-        clock.update(start=time.perf_counter(), step=[], grow=[])
 
-        def on_frame(f, topo_, st):
-            check_state(label, topo_, st)
-            print(f"[{label}] frame {f}: step at capacity {caps[-1]} {clock['step'][-1]:.4f} s, "
-                  f"growth {clock['grow'][-1]:.4f} s -> {topo_.n_active} tiles at capacity "
-                  f"{topo_.capacity}; max|u| {float(st.velocity.abs().max()):.2f}", flush=True)
-            torch.cuda.synchronize()
-            clock["start"] = time.perf_counter()
-        return on_frame
-
-    def frame_summary(label: str, clock: dict):
-        st_, gr = clock["step"], clock["grow"]
-        print(f"[{label}] seconds per frame, median (last 10 frames): step "
-              f"{statistics.median(st_):.4f} ({statistics.median(st_[-10:]):.4f}), growth "
-              f"{statistics.median(gr):.4f} ({statistics.median(gr[-10:]):.4f}); sums step "
-              f"{sum(st_):.3f}, growth {sum(gr):.3f} | {card}", flush=True)
-
-    p2, cfg2 = SolverParams(), plume.PlumeConfig()
-    caps2, clock2 = [], {}
+def grown(card, label: str, model, p_, run) -> tuple:
+    """``run(on_frame)``, a growing cook of ``model`` at ``p_``, as a main
+    path with every remap checked (:func:`growth_checked`) and each frame's
+    state checked and printed. Returns (topology, state, wall seconds)."""
+    caps, clock = [], {}
     t0 = time.perf_counter()
-    with growth_checked("12", plume, caps2, clock2), main_path("12", totals(caps2, p2)):
-        t2, st2 = plume.run_plume(C2_FRAMES, p2, cfg2, device=dev,
-                                  on_frame=frame_printer("12", caps2, clock2))
-    frame_summary("12", clock2)
-    print(f"[12] config 2: {C2_FRAMES} frames in {time.perf_counter() - t0:.2f} s wall "
+    clock.update(start=t0, step=[], grow=[])
+
+    def on_frame(f, topo_, st):
+        check_state(label, topo_, st)
+        print(f"[{label}] frame {f}: step at capacity {caps[-1]} {clock['step'][-1]:.4f} s, "
+              f"growth {clock['grow'][-1]:.4f} s -> {topo_.n_active} tiles at capacity "
+              f"{topo_.capacity}; max|u| {float(st.velocity.abs().max()):.2f}", flush=True)
+        torch.cuda.synchronize()
+        clock["start"] = time.perf_counter()
+
+    with growth_checked(label, model, caps, clock), main_path(card, label, totals(caps, p_)):
+        topo, state = run(on_frame)
+    st_, gr = clock["step"], clock["grow"]
+    print(f"[{label}] seconds per frame, median (last 10 frames): step "
+          f"{statistics.median(st_):.4f} ({statistics.median(st_[-10:]):.4f}), growth "
+          f"{statistics.median(gr):.4f} ({statistics.median(gr[-10:]):.4f}); sums step "
+          f"{sum(st_):.3f}, growth {sum(gr):.3f} | {card}", flush=True)
+    return topo, state, time.perf_counter() - t0
+
+
+def phase_12_config2(card: Card) -> None:
+    """BASELINE config 2: C2_FRAMES growing plume frames with the JAX
+    package's defaults (:func:`grown`); one step kernels vs plain."""
+    p2, cfg2 = SolverParams(), plume.PlumeConfig()
+    t2, st2, wall = grown(card, "12", plume, p2, lambda on_frame: plume.run_plume(
+        C2_FRAMES, p2, cfg2, device=DEV, on_frame=on_frame))
+    print(f"[12] config 2: {C2_FRAMES} frames in {wall:.2f} s wall "
           f"(growth and per-frame checks included): {t2.n_active} tiles, capacity "
           f"{t2.capacity}, max density {float(st2.scalars['density'].max()):.4f}", flush=True)
     check_state("12", t2, st2)
     if not t2.n_active > len(plume.emitter_tiles(cfg2)):
         raise AssertionError("phase 12: the topology did not grow")
-    step_vs_plain("12", lambda: plume.plume_step(t2, st2, p2, cfg2))
-    done("12")
+    step_vs_plain(card, "12", lambda: plume.plume_step(t2, st2, p2, cfg2))
+    card.done("12")
 
+
+def phase_13_config3(card: Card) -> None:
+    """BASELINE config 3: C3_FRAMES growing fire frames (:func:`grown`) and
+    tests/test_fire.py's checks; one step kernels vs plain."""
     p3, cfg3 = fire.default_params(), fire.FireConfig()
-    caps3, clock3 = [], {}
-    t0 = time.perf_counter()
-    with growth_checked("13", fire, caps3, clock3), main_path("13", totals(caps3, p3)):
-        t3, st3 = fire.run_fire(C3_FRAMES, p3, cfg3, device=dev,
-                                on_frame=frame_printer("13", caps3, clock3))
-    frame_summary("13", clock3)
+    t3, st3, wall = grown(card, "13", fire, p3, lambda on_frame: fire.run_fire(
+        C3_FRAMES, p3, cfg3, device=DEV, on_frame=on_frame))
     sc3 = st3.scalars
     hot = torch.where(sc3["temperature"] > 50.0, positions_flat(t3)[1].to(torch.float32), -1e9)
     facts = dict(flame=float(sc3["flame"].max()), waste=float(sc3["waste"].sum()),
                  temperature=float(sc3["temperature"].max()), hot_y=float(hot.max()))
-    print(f"[13] config 3: {C3_FRAMES} frames in {time.perf_counter() - t0:.2f} s wall: "
+    print(f"[13] config 3: {C3_FRAMES} frames in {wall:.2f} s wall: "
           f"{t3.n_active} tiles, capacity {t3.capacity}; max flame {facts['flame']:.4f} "
           f"(> 0.3), waste sum {facts['waste']:.3f} (> 0), max T {facts['temperature']:.2f} "
           f"(> 85), hot gas up to y {facts['hot_y']:.0f} (> 10)", flush=True)
@@ -1593,12 +1418,90 @@ def main() -> int:
     if not (facts["flame"] > 0.3 and facts["waste"] > 0 and facts["temperature"] > 85
             and facts["hot_y"] > 10):
         raise AssertionError(f"phase 13: the fireball checks failed: {facts}")
-    step_vs_plain("13", lambda: fire.fire_step(t3, st3, p3, cfg3))
-    del t2, st2, t3, st3, sc3, hot
-    done("13")
+    step_vs_plain(card, "13", lambda: fire.fire_step(t3, st3, p3, cfg3))
+    card.done("13")
 
-    # -- 14. the table sampler on the bench cell ---------------------------------
-    planned = {}  # config 5's with its plans serves phase 18
+
+def outside_cfl(topo, state, cfg, params) -> float:
+    """The CFL number max|u| dt/dx of ``state`` outside the emitter: emit
+    sets the jet inside it, so the bands scale the flow outside it, and the
+    velocity pass sees the band's CFL."""
+    inside = plume.emit(topo, zeros_state(topo), cfg, params.dt).velocity[1] != 0
+    return float(state.velocity.abs().amax(0)[~inside].max()) * params.dt * params.inv_voxel_size
+
+
+def table_counts(comb: bool, params):
+    """The launches of one table-path step, from the branches it took
+    (``advection.BANDS``, asked after the step)."""
+    def want():
+        b = advection.BANDS
+        c = {"B2": 2, "B3": params.iterations // params.effective_halo_lag, "B7a": 1, "B7b": 1,
+             "B1": b["wide"], "B8": b["mixed fwd wide"],
+             "B1d": b["narrow"] + b["mixed"] + b["mixed fwd narrow"]}
+        if comb:
+            c["B11"] = b["narrow"] + b["mixed"]
+        return c
+    return want
+
+
+def vmem(comb):
+    advection.INTERP, cuda_tables.COMBINE_TBL = "vmem", comb
+
+
+def nbr_path():
+    advection.INTERP, cuda_tables.COMBINE_TBL = None, None
+
+
+def dual_both(card, lab, topo_, tb_, vb, fields, fl: int, sdf=None):
+    """B1d in "both" mode at one pass (``fields`` from ``fl``), with the
+    SDF where given: vs its plain version and bitwise vs the nbr B1."""
+    sdt, nb_ = CELLS["bench"].params.dt * CELLS["bench"].params.inv_voxel_size, fields.shape[0]
+    tv = tables.build_table_dual(tb_, fields if sdf is None else torch.cat([fields, sdf[None]]))
+    args = (tv, tb_.chunk_ldual, vb, sdt, nb_, fl, "both", sdf is not None)
+    got, want = cuda_bfecc.bfecc_sample_dual(*args), cuda_bfecc.bfecc_sample_dual_plain(*args)
+    ref = cuda_bfecc.bfecc_sample(topo_.nbr, fields, sdt, fl, sdf)
+    tag = f"both f_lo={fl}{' + SDF' if sdf is not None else ''}"
+    for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
+        check(card, "B1d", f"{tag} {part} vs plain", g, w, TOL_B1, lab)
+        check(card, "B1d", f"{tag} {part} vs nbr B1", g, r, 0.0, lab)
+
+
+def dual_checks(card, lab, topo_, tb_, vb, f8, sdf=None):
+    """B1d's split modes at both passes ("back" of the velocity and of
+    all eight fields, "fwd" of the velocity and of the five scalars)
+    and, given an SDF, "both" at both passes with and without it: each
+    vs its plain version and bitwise vs the nbr B1 / B8."""
+    sdt = CELLS["bench"].params.dt * CELLS["bench"].params.inv_voxel_size
+    lim, ld = cuda_bfecc.DISP_LIMIT, tb_.chunk_ldual
+    d = torch.clamp(-vb * sdt, -lim, lim)
+    for fields, fl in ((vb, 0), (f8, 3)):
+        nb_ = fields.shape[0]
+        tv = tables.build_table_dual(tb_, fields)
+        got = cuda_bfecc.bfecc_sample_dual(tv, ld, vb, sdt, nb_, 0, "back")
+        check(card, "B1d", f"back nb={nb_} vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
+            tv, ld, vb, sdt, nb_, 0, "back"), TOL_B1, lab)
+        check(card, "B1d", f"back nb={nb_} vs B8", got,
+              cuda_sample.sample_at(topo_.nbr, fields, d), 0.0, lab)
+        d2 = torch.clamp(d + got[:3] * sdt, -3.85, 3.85)
+        got = cuda_bfecc.bfecc_sample_dual(tv, ld, d2, sdt, nb_, fl, "fwd")
+        check(card, "B1d", f"fwd nb={nb_} f_lo={fl} vs plain", got,
+              cuda_bfecc.bfecc_sample_dual_plain(tv, ld, d2, sdt, nb_, fl, "fwd"), TOL_B1, lab)
+        check(card, "B1d", f"fwd nb={nb_} f_lo={fl} vs B8", got,
+              cuda_sample.sample_at(topo_.nbr, fields[fl:].contiguous(), d2), 0.0, lab)
+        if sdf is not None:
+            for g_ in (None, sdf):
+                dual_both(card, lab, topo_, tb_, vb, fields, fl, g_)
+
+
+def phase_14_table_sampler(card: Card, rng, topo, state) -> dict:
+    """The table sampler (``advection.INTERP = "vmem"``) on the developed
+    bench state in each band, COMBINE_TBL off and on: B11 and B1d vs plain
+    and bitwise vs the nbr path, each step as a main path, timed. Returns
+    the bench and config-5 topologies built with their chunk plans."""
+    bench = CELLS["bench"]
+    params, cfg, T = bench.params, bench.plume, topo.capacity
+    sdt = params.dt * params.inv_voxel_size
+    planned = {}  # with their chunk plans, for phase 18
     for name, cell in (("bench", bench), ("config 5", CELLS["c5"])):
         tiles = plume.build_plume_envelope(*cell.envelope)
         n = len(np.unique(tiles, axis=0))
@@ -1606,7 +1509,7 @@ def main() -> int:
         secs = {}
         for what, kw in (("plain", {}), ("plans", {"plans": True})):
             t0 = time.perf_counter()
-            planned[name] = topology_mod.build_topology(tiles, capacity=cap, device=dev, **kw)
+            planned[name] = topology_mod.build_topology(tiles, capacity=cap, device=DEV, **kw)
             torch.cuda.synchronize()
             secs[what] = time.perf_counter() - t0
         print(f"[14] build_topology host seconds, {name} ({n} tiles, capacity {cap}): "
@@ -1615,68 +1518,13 @@ def main() -> int:
 
     tb = topology_mod.ensure_chunk_plans(topo)
     nc, Ud = tb.chunk_dsrc.shape[:2]
-    print(f"[14] bench chunk plans: {nc} chunks, U {tb.chunk_uniq.shape[1]}, Ud {Ud}", flush=True)
-    vel0, sc0 = bench_state.velocity, bench_state.scalars
-    # emit sets the jet inside the emitter: scale the flow outside it, so
-    # that the velocity pass sees the band's CFL
-    inside = plume.emit(topo, zeros_state(topo), cfg, params.dt).velocity[1] != 0
-    cfl0 = float(vel0.abs().amax(0)[~inside].max()) * sdt
+    print(f"[14] bench chunk plans: {nc} chunks, U {tb.chunk_uniq.shape[1]}, Ud {Ud}",
+          flush=True)
+    vel0, sc0 = state.velocity, state.scalars
+    cfl0 = outside_cfl(topo, state, cfg, params)
     print(f"[14] developed bench state: CFL max|u|*sdt = {float(vel0.abs().max()) * sdt:.3f}, "
           f"{cfl0:.3f} outside the emitter", flush=True)
     names = sorted(sc0)
-
-    def table_counts(comb: bool):
-        def want():
-            b = advection.BANDS
-            c = {"B2": 2, "B3": params.iterations // lag, "B7a": 1, "B7b": 1,
-                 "B1": b["wide"], "B8": b["mixed fwd wide"],
-                 "B1d": b["narrow"] + b["mixed"] + b["mixed fwd narrow"]}
-            if comb:
-                c["B11"] = b["narrow"] + b["mixed"]
-            return c
-        return want
-
-    def vmem(comb):
-        advection.INTERP, cuda_tables.COMBINE_TBL = "vmem", comb
-
-    def nbr_path():
-        advection.INTERP, cuda_tables.COMBINE_TBL = None, None
-
-    def dual_checks(lab, topo_, tb_, vb, f8, sdf=None):
-        """B1d's split modes at both passes ("back" of the velocity and of
-        all eight fields, "fwd" of the velocity and of the five scalars)
-        and, given an SDF, "both" at both passes with and without it: each
-        vs its plain version and bitwise vs the nbr B1 / B8."""
-        ld = tb_.chunk_ldual
-        d = torch.clamp(-vb * sdt, -lim, lim)
-        for fields, fl in ((vb, 0), (f8, 3)):
-            nb_ = fields.shape[0]
-            tv = tables.build_table_dual(tb_, fields)
-            got = cuda_bfecc.bfecc_sample_dual(tv, ld, vb, sdt, nb_, 0, "back")
-            check("B1d", f"back nb={nb_} vs plain", got, cuda_bfecc.bfecc_sample_dual_plain(
-                tv, ld, vb, sdt, nb_, 0, "back"), TOL_B1, lab)
-            check("B1d", f"back nb={nb_} vs B8", got, cuda_sample.sample_at(topo_.nbr, fields, d),
-                  0.0, lab)
-            d2 = torch.clamp(d + got[:3] * sdt, -3.85, 3.85)
-            got = cuda_bfecc.bfecc_sample_dual(tv, ld, d2, sdt, nb_, fl, "fwd")
-            check("B1d", f"fwd nb={nb_} f_lo={fl} vs plain", got,
-                  cuda_bfecc.bfecc_sample_dual_plain(tv, ld, d2, sdt, nb_, fl, "fwd"), TOL_B1, lab)
-            check("B1d", f"fwd nb={nb_} f_lo={fl} vs B8", got,
-                  cuda_sample.sample_at(topo_.nbr, fields[fl:].contiguous(), d2), 0.0, lab)
-            if sdf is None:
-                continue
-            for g_ in (None, sdf):
-                tv = tables.build_table_dual(tb_, fields if g_ is None else
-                                             torch.cat([fields, g_[None]]))
-                got = cuda_bfecc.bfecc_sample_dual(tv, ld, vb, sdt, nb_, fl, "both",
-                                                   g_ is not None)
-                want = cuda_bfecc.bfecc_sample_dual_plain(tv, ld, vb, sdt, nb_, fl, "both",
-                                                          g_ is not None)
-                ref = cuda_bfecc.bfecc_sample(topo_.nbr, fields, sdt, fl, g_)
-                tag = f"both f_lo={fl}{' + SDF' if g_ is not None else ''}"
-                for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
-                    check("B1d", f"{tag} {part} vs plain", g, w, TOL_B1, lab)
-                    check("B1d", f"{tag} {part} vs nbr B1", g, r, 0.0, lab)
 
     band_steps = {}
     for band, cfl in BANDS:
@@ -1687,19 +1535,12 @@ def main() -> int:
             vmem(comb)
             advection.BANDS.clear()
             label = f"14 {band} COMBINE_TBL={comb}"
-            with main_path(label, table_counts(comb)):
+            with main_path(card, label, table_counts(comb, params)):
                 out_v = plume.plume_step(tb, sb, params, cfg)
             print(f"[{label}] branches taken {dict(advection.BANDS)}", flush=True)
-            step_vs_plain(label, lambda: plume.plume_step(tb, sb, params, cfg))
+            step_vs_plain(card, label, lambda: plume.plume_step(tb, sb, params, cfg))
             nbr_path()
-            out_n = plume.plume_step(topo, sb, params, cfg)
-            parts, worst = [], 0.0
-            for fname in ["velocity"] + sorted(out_v.scalars):
-                g = out_v.velocity if fname == "velocity" else out_v.scalars[fname]
-                w = out_n.velocity if fname == "velocity" else out_n.scalars[fname]
-                _, rel = rel_err(g, w)
-                worst = max(worst, rel)
-                parts.append(f"{fname} {rel:.2e}{' (bitwise)' if torch.equal(g, w) else ''}")
+            worst, parts = field_errors(out_v, plume.plume_step(topo, sb, params, cfg), True)
             print(f"[{label}] step vs the nbr-path step, max rel err per field: "
                   f"{', '.join(parts)} (tol {TOL_STEP:g})", flush=True)
             if not worst <= TOL_STEP:
@@ -1714,30 +1555,17 @@ def main() -> int:
         if band == "narrow":
             t27 = tables.build_table(tb, f8)
             b11 = cuda_tables.build_table_dual_combine(t27, tb.chunk_dloc, 8)
-            check("B11", f"T={T} nf=8 vs plain", b11,
+            check(card, "B11", f"T={T} nf=8 vs plain", b11,
                   cuda_tables.build_table_dual_combine_plain(t27, tb.chunk_dloc, 8), 0.0, lab)
             tdual = tables.build_table_dual(tb, f8)
-            check("B11", f"T={T} nf=8 vs build_table_dual", b11, tdual, 0.0, lab)
-            for fl, fields in ((0, vb), (3, f8)):
-                tv = tables.build_table_dual(tb, fields)
-                nb_ = fields.shape[0]
-                got = cuda_bfecc.bfecc_sample_dual(tv, tb.chunk_ldual, vb, sdt, nb_, fl)
-                want = cuda_bfecc.bfecc_sample_dual_plain(tv, tb.chunk_ldual, vb, sdt, nb_, fl)
-                ref = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, fl)
-                for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
-                    check("B1d", f"both f_lo={fl} {part} vs plain", g, w, TOL_B1, lab)
-                    check("B1d", f"both f_lo={fl} {part} vs nbr B1", g, r, 0.0, lab)
-            for fl, fields in ((0, vb), (3, f8)):
-                nb_ = fields.shape[0]
-                ts = tables.build_table_dual(tb, torch.cat([fields, sdf3[None]]))
-                got = cuda_bfecc.bfecc_sample_dual(ts, tb.chunk_ldual, vb, sdt, nb_, fl, "both",
-                                                   True)
-                want = cuda_bfecc.bfecc_sample_dual_plain(ts, tb.chunk_ldual, vb, sdt, nb_, fl,
-                                                          "both", True)
-                ref = cuda_bfecc.bfecc_sample(topo.nbr, fields, sdt, fl, sdf3)
-                for part, g, w, r in zip(("phiF", "phiB"), got, want, ref):
-                    check("B1d", f"both f_lo={fl} + SDF {part} vs plain", g, w, TOL_B1, lab)
-                    check("B1d", f"both f_lo={fl} + SDF {part} vs nbr B1", g, r, 0.0, lab)
+            check(card, "B11", f"T={T} nf=8 vs build_table_dual", b11, tdual, 0.0, lab)
+            # the config-4 sphere at frame 0 as the SDF, as phase 3's B1 checks
+            col4 = CELLS["c4"].collider
+            sdf3 = collider.sphere_sdf(topo, collider.collider_center(col4, 0, params.dt, DEV),
+                                       col4.radius) * active_mask(topo)[:, None]
+            for sdf_ in (None, sdf3):
+                for fl, fields in ((0, vb), (3, f8)):
+                    dual_both(card, lab, topo, tb, vb, fields, fl, sdf_)
             k_ms, p_ms = paired_ms(
                 lambda: cuda_tables.build_table_dual_combine(t27, tb.chunk_dloc, 8),
                 lambda: cuda_tables.build_table_dual_combine_plain(t27, tb.chunk_dloc, 8))
@@ -1746,9 +1574,9 @@ def main() -> int:
             print(f"[{lab}] nf=8 tables: B11 {k_ms:.4f} ms (plain {p_ms:.4f}), build_table "
                   f"{t27_ms:.4f} ms, build_table_dual {dual_ms:.4f} ms ({nbytes(t27) / 1e6:.1f} "
                   f"and {nbytes(tdual) / 1e6:.1f} MB) | {card}", flush=True)
-            del t27, b11, tdual, ts
+            del t27, b11, tdual
         elif band == "mixed":
-            dual_checks(lab, topo, tb, vb, f8)
+            dual_checks(card, lab, topo, tb, vb, f8)
         # the scalar pass: the table path against the nbr-form B1
         times = {}
         for what, fn in (("nbr B1", lambda: cuda_bfecc.bfecc_sample(topo.nbr, f8, sdt, 3)),
@@ -1762,7 +1590,7 @@ def main() -> int:
         print(f"[{lab}] scalar pass (3 + 5 fields, CFL {cfl}): "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
               + f" (with the host CFL read and the table builds) | {card}", flush=True)
-        del f8, vb, sb, out_v, out_n
+        del f8, vb, sb, out_v
     # B1d on small topologies: one chunk of 102 rows (below 512), and two
     # chunks whose second is mostly padding rows; a plane SDF through each
     for name, tiles, cap in (
@@ -1770,71 +1598,117 @@ def main() -> int:
                                    for z in range(5)])[:101], 102),
             ("two chunks, padding", np.array([(x, y, z) for x in range(9) for y in range(9)
                                               for z in range(8)]), 1024)):
-        ts_ = topology_mod.build_topology(tiles, capacity=cap, device=dev, plans=True)
+        ts_ = topology_mod.build_topology(tiles, capacity=cap, device=DEV, plans=True)
         ms_ = active_mask(ts_)[:, None]
-        vs_ = field(3, cap, 512, scale=1.8 / sdt / 4.0, mask=ms_).clamp(-1.8 / sdt, 1.8 / sdt)
-        fs_ = torch.cat([vs_, field(5, cap, 512, mask=ms_)]).contiguous()
+        vs_ = field(rng, ms_, 3, cap, 512, scale=1.8 / sdt / 4.0).clamp(-1.8 / sdt, 1.8 / sdt)
+        fs_ = torch.cat([vs_, field(rng, ms_, 5, cap, 512)]).contiguous()
         py_ = positions_flat(ts_)[1].to(torch.float32)
         sdf_ = (py_ - float(py_[ms_[:, 0] > 0].median())) * ms_
-        dual_checks(f"14 {name}", ts_, ts_, vs_.contiguous(), fs_, sdf_)
-    del ts_, ms_, vs_, fs_, sdf_
-    groups = record(band_steps["narrow"], ("B1d", "B11"))
+        dual_checks(card, f"14 {name}", ts_, ts_, vs_.contiguous(), fs_, sdf_)
+    groups = record(card, band_steps["narrow"], ("B1d", "B11"))
     nbr_path()
-    res14 = time_calls("14", groups)
+    res14 = time_calls(card, "14", groups)
     for key, r in res14.items():
-        kernels[key].update(r)
+        card.kernels[key].update(r)
     before = BEFORE_REDESIGN["table"]
     r = res14["B1d"]
     print(f"[14] B1d narrow step, its two launches alone: {r['ms']:.4f} ms "
           f"({r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f}), "
           f"{r['wrapper_ms']:.4f} through the wrapper; the design before: "
           f"{before['narrow B1d']} alone | {card}", flush=True)
-    mixed = record(band_steps["mixed"], ("B1d",))
+    mixed = record(card, band_steps["mixed"], ("B1d",))
     nbr_path()
     for key, a, kw, out_bytes, count in mixed:
         nb_, fl_, mode_, _ = b1d_mode(a, kw)
-        vs_plain("14 mixed", key, a, kw)
+        vs_plain(card, "14 mixed", key, a, kw)
         k_ms = median_ms(b1d_cost.kernel_call(*a, **kw), 10, 10)
         b_ms = bound_ms(key, a, kw, out_bytes)[0]
         print(f"[14 mixed] B1d {mode_} nb={nb_} f_lo={fl_} x{count}/step: {k_ms:.4f} ms alone "
               f"(bound {b_ms:.4f}); the design before: {before[f'mixed {mode_} nb={nb_}']} | "
               f"{card}", flush=True)
     nbr_path()
-    del tb, bench_state
-    done("14")
+    card.done("14")
+    return planned
 
-    # -- 15. the probe kernels PG and PC -------------------------------------------
+
+def ms_line(card, what, k_ms, p_ms, b_ms, lib_ms, lib):
+    bound = "on chip" if b_ms is None else f"{b_ms:.6f} ms"
+    print(f"[15] {what}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms plain, bound {bound}, "
+          f"{lib} {lib_ms:.4f} ms | {card}", flush=True)
+
+
+def bytes_ms(nb):
+    return nb / HBM_BYTES_PER_S * 1e3
+
+
+def along_rows(x_, idx, form):
+    """P4 through its C entry in ``form`` (the wrapper picks the form from
+    x's rows; this also runs the direct form, the design before the slab
+    form, where the slab form is the wrapper's), into a fixed output."""
+    out = torch.empty(idx.shape, device=DEV)
+    code = build.library().hn_take_along_rows(
+        x_.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], x_.shape[0],
+        cuda_probe.ALONG_ROWS_FORMS[form], build.stream_ptr(DEV))
+    build.check(code, "hn_take_along_rows")
+    return out
+
+
+def copy_n(kw) -> int:
+    return int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
+
+
+def rows_copied(kw) -> int:
+    """Rows one launch copies: ctas x reps x n x L."""
+    return kw.get("ctas", 1) * kw.get("reps", 1) * copy_n(kw) * kw.get("span", 1)
+
+
+def copy_spans(x_, kw):
+    """The source row of every row one round of copies reads (n x L)."""
+    n, L = copy_n(kw), kw.get("span", 1)
+    return (probe.source_rows(x_.shape[0], kw["rows"][:n], L, kw.get("onchip_rows", 0))
+            [:, None] + torch.arange(L, device=DEV)).reshape(-1)
+
+
+def copy_bound_ms(x_, kw):
+    """Bytes the copies need over the HBM rate: each source row they
+    read once (the data decides), the row starts, the stage and acc
+    written once; None for the on-chip source. (Every copy's bytes,
+    rows_copied x 2 KB, over the HBM rate would be no least time: the
+    copies re-read rows the L2 holds.)"""
+    if kw.get("onchip_rows", 0):
+        return None
+    used = int(torch.unique(copy_spans(x_, kw)).numel())
+    return bytes_ms(used * 2048 + 4 * copy_n(kw) + probe.STAGE_ROWS * 2048
+                    + 4 * kw.get("ctas", 1))
+
+
+def copy_lib_ms(x_, kw):
+    """One index_select of every row the launch copies (rows_copied:
+    one round's n x L rows for each block and rep), into a buffer."""
+    reps = kw.get("ctas", 1) * kw.get("reps", 1)
+    idx = copy_spans(x_, kw).repeat(reps)
+    buf = torch.empty(idx.numel(), 512, device=DEV)
+    return median_ms(lambda: torch.index_select(x_, 0, idx, out=buf), batch=5)
+
+
+def phase_15_probes(card: Card, rng, topo) -> None:
+    """The probe kernels PG and PC: every PG form and every PC case of the four
+    probe scripts bitwise its plain version and timed beside its bound, its
+    library call and its design before the redesign; then the probe scripts
+    as the probes' own path."""
     # PG's and PC's launches are a few us: each time below is per call, a
     # median over spans of back-to-back calls queued behind a spin
     # (timing.paired_ms, median_ms), so that the span holds device time and
     # not the host's launch latency
-    def ms_line(what, k_ms, p_ms, b_ms, lib_ms, lib):
-        bound = "on chip" if b_ms is None else f"{b_ms:.6f} ms"
-        print(f"[15] {what}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms plain, bound {bound}, "
-              f"{lib} {lib_ms:.4f} ms | {card}", flush=True)
-
-    def bytes_ms(nb):
-        return nb / HBM_BYTES_PER_S * 1e3
-
-    def along_rows(x_, idx, form):
-        """P4 through its C entry in ``form`` (the wrapper picks the form from
-        x's rows; this also runs the direct form, the design before the slab
-        form, where the slab form is the wrapper's), into a fixed output."""
-        out = torch.empty(idx.shape, device=dev)
-        code = build.library().hn_take_along_rows(
-            x_.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], x_.shape[0],
-            cuda_probe.ALONG_ROWS_FORMS[form], build.stream_ptr(dev))
-        build.check(code, "hn_take_along_rows")
-        return out
-
+    T = topo.capacity
     nbr6 = probe.face_rows(topo.nbr)
-    xg = torch.from_numpy(rng.standard_normal((T, 512)).astype(np.float32)).to(dev)
-    xm = xg * torch.from_numpy(10.0 ** rng.uniform(-15, 15, (T, 1))).float().to(dev)
-    idx8 = torch.arange(7, -1, -1, dtype=torch.int32, device=dev)[:, None].expand(8, 512)
-    idxr = torch.from_numpy(rng.integers(0, T, (T, 512)).astype(np.int32)).to(dev)
+    xg = torch.from_numpy(rng.standard_normal((T, 512)).astype(np.float32)).to(DEV)
+    xm = xg * torch.from_numpy(10.0 ** rng.uniform(-15, 15, (T, 1))).float().to(DEV)
+    idx8 = torch.arange(7, -1, -1, dtype=torch.int32, device=DEV)[:, None].expand(8, 512)
+    idxr = torch.from_numpy(rng.integers(0, T, (T, 512)).astype(np.int32)).to(DEV)
     RX_DIRECT = 8192  # past probe.SLAB_MAX_ROWS: the wrapper's direct form
-    xd = torch.from_numpy(rng.standard_normal((RX_DIRECT, 512)).astype(np.float32)).to(dev)
-    idxd = torch.from_numpy(rng.integers(0, RX_DIRECT, (T, 512)).astype(np.int32)).to(dev)
+    xd = torch.from_numpy(rng.standard_normal((RX_DIRECT, 512)).astype(np.float32)).to(DEV)
+    idxd = torch.from_numpy(rng.integers(0, RX_DIRECT, (T, 512)).astype(np.int32)).to(DEV)
     before = BEFORE_REDESIGN["probes"]
     for label, x_, idx, was in (("P4 per-element, 8 rows reversed", xg[:8], idx8.contiguous(),
                                  before["P4 8 rows"]),
@@ -1845,16 +1719,17 @@ def main() -> int:
         form = cuda_probe.along_rows_form(x_.shape[0])
         got = cuda_probe.take_along_rows(x_, idx)
         want = cuda_probe.take_along_rows_plain(x_, idx)
-        check("PG", f"{label} ({form} form)", got, want, 0.0, "15")
+        check(card, "PG", f"{label} ({form} form)", got, want, 0.0, "15")
         if form == "slab":
-            check("PG", f"{label} (direct form)", along_rows(x_, idx, "direct"), want, 0.0, "15")
+            check(card, "PG", f"{label} (direct form)", along_rows(x_, idx, "direct"), want, 0.0,
+                  "15")
         k_ms, p_ms = paired_ms(lambda: cuda_probe.take_along_rows(x_, idx),
                                lambda: cuda_probe.take_along_rows_plain(x_, idx))
         i64 = idx.long()
         lib_ms = median_ms(lambda: torch.gather(x_, 0, i64), batch=10)
         src_rows = int(torch.unique(idx).numel()) if idx is not idx8 else 8
         b_ms = bytes_ms(src_rows * 2048 + 2 * nbytes(idx))
-        ms_line(f"{label} ({form} form)", k_ms, p_ms, b_ms, lib_ms, "gather")
+        ms_line(card, f"{label} ({form} form)", k_ms, p_ms, b_ms, lib_ms, "gather")
         if form == "slab":  # the direct form, the design before, in this call
             d_ms = median_ms(lambda: along_rows(x_, idx, "direct"), batch=10)
             print(f"[15] {label}: slab form {k_ms:.4f} ms ({b_ms / k_ms:.1%} of its bound), "
@@ -1863,31 +1738,31 @@ def main() -> int:
     del xd, idxd
     for d in range(6):
         got = cuda_probe.take_rows(xg, nbr6[d])
-        check("PG", f"P5 rows, T={T}, face {d}", got, cuda_probe.take_rows_plain(xg, nbr6[d]),
+        check(card, "PG", f"P5 rows, T={T}, face {d}", got, cuda_probe.take_rows_plain(xg, nbr6[d]),
               0.0, "15")
-        check("PG", f"P5 rows, T={T}, face {d} vs index_select", got,
+        check(card, "PG", f"P5 rows, T={T}, face {d} vs index_select", got,
               xg.index_select(0, nbr6[d]), 0.0, "15")
     pg_in = (xg, nbr6[0])
     pg_bound = bytes_ms(int(torch.unique(nbr6[0]).numel()) * 2048 + nbytes(nbr6[0]) + nbytes(xg))
     k_ms, p_ms = paired_ms(lambda: cuda_probe.take_rows(*pg_in),
                            lambda: cuda_probe.take_rows_plain(*pg_in))
     lib_ms = median_ms(lambda: torch.index_select(xg, 0, nbr6[0]), batch=10)
-    kernels["PG"].update(ms=k_ms, plain_ms=p_ms, bound_ms=pg_bound, bound_by="bytes",
-                         library_ms=lib_ms)
-    ms_line(f"P5 rows, T={T}, face 0 (one launch costs about its bound)", k_ms, p_ms, pg_bound,
-            lib_ms, "index_select")
+    card.kernels["PG"].update(ms=k_ms, plain_ms=p_ms, bound_ms=pg_bound, bound_by="bytes",
+                              library_ms=lib_ms)
+    ms_line(card, f"P5 rows, T={T}, face 0 (one launch costs about its bound)", k_ms, p_ms,
+            pg_bound, lib_ms, "index_select")
     # T - 1 rows (not a multiple of the chain's 6 rows a block), random
     # neighbours inside them
-    nbr6_1 = torch.from_numpy(rng.integers(0, T - 1, (6, T - 1)).astype(np.int32)).to(dev)
+    nbr6_1 = torch.from_numpy(rng.integers(0, T - 1, (6, T - 1)).astype(np.int32)).to(DEV)
     for reps in probe_dgather.REPS:
-        check("PG", f"P6 chain, reps {reps}, T={T - 1} rows",
+        check(card, "PG", f"P6 chain, reps {reps}, T={T - 1} rows",
               cuda_probe.take_chain(xg[:T - 1], nbr6_1, reps),
               cuda_probe.take_chain_plain(xg[:T - 1], nbr6_1, reps), 0.0, "15")
         for inp, x_ in (("normal", xg), ("mixed scales", xm)):
             got = cuda_probe.take_chain(x_, nbr6, reps)
-            check("PG", f"P6 chain, reps {reps}, {inp} ({float((got != x_).float().mean()):.2%}"
-                  f" of values moved)", got, cuda_probe.take_chain_plain(x_, nbr6, reps),
-                  0.0, "15")
+            check(card, "PG", f"P6 chain, reps {reps}, {inp} "
+                  f"({float((got != x_).float().mean()):.2%} of values moved)", got,
+                  cuda_probe.take_chain_plain(x_, nbr6, reps), 0.0, "15")
             # bound: x read once (s starts as x), the index and the output
             # once; or a multiply and an add a value a gather, if longer
             k_ms, p_ms = paired_ms(lambda: cuda_probe.take_chain(x_, nbr6, reps),
@@ -1902,42 +1777,9 @@ def main() -> int:
                   f"chain of dependent gathers) | {card}", flush=True)
     del xm, idxr, nbr6_1
 
-    def copy_n(kw) -> int:
-        return int(kw["count"][0]) if kw.get("count") is not None else kw["n"]
-
-    def rows_copied(kw) -> int:
-        """Rows one launch copies: ctas x reps x n x L."""
-        return kw.get("ctas", 1) * kw.get("reps", 1) * copy_n(kw) * kw.get("span", 1)
-
-    def copy_spans(x_, kw):
-        """The source row of every row one round of copies reads (n x L)."""
-        n, L = copy_n(kw), kw.get("span", 1)
-        return (probe.source_rows(x_.shape[0], kw["rows"][:n], L, kw.get("onchip_rows", 0))
-                [:, None] + torch.arange(L, device=dev)).reshape(-1)
-
-    def copy_bound_ms(x_, kw):
-        """Bytes the copies need over the HBM rate: each source row they
-        read once (the data decides), the row starts, the stage and acc
-        written once; None for the on-chip source. (Every copy's bytes,
-        rows_copied x 2 KB, over the HBM rate would be no least time: the
-        copies re-read rows the L2 holds.)"""
-        if kw.get("onchip_rows", 0):
-            return None
-        used = int(torch.unique(copy_spans(x_, kw)).numel())
-        return bytes_ms(used * 2048 + 4 * copy_n(kw) + probe.STAGE_ROWS * 2048
-                        + 4 * kw.get("ctas", 1))
-
-    def copy_lib_ms(x_, kw):
-        """One index_select of every row the launch copies (rows_copied:
-        one round's n x L rows for each block and rep), into a buffer."""
-        reps = kw.get("ctas", 1) * kw.get("reps", 1)
-        idx = copy_spans(x_, kw).repeat(reps)
-        buf = torch.empty(idx.numel(), 512, device=dev)
-        return median_ms(lambda: torch.index_select(x_, 0, idx, out=buf), batch=5)
-
-    xb = probe_dmabisect.source(dev)
-    xc, rows_c = probe_dmacost.inputs(dev)
-    count64 = torch.tensor([64], dtype=torch.int32, device=dev)
+    xb = probe_dmabisect.source(DEV)
+    xc, rows_c = probe_dmacost.inputs(DEV)
+    count64 = torch.tensor([64], dtype=torch.int32, device=DEV)
     pc_cases = [(name, xb, kw, pick, want) for name, kw, pick, want in
                 probe_dmabisect.cases(xb) + probe_dmabisect2.cases(xb)]
     pc_cases += [(name, xc, kw, None, None) for name, kw in probe_dmacost.cases(xc, rows_c)]
@@ -1948,28 +1790,28 @@ def main() -> int:
     pc_forms = {"cluster launch": pc_cost.DESIGN & ~pc_cost.PARTS["plain launch"],
                 "design before": pc_cost.BEFORE}
     for name, x_, kw, pick, want in pc_cases:
-        for g in (1, ctas_all(dev)):
+        for g in (1, ctas_all(DEV)):
             kwg = dict(kw, ctas=g)
             got, plain = cuda_probe.row_copy(x_, **kwg), cuda_probe.row_copy_plain(x_, **kwg)
             onchip = f", on-chip source {kw['onchip_rows']} rows" if kw.get("onchip_rows") else ""
             label = f"{name} ({g} block{'s' if g > 1 else ''}{onchip})"
-            check("PC", f"{label} stage", got[0], plain[0], 0.0, "15")
-            check("PC", f"{label} acc", got[1], plain[1], 0.0, "15")
+            check(card, "PC", f"{label} stage", got[0], plain[0], 0.0, "15")
+            check(card, "PC", f"{label} acc", got[1], plain[1], 0.0, "15")
             if pick is not None:  # v4's and v5's acc: one expected value for every block
                 picked = pick(*got)
-                check("PC", f"{label} vs expected", picked, want.expand_as(picked), 0.0, "15")
+                check(card, "PC", f"{label} vs expected", picked, want.expand_as(picked), 0.0, "15")
             calls = {form: pc_cost.kernel_call(x_, parts, **kwg)
                      for form, parts in pc_forms.items()}
             for form, call in calls.items():
                 if form == "cluster launch" and kw.get("onchip_rows"):
                     continue  # the on-chip source's only launch form: the wrapper's
                 for part, g_, p_ in zip(("stage", "acc"), call(), plain):
-                    check("PC", f"{label} {part}, {form}", g_, p_, 0.0, "15")
+                    check(card, "PC", f"{label} {part}, {form}", g_, p_, 0.0, "15")
             k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(x_, **kwg),
                                    lambda: cuda_probe.row_copy_plain(x_, **kwg), batch=5)
             b_ms = median_ms(calls["design before"], batch=5)
             lib_ms = copy_lib_ms(x_, kwg) if rows_copied(kwg) else float("nan")
-            ms_line(label, k_ms, p_ms, copy_bound_ms(x_, kwg), lib_ms, "index_select")
+            ms_line(card, label, k_ms, p_ms, copy_bound_ms(x_, kwg), lib_ms, "index_select")
             print(f"[15] {label}: the design before the redesign {b_ms:.4f} ms in this call"
                   + (f" ({before['PC v5']} recorded)" if name.startswith("v5") else "")
                   + f" | {card}", flush=True)
@@ -1980,31 +1822,31 @@ def main() -> int:
                       f"{lib_ms * 1e6 / rows_copied(kwg):.4f}; every row copied over the HBM "
                       f"rate {bytes_ms(rows_copied(kwg) * 2048):.6f} ms | {card}", flush=True)
     # step 0's breakdown of the fixed cost (tools/pc_cost.py) at v5, no copy
-    v5_x, v5_kw = pc_cost.cases(dev)["v5"]
-    for g in (1, ctas_all(dev)):
+    v5_x, v5_kw = pc_cost.cases(DEV)["v5"]
+    for g in (1, ctas_all(DEV)):
         parts = pc_cost.breakdown(v5_x, dict(v5_kw, ctas=g))
         label = f"PC fixed cost (pc_cost), v5, {g} block{'s' * (g > 1)}"
         print(f"[15] {pc_cost.line(label, parts)} | {card}", flush=True)
     pc_kw = dict(rows=rows_c, n=probe_dmacost.NS[1], span=8, reps=probe_dmacost.REPS,
-                 ctas=ctas_all(dev))
+                 ctas=ctas_all(DEV))
     k_ms, p_ms = paired_ms(lambda: cuda_probe.row_copy(xc, **pc_kw),
                            lambda: cuda_probe.row_copy_plain(xc, **pc_kw))
     b_ms = median_ms(pc_cost.kernel_call(xc, pc_cost.BEFORE, **pc_kw), batch=10)
     lib_ms = copy_lib_ms(xc, pc_kw)
-    kernels["PC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=copy_bound_ms(xc, pc_kw),
-                         bound_by="bytes", library_ms=lib_ms)
+    card.kernels["PC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=copy_bound_ms(xc, pc_kw),
+                              bound_by="bytes", library_ms=lib_ms)
     print(f"[15] PC JSON launch (L {pc_kw['span']}, n {pc_kw['n']}, {pc_kw['reps']} reps, "
           f"{pc_kw['ctas']} blocks: {rows_copied(pc_kw)} rows copied): {k_ms:.4f} ms, "
           f"{k_ms * 1e6 / rows_copied(pc_kw):.4f} ns a row copied; index_select of as many "
           f"rows {lib_ms:.4f} ms, {lib_ms * 1e6 / rows_copied(pc_kw):.4f} ns a row; bound "
-          f"{kernels['PC']['bound_ms']:.6f} ms (each source row once), "
+          f"{card.kernels['PC']['bound_ms']:.6f} ms (each source row once), "
           f"{bytes_ms(rows_copied(pc_kw) * 2048):.4f} for every row copied over the HBM "
           f"rate; the design before the redesign {b_ms:.4f} ms in this call, "
           f"{before['PC JSON launch']} recorded | {card}", flush=True)
     del xb, xc, rows_c
 
     # the probes' own path: the four probe scripts, counters 0 before, read after
-    for k in kernels.values():
+    for k in card.kernels.values():
         k["counter"].n = 0
     torch.cuda.synchronize()
     runs = {}
@@ -2014,19 +1856,19 @@ def main() -> int:
         tag = mod.__name__.rsplit(".", 1)[1]
         runs[tag] = mod.run(say=lambda line, tag=tag: print(f"[15 {tag}] {line}"), **kw)
     torch.cuda.synchronize()
-    counts = {key: k["counter"].n for key, k in kernels.items()}
+    counts = card.counts()
     print(f"[15] probe scripts: launches {counts} (PG and PC > 0, no other kernel)", flush=True)
     if not (counts["PG"] > 0 and counts["PC"] > 0
             and all(v == 0 for key, v in counts.items() if key not in ("PG", "PC"))):
         raise AssertionError(f"phase 15: launch counts {counts}")
     for key in ("PG", "PC"):
-        kernels[key]["launches"] += counts[key]
+        card.kernels[key]["launches"] += counts[key]
     chain = {k: statistics.median(v) for k, v in runs["probe_dgather"]["chain_ms_per_iter"].items()}
     print(f"[15] P6 chain ms/iter, median of {PROBE_ROUNDS} rounds: "
           + ", ".join(f"{k} {v:.4f}" for k, v in chain.items())
           + f"; bound {bytes_ms(6 * nbytes(xg)):.4f} if every gather read HBM (x, "
             f"{nbytes(xg) / 1e6:.2f} MB, stays in the L2) | {card}", flush=True)
-    per_sm = HBM_BYTES_PER_S / ctas_all(dev)
+    per_sm = HBM_BYTES_PER_S / ctas_all(DEV)
     for tag in ("probe_dmabisect2", "probe_dmacost"):
         for (source, L, g), v in runs[tag]["ns_per_copy"].items():
             ns = statistics.median(v)
@@ -2034,7 +1876,7 @@ def main() -> int:
             if source == "onchip":
                 where = "bound: on chip"
             elif g == 1:
-                where = (f"{rate * 1e9 / per_sm:.1%} of 3.35 TB/s / {ctas_all(dev)}; bound "
+                where = (f"{rate * 1e9 / per_sm:.1%} of 3.35 TB/s / {ctas_all(DEV)}; bound "
                          f"{bytes_ms(L * 2048) * 1e6:.2f} ns/copy")
             else:
                 where = (f"{rate * g / 1e3:.2f} TB/s over the blocks; bound "
@@ -2054,36 +1896,30 @@ def main() -> int:
         for (L, temp), v in runs[tag]["index_select_ns_per_row"].items():
             print(f"[15] {tag} index_select, L={L}, L2 {temp}: {statistics.median(v):.2f} "
                   f"ns/row | {card}", flush=True)
-    del xg, nbr6
-    done("15")
+    card.done("15")
 
-    # -- 16. the cook on user files at bench size (models/solve.py, cli.py) --------
-    import os
-    import shutil
-    from pathlib import Path
 
-    from hnanosolver_tpu_torch import cli
-    from hnanosolver_tpu_torch.core.topology import lookup_tiles
-    from hnanosolver_tpu_torch.io import vdb as vdb_io
-    from hnanosolver_tpu_torch.models import solve
-    from hnanosolver_tpu_torch.utils.interrupt import Interrupter
-
-    cook_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cook"
+def phase_16_cook(card: Card, topo, state) -> None:
+    """The cook on user files through the CLI, inputs written under
+    build/chip_smoke/cook/: ``solve`` with exact launches and every frame
+    checked, its file bitwise the state, a resume bitwise the same, one frame
+    vs plain, an interrupter, the operator nodes; the I/O and a frame timed."""
+    params, cfg = CELLS["bench"].params, CELLS["bench"].plume
+    cook_dir = OUT / "cook"
     shutil.rmtree(cook_dir, ignore_errors=True)
     cook_dir.mkdir(parents=True)
     paths = {k: str(cook_dir / f"{k}.vdb") for k in
              ("feedback", "feedback_plain", "source", "collision", "out", "resumed")}
-    ftopo, fstate = cook_feedback
-    n_f = ftopo.n_active
-    org_f = (ftopo.origins[1:n_f + 1].cpu().numpy() * 8).astype(np.int32)
+    n_f = topo.n_active
+    org_f = (topo.origins[1:n_f + 1].cpu().numpy() * 8).astype(np.int32)
     gen = np.random.default_rng(SEED)
     extra_org = org_f[gen.permutation(n_f)[:COOK_EXTRA_LEAVES]]
-    fb_grids = [vdb_io.VdbGrid("velocity", org_f, fstate.velocity[:, 1:n_f + 1].cpu().numpy(),
+    fb_grids = [vdb_io.VdbGrid("velocity", org_f, state.velocity[:, 1:n_f + 1].cpu().numpy(),
                                params.voxel_size, grid_class="staggered")]
-    fb_grids += [vdb_io.VdbGrid(k, org_f, fstate.scalars[k][1:n_f + 1].cpu().numpy(),
+    fb_grids += [vdb_io.VdbGrid(k, org_f, state.scalars[k][1:n_f + 1].cpu().numpy(),
                                 params.voxel_size,
                                 grid_class="fog volume" if k == "density" else "unknown")
-                 for k in sorted(fstate.scalars)]
+                 for k in sorted(state.scalars)]
     fb_grids.append(vdb_io.VdbGrid(COOK_EXTRA, extra_org, gen.standard_normal(
         (3, len(extra_org), 512)).astype(np.float32), params.voxel_size))
     io_s = {}
@@ -2099,7 +1935,7 @@ def main() -> int:
         raise AssertionError("phase 16: the plain feedback file lost a grid")
     del back
     # source: one frame of emit's density, temperature and fuel on the emitter's tiles
-    etopo = build_topology(plume.emitter_tiles(cfg), device=dev)
+    etopo = build_topology(plume.emitter_tiles(cfg), device=DEV)
     em = plume.emit(etopo, zeros_state(etopo), cfg, params.dt)
     org_e = (etopo.origins[1:etopo.n_active + 1].cpu().numpy() * 8).astype(np.int32)
     vdb_io.write_vdb(paths["source"], [
@@ -2173,7 +2009,7 @@ def main() -> int:
             stack.enter_context(mock.patch.object(solve, k, timed(k, real[k])))
         stack.enter_context(mock.patch.object(solve, "run_solve", spy_run_solve))
         stack.enter_context(mock.patch.object(vdb_io, "read_vdb", timed_read))
-        stack.enter_context(main_path("16", totals(caps16, SolverParams(has_collision=True))))
+        stack.enter_context(main_path(card, "16", totals(caps16, SolverParams(has_collision=True))))
         cli.main(["solve", *cook_argv, "--frames", str(COOK_FRAMES), "--ckpt-every",
                   str(COOK_FRAMES // 2), "--out", paths["out"]])
     cook_wall = time.perf_counter() - t0
@@ -2222,7 +2058,7 @@ def main() -> int:
 
     # resume from the mid-run checkpoint: the same output, bitwise
     caps16.clear()
-    with main_path("16 resume", totals(caps16, SolverParams(has_collision=True))), \
+    with main_path(card, "16 resume", totals(caps16, SolverParams(has_collision=True))), \
             mock.patch.object(solve, "step", timed("step", real["step"])):
         cli.main(["solve", str(cook_dir / f"solve_{COOK_FRAMES // 2:04d}.npz"), *cook_argv[1:],
                   "--frames", str(COOK_FRAMES - COOK_FRAMES // 2), "--out", paths["resumed"]])
@@ -2236,12 +2072,12 @@ def main() -> int:
 
     # one cook frame through the kernels vs through the plain versions
     p16 = SolverParams(voxel_size=inp16.voxel_size, has_collision=True)
-    step_vs_plain("16", lambda: solver.step(topo16, st16, p16))
+    step_vs_plain(card, "16", lambda: solver.step(topo16, st16, p16))
 
     # the interrupter: a poll that trips after frame 2
     seen = []
     intr = Interrupter(poll=lambda: len(seen) >= 2)
-    solve.run_solve(inp16, SolverParams(), COOK_FRAMES, interrupter=intr, device=dev,
+    solve.run_solve(inp16, SolverParams(), COOK_FRAMES, interrupter=intr, device=DEV,
                     on_frame=lambda f, t_, s_: seen.append(f), warn=lambda m: None)
     if seen != [0, 1]:
         raise AssertionError(f"phase 16: the interrupted run cooked frames {seen}, not [0, 1]")
@@ -2279,7 +2115,7 @@ def main() -> int:
                            ("project", ["project", "--iterations", "20"]),
                            ("outdiv", ["project", "--outdiv"])):
             node_out = str(cook_dir / f"{kind}.vdb")
-            with main_path(f"16 {kind}", node_counts(kind)):
+            with main_path(card, f"16 {kind}", node_counts(kind)):
                 cli.main([argv[0], paths["resumed"], *argv[1:], "--out", node_out,
                           "--device", "cuda"])
             for g in vdb_io.read_vdb(node_out):
@@ -2297,83 +2133,128 @@ def main() -> int:
           f"{div_max['projected']:.4f} after project --iterations 20", flush=True)
     if not div_max["projected"] < div_max["input"]:
         raise AssertionError(f"phase 16: projection did not lower max|div|: {div_max}")
-    del cook_feedback, ftopo, fstate, topo16, st16, inp16, cooked, out_grids, res
-    done("16")
+    card.done("16")
 
-    # -- 17. the viewer and the profiling entry points (cli.main, viewer, utils) ---
-    import io
-    import urllib.error
-    import urllib.request
 
-    from hnanosolver_tpu_torch.core.convert import tiles_to_dense
-    from hnanosolver_tpu_torch.io.state import load_npz
-    from hnanosolver_tpu_torch.utils import phase_profile, profiling, timers
-    from hnanosolver_tpu_torch.viewer import render, webapp
+@contextlib.contextmanager
+def step_caps(model, caps: list):
+    """``model.step`` recording the capacity each step runs at."""
+    real_step = model.step
 
-    view_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "view"
+    def wrapped(topo_, *a, **kw):
+        caps.append(topo_.capacity)
+        return real_step(topo_, *a, **kw)
+
+    with mock.patch.object(model, "step", wrapped):
+        yield
+
+
+def stepped(card, label: str, model, p_, run, what: str = "") -> None:
+    """``run()`` on the card as a main path: the launches of the steps of
+    ``model`` it ran, from the capacity each ran at (renders launch none)."""
+    caps = []
+    t0 = time.perf_counter()
+    with step_caps(model, caps), main_path(card, label, totals(caps, p_)):
+        run()
+    print(f"[{label}] {what}{len(caps)} steps at capacities {caps}, "
+          f"{time.perf_counter() - t0:.2f} s wall | {card}", flush=True)
+
+
+def png_frames(path) -> tuple[list, int | None]:
+    """([H, W, 3] uint8 per frame, acTL's frame count or None) of a PNG /
+    APNG written by viewer/render.py (8-bit RGB, filter 0 on every row);
+    raises on a malformed file."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"phase 17: {path} is not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    pos, frames, n_actl = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != (
+                zlib.crc32(tag + body) & 0xFFFFFFFF):
+            raise AssertionError(f"phase 17: {path}: bad CRC in {tag}")
+        if tag == b"acTL":
+            n_actl = struct.unpack(">I", body[:4])[0]
+        elif tag in (b"IDAT", b"fdAT"):
+            raw = np.frombuffer(zlib.decompress(body if tag == b"IDAT" else body[4:]),
+                                np.uint8).reshape(h, 1 + 3 * w)
+            if raw[:, 0].any():
+                raise AssertionError(f"phase 17: {path}: a row filter other than 0")
+            frames.append(raw[:, 1:].reshape(h, w, 3))
+        pos += 12 + n
+    return frames, n_actl
+
+
+def png_pixels(path) -> np.ndarray:
+    return png_frames(path)[0][0].astype(int)
+
+
+def as_png(img) -> np.ndarray:
+    """What write_png stores of a float image."""
+    return np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8).astype(int)
+
+
+def get(base, path):
+    """GET ``base + path`` from a local server, past any proxy setting."""
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(base + path, timeout=120) as r:
+        return r.read()
+
+
+def serve_checks(card, label, src, steps: int):
+    """The page, ``steps`` frames through /step (a live source), then
+    /meta and the density volume (its u8 peak 255); a static source
+    answers /step with 404."""
+    httpd, thread = webapp.serve(src, port=0, block=False)
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        if get(base, "/") != webapp.PAGE.encode():
+            raise AssertionError(f"phase {label}: / is not the page")
+        if steps:
+            t0_ = time.perf_counter()
+            frame = json.loads(get(base, f"/step?n={steps}"))["frame"]
+            print(f"[{label}] /step?n={steps}: frame {frame}, {time.perf_counter() - t0_:.3f} "
+                  f"s wall | {card}", flush=True)
+        else:
+            try:
+                get(base, "/step?n=1")
+                raise AssertionError(f"phase {label}: a static source stepped")
+            except urllib.error.HTTPError as e:
+                if e.code != 404:
+                    raise
+        meta = json.loads(get(base, "/meta"))
+        dims = meta["fields"]["density"]["dims"]
+        vol = get(base, "/volume?field=density")
+        if meta["frame"] != steps or len(vol) != int(np.prod(dims)) or max(vol) != 255:
+            raise AssertionError(f"phase {label}: frame {meta['frame']}, /volume {len(vol)} "
+                                 f"bytes for {dims}")
+        print(f"[{label}] GET / /meta /volume on port {httpd.server_address[1]}: frame "
+              f"{meta['frame']}, dims {dims}, {len(vol)} bytes, step_ms {meta['step_ms']} "
+              f"(host clock a frame, the bake included)", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError(f"phase {label}: the server thread did not stop")
+
+
+def phase_17_viewer(card: Card, topo, state) -> None:
+    """The viewer and the profiling entry points through ``cli.main`` as main
+    paths (outputs under build/chip_smoke/view/), the viewer's server, the
+    device trace and ``Profiler.scope`` around one bench step, render times."""
+    params, cfg = CELLS["bench"].params, CELLS["bench"].plume
+    view_dir = OUT / "view"
     shutil.rmtree(view_dir, ignore_errors=True)
     view_dir.mkdir(parents=True)
 
-    @contextlib.contextmanager
-    def step_caps(model, caps: list):
-        """``model.step`` recording the capacity each step runs at."""
-        real_step = model.step
-
-        def wrapped(topo_, *a, **kw):
-            caps.append(topo_.capacity)
-            return real_step(topo_, *a, **kw)
-
-        with mock.patch.object(model, "step", wrapped):
-            yield
-
-    def cli_run(label, model, p_, argv):
-        """``cli.main(argv)`` on the card as a main path: the launches of the
-        steps it ran, from the capacity each ran at (renders launch none)."""
-        caps = []
-        t0 = time.perf_counter()
-        with step_caps(model, caps), main_path(label, totals(caps, p_)):
-            cli.main([*argv, "--device", "cuda"])
-        print(f"[{label}] {' '.join(argv[:1])}: {len(caps)} steps at capacities {caps}, "
-              f"{time.perf_counter() - t0:.2f} s wall", flush=True)
-
-    def png_frames(path) -> tuple[list, int | None]:
-        """([H, W, 3] uint8 per frame, acTL's frame count or None) of a PNG /
-        APNG written by viewer/render.py (8-bit RGB, filter 0 on every row);
-        raises on a malformed file."""
-        data = Path(path).read_bytes()
-        if data[:8] != b"\x89PNG\r\n\x1a\n":
-            raise AssertionError(f"phase 17: {path} is not a PNG")
-        w, h = struct.unpack(">II", data[16:24])
-        pos, frames, n_actl = 8, [], None
-        while pos < len(data):
-            n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-            body = data[pos + 8:pos + 8 + n]
-            if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != (
-                    zlib.crc32(tag + body) & 0xFFFFFFFF):
-                raise AssertionError(f"phase 17: {path}: bad CRC in {tag}")
-            if tag == b"acTL":
-                n_actl = struct.unpack(">I", body[:4])[0]
-            elif tag in (b"IDAT", b"fdAT"):
-                raw = np.frombuffer(zlib.decompress(body if tag == b"IDAT" else body[4:]),
-                                    np.uint8).reshape(h, 1 + 3 * w)
-                if raw[:, 0].any():
-                    raise AssertionError(f"phase 17: {path}: a row filter other than 0")
-                frames.append(raw[:, 1:].reshape(h, w, 3))
-            pos += 12 + n
-        return frames, n_actl
-
-    def png_pixels(path) -> np.ndarray:
-        return png_frames(path)[0][0].astype(int)
-
-    def as_png(img) -> np.ndarray:
-        """What write_png stores of a float image."""
-        return np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8).astype(int)
-
     # plume: renders every 2 frames and a checkpoint at frame 4
     d_plume = view_dir / "plume"
-    cli_run("17 plume", plume, SolverParams(),
-            ["plume", "--frames", "4", "--render", "--render-every", "2", "--view-box", "128",
-             "128", "128", "--ckpt-every", "4", "--out", str(d_plume)])
+    stepped(card, "17 plume", plume, SolverParams(), lambda: cli.main(
+        ["plume", "--frames", "4", "--render", "--render-every", "2", "--view-box", "128", "128",
+         "128", "--ckpt-every", "4", "--out", str(d_plume), "--device", "cuda"]), "plume: ")
     ex, ey = 64, 16  # the image is (x, y): the emitter at the CLI's --center 64 16 64
     for f in (2, 4):
         img = png_pixels(d_plume / f"frame_{f:04d}.png")
@@ -2384,7 +2265,7 @@ def main() -> int:
               f"corner {img[2, 125].tolist()}", flush=True)
     ck = str(d_plume / "frame_0004.npz")
     renders = [render.render_state(*load_npz(ck, device=where)[:2], (128, 128, 128))
-               for where in (dev, "cpu")]
+               for where in (DEV, "cpu")]
     err = float(np.abs(renders[0] - renders[1]).max())
     print(f"[17] render_state of frame_0004.npz on the card vs on the CPU: max abs err "
           f"{err:.3e} (tol 1e-5)", flush=True)
@@ -2393,10 +2274,11 @@ def main() -> int:
 
     # collide: the solid occludes (its pixel is the solid's colour, not the smoke render's)
     d_col = view_dir / "collide"
-    cli_run("17 collide", collider, SolverParams(has_collision=True),
-            ["collide", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_col)])
+    stepped(card, "17 collide", collider, SolverParams(has_collision=True), lambda: cli.main(
+        ["collide", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_col),
+         "--device", "cuda"]), "collide: ")
     img = png_pixels(d_col / "frame_0002.png")
-    t_, s_, _, _ = load_npz(str(d_col / "frame_0002.npz"), device=dev)
+    t_, s_, _, _ = load_npz(str(d_col / "frame_0002.npz"), device=DEV)
     bare = as_png(render.render_state(t_, s_, (128, 128, 128), solid=None))
     cx, cy = 42, 56  # inside the sphere (centre (40, 56, 64) + 2 voxels a frame, r 14)
     solid_px = (np.array((0.45, 0.47, 0.5)) * 255).astype(int)
@@ -2408,10 +2290,11 @@ def main() -> int:
 
     # fire: the PNG is the card's render of its checkpoint (flame tints it)
     d_fire = view_dir / "fire"
-    cli_run("17 fire", fire, fire.default_params().replace(iterations=20),
-            ["fire", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_fire)])
+    stepped(card, "17 fire", fire, fire.default_params().replace(iterations=20), lambda: cli.main(
+        ["fire", "--frames", "2", "--render", "--ckpt-every", "2", "--out", str(d_fire),
+         "--device", "cuda"]), "fire: ")
     img = png_pixels(d_fire / "fire_0002.png")
-    t_, s_, _, _ = load_npz(str(d_fire / "fire_0002.npz"), device=dev)
+    t_, s_, _, _ = load_npz(str(d_fire / "fire_0002.npz"), device=DEV)
     warm = img[..., 0] - img[..., 2]
     print(f"[17] fire fire_0002.png: {img.shape}, max red - blue {int(warm.max())} (background "
           f"{int(warm[2, 125])}), max flame {float(s_.scalars['flame'].max()):.4f}", flush=True)
@@ -2420,7 +2303,7 @@ def main() -> int:
 
     # turntable of the plume checkpoint: 8 PNGs and an APNG of 8 frames
     d_turn = view_dir / "turntable"
-    with main_path("17 turntable", {}):
+    with main_path(card, "17 turntable", {}):
         t0 = time.perf_counter()
         cli.main(["turntable", "--ckpt", ck, "--frames", "8", "--size", "384", "--out",
                   str(d_turn), "--device", "cuda"])
@@ -2472,12 +2355,13 @@ def main() -> int:
         return prof_times["times"]
 
     t0 = time.perf_counter()
-    with main_path("17 bench-report", report_counts), contextlib.redirect_stdout(out_buf), \
-            mock.patch.object(phase_profile, "profile", spy_profile):
+    with main_path(card, "17 bench-report", report_counts), \
+            contextlib.redirect_stdout(out_buf), mock.patch.object(phase_profile, "profile",
+                                                                   spy_profile):
         cli.main(["bench-report", "--device", "cuda"])
     report = out_buf.getvalue().strip()
-    print(f"[17] bench-report (defaults: 64^3, --frames 2, --chain 10; {time.perf_counter() - t0:.2f}"
-          f" s wall) | {card}\n{report}", flush=True)
+    print(f"[17] bench-report (defaults: 64^3, --frames 2, --chain 10; "
+          f"{time.perf_counter() - t0:.2f} s wall) | {card}\n{report}", flush=True)
     floor = 1e-9  # timers.chain_slope's floor, seconds; the no-op vorticity may sit on it
     times17 = prof_times["times"]
     flat = [k for k, v in times17.items() if not v > floor and k != "vorticity_confinement"]
@@ -2486,67 +2370,23 @@ def main() -> int:
                              f"{prof_times['capacity']}, at the floor {flat}")
 
     # the viewer server: live plume at the view subcommand's default box, then the npz
-    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
-
-    def get(base, path):
-        with opener.open(base + path, timeout=120) as r:
-            return r.read()
-
-    def serve_checks(label, src, steps: int):
-        """The page, ``steps`` frames through /step (a live source), then
-        /meta and the density volume (its u8 peak 255); a static source
-        answers /step with 404."""
-        httpd, thread = webapp.serve(src, port=0, block=False)
-        try:
-            base = f"http://127.0.0.1:{httpd.server_address[1]}"
-            if get(base, "/") != webapp.PAGE.encode():
-                raise AssertionError(f"phase {label}: / is not the page")
-            if steps:
-                t0_ = time.perf_counter()
-                frame = json.loads(get(base, f"/step?n={steps}"))["frame"]
-                print(f"[{label}] /step?n={steps}: frame {frame}, {time.perf_counter() - t0_:.3f} "
-                      f"s wall | {card}", flush=True)
-            else:
-                try:
-                    get(base, "/step?n=1")
-                    raise AssertionError(f"phase {label}: a static source stepped")
-                except urllib.error.HTTPError as e:
-                    if e.code != 404:
-                        raise
-            meta = json.loads(get(base, "/meta"))
-            dims = meta["fields"]["density"]["dims"]
-            vol = get(base, "/volume?field=density")
-            if meta["frame"] != steps or len(vol) != int(np.prod(dims)) or max(vol) != 255:
-                raise AssertionError(f"phase {label}: frame {meta['frame']}, /volume {len(vol)} "
-                                     f"bytes for {dims}")
-            print(f"[{label}] GET / /meta /volume on port {httpd.server_address[1]}: frame "
-                  f"{meta['frame']}, dims {dims}, {len(vol)} bytes, step_ms {meta['step_ms']} "
-                  f"(host clock a frame, the bake included)", flush=True)
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-        thread.join(timeout=60)
-        if thread.is_alive():
-            raise AssertionError(f"phase {label}: the server thread did not stop")
-
-    live = webapp.live_source("plume", shape=(256, 256, 256), params=SolverParams(), device=dev)
+    live = webapp.live_source("plume", shape=(256, 256, 256), params=SolverParams(), device=DEV)
     caps_live = []
-    with step_caps(plume, caps_live), main_path("17 view --live", totals(caps_live,
+    with step_caps(plume, caps_live), main_path(card, "17 view --live", totals(caps_live,
                                                                         SolverParams())):
-        serve_checks("17 view --live", live, 2)
-    moved = {k: kernels[k]["counter"].n for k in ("B1", "B3", "B5")}
+        serve_checks(card, "17 view --live", live, 2)
+    moved = {k: card.kernels[k]["counter"].n for k in ("B1", "B3", "B5")}
     print(f"[17] live plume: steps at capacities {caps_live}, launches {moved}", flush=True)
     if not (len(caps_live) == 2 and moved["B1"] == 4 and moved["B3"] + moved["B5"] > 0):
         raise AssertionError(f"phase 17: the live viewer's steps launched {moved}")
-    with main_path("17 view npz", {}):
-        serve_checks("17 view npz", webapp.file_source(ck, device=dev), 0)
+    with main_path(card, "17 view npz", {}):
+        serve_checks(card, "17 view npz", webapp.file_source(ck, device=DEV), 0)
 
     # device_trace and Profiler.scope around one bench step
-    btopo, bstate = bench_dev
     trace_dir = view_dir / "trace"
     with profiling.device_trace(str(trace_dir)):
         with profiling.span("bench step"):
-            plume.plume_step(btopo, bstate, params, cfg)
+            plume.plume_step(topo, state, params, cfg)
         torch.cuda.synchronize()
     traces = list(trace_dir.glob("*.json"))
     events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
@@ -2565,87 +2405,99 @@ def main() -> int:
         raise AssertionError("phase 17: the trace lacks the program's spans")
     profiling.clear()
     prof = timers.Profiler()
-    with prof.scope("bench step", voxels=btopo.num_voxels,
+    with prof.scope("bench step", voxels=topo.num_voxels,
                     bytes_per_voxel=timers.full_step_bytes_per_voxel(params.iterations)) as out:
-        out["result"] = plume.plume_step(btopo, bstate, params, cfg)
+        out["result"] = plume.plume_step(topo, state, params, cfg)
     print(f"[17] Profiler.scope: {prof.records[0]} | {card}", flush=True)
 
     # render times: ortho at 128^3 (the plume checkpoint), perspective 384^2 x 256 steps
-    t_, s_, _, _ = load_npz(ck, device=dev)
+    t_, s_, _, _ = load_npz(ck, device=DEV)
     dense128 = tiles_to_dense(t_, s_.scalar_blocks("density"), (128, 128, 128))
     ortho_ms = statistics.median(time_ms(lambda: render.render_state(t_, s_, (128, 128, 128)), 5,
-                                         device=dev))
+                                         device=DEV))
     persp_ms = statistics.median(time_ms(lambda: render.render_perspective(
-        dense128, size=(384, 384), steps=256), 3, device=dev))
+        dense128, size=(384, 384), steps=256), 3, device=DEV))
     print(f"[17] render ms a frame (CUDA events around the call, its copy to the host included; "
           f"median): render_state ortho 128^3 {ortho_ms:.2f}, render_perspective 384^2 x 256 "
           f"steps {persp_ms:.2f} | {card}", flush=True)
-    del t_, s_, dense128, live, renders
-    done("17")
+    card.done("17")
 
-    # -- 18. the sliced table path (advection.INTERP = "vmem" above the budget) -----
-    def n_launches(nc_: int, k: int) -> int:
-        """The kernel calls of a pass over k slices: JAX's scan over full
-        slices of ceil(nc / k) chunks plus one call on the remainder."""
-        return 1 if k <= 1 else -(-nc_ // -(-nc_ // k))
 
-    def jax_dispatch(tb_, passes: list, comb: bool, budget: int) -> dict:
-        """B1d, B11, B8 and B1 launches of the table passes as the JAX
-        package's dispatch gives them (``advection.py:233-255``,
-        ``pallas_bfecc.py:955-1087``), from each pass's fields and the
-        branch it took: a sliced pass builds no table by B11; the mixed band
-        shares its table and may sample forward from it only when neither
-        its dual plan nor the 27-table plan of its forward fields slices."""
-        nc_, Ud_ = tb_.chunk_dsrc.shape[:2]
-        U27 = tb_.chunk_uniq.shape[1]
-        c = collections.Counter()
-        for nb_, f_lo_, has_sdf, taken in passes:
-            if "wide" in taken:
-                c["B1"] += 1
-                continue
-            kd = tables.pick_slices(nc_, Ud_, nb_ + has_sdf, budget)
-            if "narrow" in taken:
-                c["B1d"] += n_launches(nc_, kd)
-                c["B11"] += int(kd <= 1 and comb)
-                continue
-            k27 = tables.pick_slices(nc_, U27, max(nb_ if f_lo_ == 0 else nb_ - 3, 1), budget)
-            if kd <= 1 and k27 <= 1:
-                c["B11"] += int(comb)
-                c["B1d"] += 1 + int("mixed fwd narrow" in taken)
-                c["B8"] += int("mixed fwd wide" in taken)
-            else:
-                c["B1d"] += n_launches(nc_, kd)
-                c["B11"] += int(kd <= 1 and comb)
-                c["B8"] += 1
-        return dict(c)
+def n_launches(nc_: int, k: int) -> int:
+    """The kernel calls of a pass over k slices: JAX's scan over full
+    slices of ceil(nc / k) chunks plus one call on the remainder."""
+    return 1 if k <= 1 else -(-nc_ // -(-nc_ // k))
 
-    @contextlib.contextmanager
-    def table_passes(passes: list):
-        """advection._table_samples recording (nb, f_lo, SDF, branches taken)
-        of each pass."""
-        real_ts = advection._table_samples
 
-        def spy(topo_, fields, sdt_, f_lo_, sdf_):
-            before = collections.Counter(advection.BANDS)
-            out = real_ts(topo_, fields, sdt_, f_lo_, sdf_)
-            passes.append((fields.shape[0], f_lo_, sdf_ is not None,
-                           dict(advection.BANDS - before)))
-            return out
+def jax_dispatch(tb_, passes: list, comb: bool, budget: int) -> dict:
+    """B1d, B11, B8 and B1 launches of the table passes as the JAX
+    package's dispatch gives them (``advection.py:233-255``,
+    ``pallas_bfecc.py:955-1087``), from each pass's fields and the
+    branch it took: a sliced pass builds no table by B11; the mixed band
+    shares its table and may sample forward from it only when neither
+    its dual plan nor the 27-table plan of its forward fields slices."""
+    nc_, Ud_ = tb_.chunk_dsrc.shape[:2]
+    U27 = tb_.chunk_uniq.shape[1]
+    c = collections.Counter()
+    for nb_, f_lo_, has_sdf, taken in passes:
+        if "wide" in taken:
+            c["B1"] += 1
+            continue
+        kd = tables.pick_slices(nc_, Ud_, nb_ + has_sdf, budget)
+        if "narrow" in taken:
+            c["B1d"] += n_launches(nc_, kd)
+            c["B11"] += int(kd <= 1 and comb)
+            continue
+        k27 = tables.pick_slices(nc_, U27, max(nb_ if f_lo_ == 0 else nb_ - 3, 1), budget)
+        if kd <= 1 and k27 <= 1:
+            c["B11"] += int(comb)
+            c["B1d"] += 1 + int("mixed fwd narrow" in taken)
+            c["B8"] += int("mixed fwd wide" in taken)
+        else:
+            c["B1d"] += n_launches(nc_, kd)
+            c["B11"] += int(kd <= 1 and comb)
+            c["B8"] += 1
+    return dict(c)
 
-        with mock.patch.object(advection, "_table_samples", spy):
-            yield
 
-    def sliced_counts(tb_, passes, comb, budget, p_):
-        def want():
-            c = step_counts(tb_.capacity, p_)
-            del c["B1"]
-            c.update(jax_dispatch(tb_, passes, comb, budget))
-            return c
-        return want
+@contextlib.contextmanager
+def table_passes(passes: list):
+    """advection._table_samples recording (nb, f_lo, SDF, branches taken)
+    of each pass."""
+    real_ts = advection._table_samples
 
+    def spy(topo_, fields, sdt_, f_lo_, sdf_):
+        before = collections.Counter(advection.BANDS)
+        out = real_ts(topo_, fields, sdt_, f_lo_, sdf_)
+        passes.append((fields.shape[0], f_lo_, sdf_ is not None,
+                       dict(advection.BANDS - before)))
+        return out
+
+    with mock.patch.object(advection, "_table_samples", spy):
+        yield
+
+
+def sliced_counts(tb_, passes, comb, budget, p_):
+    """The launches of one table-path step with the budget ``budget``,
+    from the passes :func:`table_passes` recorded (asked after the step)."""
+    def want():
+        c = step_counts(tb_.capacity, p_)
+        del c["B1"]
+        c.update(jax_dispatch(tb_, passes, comb, budget))
+        return c
+    return want
+
+
+def phase_18_sliced_tables(card: Card, topo, state, planned: dict) -> None:
+    """The sliced table path (above ``TABLE_BYTES_BUDGET``): bench steps
+    bitwise the unsliced step, launches as the JAX package's dispatch gives
+    them; config 5 with phase 14's plans within TOL_STEP of the nbr path."""
+    bench = CELLS["bench"]
+    params, cfg = bench.params, bench.plume
+    c5_rb, cfg5 = CELLS["c5"].params, CELLS["c5"].plume
+    cfl0 = outside_cfl(topo, state, cfg, params)
     real_budget = advection.TABLE_BYTES_BUDGET
     tb18 = planned["bench"]
-    btopo, bstate = bench_dev
     nc18, Ud18 = tb18.chunk_dsrc.shape[:2]
     budget18 = tables.table_bytes(nc18, Ud18, 3) // 3  # the velocity pass's table: 3 slices
     ks = {nf: tables.pick_slices(nc18, Ud18, nf, budget18) for nf in (3, 8)}
@@ -2655,8 +2507,8 @@ def main() -> int:
     if not min(ks.values()) >= 3:
         raise AssertionError(f"phase 18: the bench tables take {ks} slices, not >= 3")
     for band, cfl in BANDS[:2]:
-        vb = (vel0 * (cfl / cfl0)).contiguous()
-        sb = FieldState(velocity=vb, scalars=bstate.scalars)
+        vb = (state.velocity * (cfl / cfl0)).contiguous()
+        sb = FieldState(velocity=vb, scalars=state.scalars)
         for comb in (False, True):
             label = f"18 {band} COMBINE_TBL={comb}"
             vmem(comb)
@@ -2664,7 +2516,7 @@ def main() -> int:
             advection.TABLE_BYTES_BUDGET = budget18
             passes = []
             try:
-                with table_passes(passes), main_path(label, sliced_counts(
+                with table_passes(passes), main_path(card, label, sliced_counts(
                         tb18, passes, comb, budget18, params)):
                     sliced = plume.plume_step(tb18, sb, params, cfg)
             finally:
@@ -2685,8 +2537,7 @@ def main() -> int:
     U5 = c5p.chunk_uniq.shape[1]
     torch.cuda.empty_cache()
     nbr_path()
-    with main_path("18 c5 develop", {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1},
-                   CELLS["c5"].develop):
+    with main_path(card, "18 c5 develop", RBGS50_STEP, CELLS["c5"].develop):
         c5p, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5p, grow_every=0)
     k5 = {nf: tables.pick_slices(nc5, Ud5, nf, real_budget) for nf in (3, 8)}
     print(f"[18] config 5: {nc5} chunks, Ud {Ud5}, U {U5}; table bytes (byte model) "
@@ -2702,20 +2553,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     vmem(None)
     passes = []
-    with table_passes(passes), main_path("18 c5 vmem", sliced_counts(c5p, passes, False,
-                                                                     real_budget, c5_rb)):
+    with table_passes(passes), main_path(card, "18 c5 vmem", sliced_counts(
+            c5p, passes, False, real_budget, c5_rb)):
         out_v = plume.plume_step(c5p, st5, c5_rb, cfg5)
     peak5 = torch.cuda.max_memory_allocated()
-    n_b1d = kernels["B1d"]["counter"].n
+    n_b1d = card.kernels["B1d"]["counter"].n
     if not n_b1d > len(passes):
         raise AssertionError(f"phase 18: config 5's table passes {passes} did not slice")
-    parts, worst = [], 0.0
-    for fname in ["velocity"] + sorted(out_v.scalars):
-        g = out_v.velocity if fname == "velocity" else out_v.scalars[fname]
-        w = out_n.velocity if fname == "velocity" else out_n.scalars[fname]
-        _, rel = rel_err(g, w)
-        worst = max(worst, rel)
-        parts.append(f"{fname} {rel:.2e}{' (bitwise)' if torch.equal(g, w) else ''}")
+    worst, parts = field_errors(out_v, out_n, True)
     print(f"[18] config 5 sliced step: passes {passes}, B1d launches {n_b1d}; vs the "
           f"nbr-path step, max rel err per field: {', '.join(parts)} (tol {TOL_STEP:g})",
           flush=True)
@@ -2735,81 +2580,108 @@ def main() -> int:
           f"{c5_ms['vmem (sliced)']:.1f}, nbr path {c5_ms['nbr']:.1f}; peak device memory of the "
           f"sliced step {peak5 / 2**30:.2f} GiB, of the nbr step {peak_n / 2**30:.2f} GiB (the "
           f"developed state and the plans held) | {card}", flush=True)
-    del c5p, st5, planned, tb18, bench_dev, btopo, bstate
+    card.done("18")
+
+
+def textbook(f):
+    """A refresh hook that moves nothing: the one-device step under the
+    sharded step's dispatch (B4 colour sweeps at the fine level)."""
+    return f
+
+
+@contextlib.contextmanager
+def fine_cycles(counts: collections.Counter):
+    """Fine-level V-cycles per thread (the calls that carry a refresh)."""
+    real_v = multigrid.v_cycle
+
+    def spy(*a, **kw):
+        if kw.get("refresh") is not None:
+            counts[threading.current_thread().name] += 1
+        return real_v(*a, **kw)
+
+    with mock.patch.object(multigrid, "v_cycle", spy):
+        yield
+
+
+def sharded_counts(p_, n: int, cycles: collections.Counter):
+    """Launches of one textbook step on each of ``n`` devices: B4 2 a
+    fine iteration, or for multigrid (mg_levels 2: level 1 and 2 by B5)
+    8 B4 a fine V-cycle, B5 3 and B6 2, FMG's extra B5 4 and B6 1, and
+    with mg_tol one B6 a stop test (V-cycles read from ``cycles``); MR
+    and MP 2 a V-cycle and FMG's 5 (every device runs the replicated
+    coarse levels)."""
+    def want():
+        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
+        if p_.pressure_solver != "mg":
+            c["B4"] = 2 * p_.iterations
+        else:
+            per = set(cycles.values())
+            if len(per) != 1 or len(cycles) != n:
+                raise AssertionError(f"phase 19: fine V-cycles per device {dict(cycles)}")
+            v = per.pop() - 1  # FMG's own fine V-cycle aside
+            tests = 0 if p_.mg_tol is None else v + int(v < p_.iterations)
+            c.update(B4=8 * (v + 1), B5=7 + 3 * v, B6=3 + 2 * v + tests, MR=5 + 2 * v,
+                     MP=5 + 2 * v)
+        return {k: n * x for k, x in c.items()}
+    return want
+
+
+def compare(label, topo, got, want_state, on_host=False):
+    """The sharded step's state checked (:func:`check_state`), and every
+    field bitwise the one-device step's: the same kernels on the same
+    per-voxel arithmetic, the partial restrictions adding exact zeros (max
+    abs and rel error printed)."""
+    check_state(label, topo, got)
+    parts, worst, differ = [], 0.0, []
+    for name in ["velocity"] + sorted(want_state.scalars):
+        g = got.velocity if name == "velocity" else got.scalars[name]
+        w = want_state.velocity if name == "velocity" else want_state.scalars[name]
+        if on_host:
+            w = w.to(g.device)
+        err, rel = rel_err(g, w)
+        same = bool(torch.equal(g, w))
+        if not same:
+            differ.append(name)
+        parts.append(f"{name} {err:.2e}/{rel:.2e}{' (bitwise)' if same else ''}")
+        del w
+    print(f"[{label}] vs the one-device step, max abs/rel err per field: {', '.join(parts)}"
+          f" (bitwise required)", flush=True)
+    if differ:
+        raise AssertionError(f"phase {label}: the sharded step is not bitwise the one-device "
+                             f"step in {differ}")
+
+
+@contextlib.contextmanager
+def mg_residuals(ratios: list):
+    """max|r| / max|div| of every multigrid solve's answer (each device
+    reduces as its stop test does: ``tol_reduce``, ghosts refreshed),
+    the residual by B6's plain version, so that no counter moves."""
+    real = multigrid.solve_pressure_mg
+
+    def spy(topo_, hier_, div_, cycles_, dx_, *a, **kw):
+        p_out = real(topo_, hier_, div_, cycles_, dx_, *a, **kw)
+        red = kw.get("tol_reduce") or (lambda f: f.abs().max())
+        pr = kw["refresh"](p_out) if kw.get("refresh") is not None else p_out
+        r = red(cuda_stencil.residual_plain(topo_.nbr, pr, div_, dx_))
+        ratios.append(float(r) / max(float(red(div_)), 1e-30))
+        return p_out
+
+    with mock.patch.object(multigrid, "solve_pressure_mg", spy):
+        yield
+
+
+def phase_19_sharded(card: Card) -> None:
+    """The sharded step (``parallel/``) over SLABS entries of this card: the
+    bench's slabs and boxes, a CHAIN_STEPS multigrid chain and config 5, each
+    bitwise the one-device step and within TOL_STEP on the plain versions,
+    launches exact, timed; over distinct cards where there are two."""
+    bench = CELLS["bench"]
+    params, cfg = bench.params, bench.plume
+    c5_rb, cfg5 = CELLS["c5"].params, CELLS["c5"].plume
     torch.cuda.empty_cache()
-    done("18")
-
-    # -- 19. the sharded step (parallel/): slabs and boxes over a mesh -----------
-    from hnanosolver_tpu_torch.parallel import boxes as pboxes
-    from hnanosolver_tpu_torch.parallel import slab as pslab
-    from hnanosolver_tpu_torch.parallel.mesh import make_mesh
-
-    def textbook(f):
-        """A refresh hook that moves nothing: the one-device step under the
-        sharded step's dispatch (B4 colour sweeps at the fine level)."""
-        return f
-
-    @contextlib.contextmanager
-    def fine_cycles(counts: collections.Counter):
-        """Fine-level V-cycles per thread (the calls that carry a refresh)."""
-        real_v = multigrid.v_cycle
-
-        def spy(*a, **kw):
-            if kw.get("refresh") is not None:
-                counts[threading.current_thread().name] += 1
-            return real_v(*a, **kw)
-
-        with mock.patch.object(multigrid, "v_cycle", spy):
-            yield
-
-    def sharded_counts(p_, n: int, cycles: collections.Counter):
-        """Launches of one textbook step on each of ``n`` devices: B4 2 a
-        fine iteration, or for multigrid (mg_levels 2: level 1 and 2 by B5)
-        8 B4 a fine V-cycle, B5 3 and B6 2, FMG's extra B5 4 and B6 1, and
-        with mg_tol one B6 a stop test (V-cycles read from ``cycles``); MR
-        and MP 2 a V-cycle and FMG's 5 (every device runs the replicated
-        coarse levels)."""
-        def want():
-            c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
-            if p_.pressure_solver != "mg":
-                c["B4"] = 2 * p_.iterations
-            else:
-                per = set(cycles.values())
-                if len(per) != 1 or len(cycles) != n:
-                    raise AssertionError(f"phase 19: fine V-cycles per device {dict(cycles)}")
-                v = per.pop() - 1  # FMG's own fine V-cycle aside
-                tests = 0 if p_.mg_tol is None else v + int(v < p_.iterations)
-                c.update(B4=8 * (v + 1), B5=7 + 3 * v, B6=3 + 2 * v + tests, MR=5 + 2 * v,
-                         MP=5 + 2 * v)
-            return {k: n * x for k, x in c.items()}
-        return want
-
-    def compare(label, got, want_state, on_host=False):
-        """Every field bitwise the one-device step's: the same kernels on the
-        same per-voxel arithmetic, the partial restrictions adding exact
-        zeros (max abs and rel error printed)."""
-        parts, worst, differ = [], 0.0, []
-        for name in ["velocity"] + sorted(want_state.scalars):
-            g = got.velocity if name == "velocity" else got.scalars[name]
-            w = want_state.velocity if name == "velocity" else want_state.scalars[name]
-            if on_host:
-                w = w.to(g.device)
-            err, rel = rel_err(g, w)
-            same = bool(torch.equal(g, w))
-            if not same:
-                differ.append(name)
-            parts.append(f"{name} {err:.2e}/{rel:.2e}{' (bitwise)' if same else ''}")
-            del w
-        print(f"[{label}] vs the one-device step, max abs/rel err per field: {', '.join(parts)}"
-              f" (bitwise required)", flush=True)
-        if differ:
-            raise AssertionError(f"phase {label}: the sharded step is not bitwise the one-device "
-                                 f"step in {differ}")
-
-    torch.cuda.empty_cache()
-    t19, s19 = plume.run_plume(bench.develop, params, cfg, topo=bench.topology(dev),
+    t19, s19 = plume.run_plume(bench.develop, params, cfg, topo=bench.topology(DEV),
                                grow_every=0)
-    mesh = make_mesh(SLABS, device=dev)
+    mesh = make_mesh(SLABS, device=DEV)
     print(f"[19] mesh: {SLABS} entries of {mesh.devices[0]} ({torch.cuda.get_device_name(0)}); "
           f"one thread a device, one stream", flush=True)
     slab19 = pslab.build_slabs(t19, SLABS)
@@ -2833,12 +2705,12 @@ def main() -> int:
             return solver.step_impl(t19, emitted, p_, hier19, refresh=textbook)
 
         one_cycles, shard_cycles = collections.Counter(), collections.Counter()
-        with fine_cycles(one_cycles), main_path(f"{label} one device",
+        with fine_cycles(one_cycles), main_path(card, f"{label} one device",
                                                 sharded_counts(p_, 1, one_cycles)):
             want = one_device()
         blocks = pslab.scatter_state(t19, dec, s19, mesh)
         fn = pslab.sharded_plume_step(mesh, dec, p_, cfg, hierarchy=shier)
-        with fine_cycles(shard_cycles), main_path(label,
+        with fine_cycles(shard_cycles), main_path(card, label,
                                                   sharded_counts(p_, SLABS, shard_cycles)):
             out = pslab.gather_state(t19, dec, fn(dec, blocks))
         if p_.mg_tol is not None:
@@ -2847,9 +2719,8 @@ def main() -> int:
                   f"{MG_TOL_CAP}, tol {MG_TOL:g})", flush=True)
             if set(shard_cycles.values()) != set(one_cycles.values()):
                 raise AssertionError(f"phase {label}: the slabs stopped on another cycle")
-        check_state(label, t19, out)
-        compare(label, out, want)
-        step_vs_plain(label, lambda: pslab.gather_state(t19, dec, fn(dec, blocks)), out)
+        compare(label, t19, out, want)
+        step_vs_plain(card, label, lambda: pslab.gather_state(t19, dec, fn(dec, blocks)), out)
         ms_shard = statistics.median(time_ms(lambda: fn(dec, blocks), 3))
         ms_one = statistics.median(time_ms(one_device, 3))
         print(f"[{label}] step ms (median of 3, CUDA events): {SLABS} devices on one card "
@@ -2857,7 +2728,7 @@ def main() -> int:
         if name == "RBGS-50":  # the host's cost of each slab's thread
             sweep = {}
             for n_ in SLAB_SWEEP:
-                mesh_n, dec_n = make_mesh(n_, device=dev), pslab.build_slabs(t19, n_)
+                mesh_n, dec_n = make_mesh(n_, device=DEV), pslab.build_slabs(t19, n_)
                 fn_n = pslab.sharded_plume_step(mesh_n, dec_n, p_, cfg)
                 blocks_n = pslab.scatter_state(t19, dec_n, s19, mesh_n)
                 sweep[n_] = statistics.median(time_ms(lambda: fn_n(dec_n, blocks_n), 3))
@@ -2865,24 +2736,6 @@ def main() -> int:
             print(f"[{label}] step ms (median of 3, CUDA events) by the number of slabs on "
                   f"one card: {sweep} | {card}", flush=True)
         del blocks, fn, out, want, emitted
-
-    @contextlib.contextmanager
-    def mg_residuals(ratios: list):
-        """max|r| / max|div| of every multigrid solve's answer (each device
-        reduces as its stop test does: ``tol_reduce``, ghosts refreshed),
-        the residual by B6's plain version, so that no counter moves."""
-        real = multigrid.solve_pressure_mg
-
-        def spy(topo_, hier_, div_, cycles_, dx_, *a, **kw):
-            p_out = real(topo_, hier_, div_, cycles_, dx_, *a, **kw)
-            red = kw.get("tol_reduce") or (lambda f: f.abs().max())
-            pr = kw["refresh"](p_out) if kw.get("refresh") is not None else p_out
-            r = red(kernels["B6"]["plain_fn"](topo_.nbr, pr, div_, dx_))
-            ratios.append(float(r) / max(float(red(div_)), 1e-30))
-            return p_out
-
-        with mock.patch.object(multigrid, "solve_pressure_mg", spy):
-            yield
 
     # the sharded convergence chain: CHAIN_STEPS consecutive MG + FMG +
     # mg_tol steps over the slabs beside the one-device chain
@@ -2897,11 +2750,11 @@ def main() -> int:
         r_one, r_shard = [], []
         one_cycles, shard_cycles = collections.Counter(), collections.Counter()
         with mg_residuals(r_one), fine_cycles(one_cycles), main_path(
-                f"{label} one device", sharded_counts(p_, 1, one_cycles)):
+                card, f"{label} one device", sharded_counts(p_, 1, one_cycles)):
             s_one = solver.step_impl(t19, plume.emit(t19, s_one, cfg, p_.dt), p_, hier19,
                                      refresh=textbook)
         with mg_residuals(r_shard), fine_cycles(shard_cycles), main_path(
-                label, sharded_counts(p_, SLABS, shard_cycles)):
+                card, label, sharded_counts(p_, SLABS, shard_cycles)):
             blocks = fn(slab19, blocks)
         out = pslab.gather_state(t19, slab19, blocks)
         v_one = set(one_cycles.values()).pop() - 1
@@ -2916,16 +2769,15 @@ def main() -> int:
         if not max(r_shard + r_one) <= C5_RMAX_OVER_DIV0:
             raise AssertionError(f"phase {label}: max|r|/max|div| {max(r_shard + r_one)} > "
                                  f"{C5_RMAX_OVER_DIV0}")
-        check_state(label, t19, out)
-        compare(label, out, s_one)
+        compare(label, t19, out, s_one)
     del blocks, fn, out, s_one
 
     # config 5 over 4 slabs on one card, RBGS-50
     torch.cuda.empty_cache()
-    c5t = CELLS["c5"].topology(dev)
+    c5t = CELLS["c5"].topology(DEV)
     c5t, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5t, grow_every=0)
     emitted = plume.emit(c5t, st5, cfg5, c5_rb.dt)
-    with main_path("19 c5 one device", sharded_counts(c5_rb, 1, collections.Counter())):
+    with main_path(card, "19 c5 one device", sharded_counts(c5_rb, 1, collections.Counter())):
         a_ = torch.cuda.Event(enable_timing=True)
         b_ = torch.cuda.Event(enable_timing=True)
         a_.record()
@@ -2947,7 +2799,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with main_path("19 c5", sharded_counts(c5_rb, SLABS, collections.Counter())):
+    with main_path(card, "19 c5", sharded_counts(c5_rb, SLABS, collections.Counter())):
         a_.record()
         out_blocks = fn(slab5, blocks)
         b_.record()
@@ -2955,18 +2807,17 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     out = pslab.gather_state(c5t, slab5, out_blocks)
     del out_blocks
-    check_state("19 c5", c5t, out)
-    compare("19 c5", out, want, on_host=True)
+    compare("19 c5", c5t, out, want, on_host=True)
     del want
     t0_ = time.perf_counter()
-    step_vs_plain("19 c5", lambda: pslab.gather_state(c5t, slab5, fn(slab5, blocks)), out)
+    step_vs_plain(card, "19 c5", lambda: pslab.gather_state(c5t, slab5, fn(slab5, blocks)), out)
     print(f"[19 c5] the plain step over {SLABS} slabs took {time.perf_counter() - t0_:.1f} s",
           flush=True)
     # B4 at the slab shape (its operands far past the L2), a launch at a
     # time behind the spin, beside its HBM bound
-    for key, a, kw, out_bytes, count in record(lambda: fn(slab5, blocks), ["B4"]):
-        vs_plain("19 c5", key, a, kw)
-        k_ms = median_ms(lambda: kernels[key]["kernel_fn"](*a, **kw), 10, 1)
+    for key, a, kw, out_bytes, count in record(card, lambda: fn(slab5, blocks), ["B4"]):
+        vs_plain(card, "19 c5", key, a, kw)
+        k_ms = median_ms(lambda: card.kernels[key]["kernel_fn"](*a, **kw), 10, 1)
         b_ms, by, moved = bound_ms(key, a, kw, out_bytes)
         print(f"[19 c5] B4 at the slab shape, colour {a[3]}, T={a[0].shape[0]} x{count} a step "
               f"(every slab): {k_ms:.4f} ms a launch (median of 10, one launch a span), bound "
@@ -2990,11 +2841,11 @@ def main() -> int:
         want = solver.step_impl(t19, emitted, params, (), refresh=textbook)
         blocks = pslab.scatter_state(t19, dc, s19, meshc)
         fn = pslab.sharded_plume_step(meshc, dc, params, cfg)
-        with main_path("19 cards", sharded_counts(params, meshc.size, collections.Counter())):
+        with main_path(card, "19 cards", sharded_counts(params, meshc.size,
+                                                         collections.Counter())):
             out = pslab.gather_state(t19, dc, fn(dc, blocks))
-        check_state("19 cards", t19, out)
-        compare("19 cards", out, want)
-        step_vs_plain("19 cards", lambda: pslab.gather_state(t19, dc, fn(dc, blocks)), out)
+        compare("19 cards", t19, out, want)
+        step_vs_plain(card, "19 cards", lambda: pslab.gather_state(t19, dc, fn(dc, blocks)), out)
 
         def on_all_cards():
             for d in meshc.devices:
@@ -3009,29 +2860,37 @@ def main() -> int:
         print(f"[19] bench RBGS-50 over {meshc.size} cards {[str(d) for d in meshc.devices]}: "
               f"{ms_cards:.3f} ms a step (median of 3, host clock, every card synchronised)"
               f" | {card}", flush=True)
-        del blocks, fn, out, want, emitted
     else:
         print(f"[19] the run over distinct cards was not made: torch.cuda.device_count() is "
               f"{n_cards}", flush=True)
-    del t19, s19
-    done("19")
+    card.done("19")
 
-    # -- 20. the dense oracle: the sparse step against step_dense on the card --
-    from hnanosolver_tpu_torch.config import CombustionParams
-    from hnanosolver_tpu_torch.core.topology import build_topology_dense
-    from hnanosolver_tpu_torch.dense.solver import step_dense
-    from hnanosolver_tpu_torch.tools import dense_spread as spread
 
-    def diffs(got, ref):
-        """Max abs and rel error of each field of ``got`` against ``ref``,
-        both (velocity, scalars) on the dense box."""
-        pairs = [("velocity", got[0], ref[0])] + [(k, got[1][k], ref[1][k])
-                                                  for k in sorted(ref[1])]
-        return {k: rel_err(g.to(w.dtype), w) for k, g, w in pairs}
+def dense_diffs(got, ref):
+    """Max abs and rel error of each field of ``got`` against ``ref``,
+    both (velocity, scalars) on the dense box."""
+    pairs = [("velocity", got[0], ref[0])] + [(k, got[1][k], ref[1][k])
+                                              for k in sorted(ref[1])]
+    return {k: rel_err(g.to(w.dtype), w) for k, g, w in pairs}
 
-    def show(res):
-        return ", ".join(f"{k} {e:.2e}/{r:.2e}" for k, (e, r) in res.items())
 
+def show_diffs(res):
+    """:func:`dense_diffs`'s errors, one "name abs/rel" a field."""
+    return ", ".join(f"{k} {e:.2e}/{r:.2e}" for k, (e, r) in res.items())
+
+
+def finite_fields(label, fields: dict):
+    """Raise where a field of ``fields`` (numpy arrays) is not finite."""
+    bad = [k for k, v in fields.items() if not np.isfinite(np.asarray(v)).all()]
+    if bad:
+        raise AssertionError(f"phase {label}: non-finite values in {bad}")
+
+
+def phase_20_dense(card: Card) -> None:
+    """The dense oracle: one sparse step on each of DENSE_BOXES against
+    ``step_dense`` in float64 (TOL_DENSE_ABS, TOL_DENSE_REL), kernels and
+    plain versions alike; then the three user examples as main paths."""
+    params = CELLS["bench"].params
     comb3 = fire.default_params().combustion  # config 3: confinement at s >= 1
     vort = CombustionParams(vorticity_scale=comb3.vorticity_scale,
                             factor_scale=comb3.factor_scale)
@@ -3043,13 +2902,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         shape = (n, n, n)
-        t20 = build_topology_dense(shape, device=dev)
+        t20 = build_topology_dense(shape, device=DEV)
         print(f"[20] {n}^3 box: {t20.n_active} tiles, capacity {t20.capacity} (textbook B4 "
               f"solve above MAX_FUSED_ROWS {cuda_pressure.MAX_FUSED_ROWS})", flush=True)
         for seed in DENSE_SEEDS:
             vel_np, rho_np = spread.smooth_box(n, seed)
-            vel_d0 = torch.from_numpy(vel_np).to(dev)
-            scal_d = spread.dense_scalars(torch.from_numpy(rho_np).to(dev))
+            vel_d0 = torch.from_numpy(vel_np).to(DEV)
+            scal_d = spread.dense_scalars(torch.from_numpy(rho_np).to(DEV))
             del vel_np, rho_np
             # the first seed runs every case; the others the vorticity case
             # at the test parameters, where the confinement's conditioning
@@ -3069,7 +2928,7 @@ def main() -> int:
                 cfl = float((vel_t.abs() * sdt_).max())
                 clamped_in = int(advection.cfl_clamped_count(t20, vel_t, p20.dt,
                                                              p20.inv_voxel_size))
-                with main_path(label, {"B1": 2, "B2": 2, "B4": 2 * p20.iterations, "B7a": 1,
+                with main_path(card, label, {"B1": 2, "B2": 2, "B4": 2 * p20.iterations, "B7a": 1,
                                        "B7b": 1}):
                     out = solver.step(t20, state, p20)
                 clamped_out = int(advection.cfl_clamped_count(t20, out.velocity, p20.dt,
@@ -3082,10 +2941,10 @@ def main() -> int:
                 check_state(label, t20, out)
                 # the kernels at this path's shapes against their plain
                 # versions: the whole step, then each distinct call
-                out_p = step_vs_plain(label, lambda: solver.step(t20, state, p20), out)
-                for key, a, kw, _, _ in record(lambda: solver.step(t20, state, p20),
+                out_p = step_vs_plain(card, label, lambda: solver.step(t20, state, p20), out)
+                for key, a, kw, _, _ in record(card, lambda: solver.step(t20, state, p20),
                                                ("B1", "B2", "B4", "B7a", "B7b")):
-                    vs_plain(label, key, a, kw)
+                    vs_plain(card, label, key, a, kw)
                 # the oracle in float64: its own f32 rounding grows with the
                 # box (absolute trace positions, an ulp of 2^-24 * n) and the
                 # confinement's normalisation amplifies it past the gate
@@ -3096,17 +2955,17 @@ def main() -> int:
                 torch.cuda.synchronize()
 
                 got = spread.to_dense(t20, out, shape)
-                res = diffs(got, ref64)
-                res_p = diffs(spread.to_dense(t20, out_p, shape), ref64)
+                res = dense_diffs(got, ref64)
+                res_p = dense_diffs(spread.to_dense(t20, out_p, shape), ref64)
                 gate = ("abs", TOL_DENSE_ABS) if pname == "test" else ("rel", TOL_DENSE_REL)
                 worst = max(e if gate[0] == "abs" else r for e, r in res.values())
                 worst_p = max(e if gate[0] == "abs" else r for e, r in res_p.values())
                 print(f"[{label}] vs step_dense in float64, max abs/rel err per field: "
-                      f"{show(res)}; the plain versions' step {show(res_p)} (gate: {gate[0]} "
-                      f"err <= {gate[1]:g}, both) | {card}", flush=True)
+                      f"{show_diffs(res)}; the plain versions' step {show_diffs(res_p)} (gate: "
+                      f"{gate[0]} err <= {gate[1]:g}, both) | {card}", flush=True)
                 print(f"[{label}] printed, not gated: vs step_dense in float32 "
-                      f"{show(diffs(got, ref32))}; step_dense float32 vs float64 "
-                      f"{show(diffs(ref32, ref64))} | {card}", flush=True)
+                      f"{show_diffs(dense_diffs(got, ref32))}; step_dense float32 vs float64 "
+                      f"{show_diffs(dense_diffs(ref32, ref64))} | {card}", flush=True)
                 for who, w_ in (("kernels", worst), ("plain", worst_p)):
                     if not w_ <= gate[1]:
                         failed.append(f"{label} ({who}): {gate[0]} err {w_} > {gate[1]}")
@@ -3115,8 +2974,9 @@ def main() -> int:
                     out5 = solver.step(t20, state, p20.replace(halo_lag=None))
                     print(f"[{label}] halo_lag {p20.replace(halo_lag=None).effective_halo_lag} "
                           f"(B3 blocks, another iteration) vs step_dense in float64, max abs/rel "
-                          f"err per field: {show(diffs(spread.to_dense(t20, out5, shape), ref64))}"
-                          f" | {card}", flush=True)
+                          f"err per field: "
+                          f"{show_diffs(dense_diffs(spread.to_dense(t20, out5, shape), ref64))} | "
+                          f"{card}", flush=True)
                     ms_sparse = statistics.median(time_ms(lambda: solver.step(t20, state, p20),
                                                           3))
                     ms_dense = statistics.median(time_ms(lambda: step_dense(vel_d, scal_d, p20),
@@ -3137,30 +2997,14 @@ def main() -> int:
 
     # the user examples on the card at their default widths, a few frames
     # each, as main paths (launches from the capacity each step ran at)
-    from hnanosolver_tpu_torch.examples import fireball, smoke_to_nvdb, view_and_export
-    from hnanosolver_tpu_torch.io.nvdb import read_nvdb
-
-    ex_dir = view_dir.parent / "examples"
+    ex_dir = OUT / "examples"
     shutil.rmtree(ex_dir, ignore_errors=True)
-
-    def example(label, model, p_, run):
-        caps = []
-        t0_ = time.perf_counter()
-        with step_caps(model, caps), main_path(label, totals(caps, p_)):
-            run()
-        print(f"[{label}] {len(caps)} steps at capacities {caps}, "
-              f"{time.perf_counter() - t0_:.2f} s wall | {card}", flush=True)
-
-    def finite_fields(label, fields: dict):
-        bad = [k for k, v in fields.items() if not np.isfinite(np.asarray(v)).all()]
-        if bad:
-            raise AssertionError(f"phase {label}: non-finite values in {bad}")
 
     # fireball: 12 frames, its first checkpoint and render
     d_ex = ex_dir / "fireball"
-    example("20 fireball", fire, fire.default_params(),
+    stepped(card, "20 fireball", fire, fire.default_params(),
             lambda: fireball.main(["--frames", "12", "--out", str(d_ex)]))
-    t_, s_, _, _ = load_npz(str(d_ex / "fire_0012.npz"), device=dev)
+    t_, s_, _, _ = load_npz(str(d_ex / "fire_0012.npz"), device=DEV)
     check_state("20 fireball", t_, s_)
     img = png_pixels(d_ex / "fire_0012.png")
     if img.shape != (128, 128, 3) or not np.array_equal(
@@ -3172,7 +3016,7 @@ def main() -> int:
 
     # smoke_to_nvdb: 8 frames, one export (velocity, density, temperature)
     d_ex = ex_dir / "smoke_to_nvdb"
-    example("20 smoke_to_nvdb", plume, SolverParams(dt=1 / 24, voxel_size=0.5, iterations=24),
+    stepped(card, "20 smoke_to_nvdb", plume, SolverParams(dt=1 / 24, voxel_size=0.5, iterations=24),
             lambda: smoke_to_nvdb.main(["--frames", "8", "--out", str(d_ex)]))
     grids = {g[0]: g for g in (read_nvdb(str(f)) for f in sorted(d_ex.glob("*.nvdb")))}
     if sorted(grids) != ["density", "temperature", "velocity"]:
@@ -3211,7 +3055,7 @@ def main() -> int:
             time.sleep(0.05)
 
     with mock.patch.object(webapp, "ThreadingHTTPServer", Recorded):
-        example("20 view_and_export", plume, SolverParams(iterations=20), start_view)
+        stepped(card, "20 view_and_export", plume, SolverParams(iterations=20), start_view)
     if errors or not servers:
         raise AssertionError(f"phase 20: view_and_export never served: {errors}")
     try:
@@ -3234,15 +3078,16 @@ def main() -> int:
           f"{[g['name'] for g in plain_vdb]}, the same values; viewer on port "
           f"{servers[0].server_address[1]}: /, /meta (dims "
           f"{meta['fields']['density']['dims']}), /volume, then shut down", flush=True)
-    done("20")
+    card.done("20")
 
-    # -- 21. the repeat check on the card: tools/repeat_check's stages twice -----
-    from hnanosolver_tpu_torch.tools import repeat_check
 
-    t21, s21, p21 = repeat_check.inputs(REPEAT_N, SEED, dev)
+def phase_21_repeat(card: Card) -> None:
+    """``tools/repeat_check``: its stages twice and its first offset magnitude
+    NARROW_REPEATS times, every repeat bitwise the first."""
+    t21, s21, p21 = repeat_check.inputs(REPEAT_N, SEED, DEV)
     passes = []
     for i in (1, 2):
-        with main_path(f"21 {REPEAT_N}^3 stages, pass {i}",
+        with main_path(card, f"21 {REPEAT_N}^3 stages, pass {i}",
                        {"B1": 1, "B2": 1, "B4": 2 * p21.iterations, "B7a": 1}):
             passes.append(repeat_check.stages(t21, s21, p21))
     diffs = repeat_check.differing(*passes, threads=1)
@@ -3257,63 +3102,81 @@ def main() -> int:
     if diffs or res["differing"] or res["stored_changed"]:
         raise AssertionError(f"phase 21: stages {sorted(diffs)}, repeats {res['differing']}, "
                              f"stored {res['stored_changed']} do not repeat bitwise")
-    del t21, s21, passes
-    done("21")
+    card.done("21")
 
-    # -- 22. the bench's chain as one CUDA graph (bench_torch.py) -----------------
-    import bench_torch
 
-    topo22, s22 = bench_torch.develop()
-    check_state("22", topo22, s22)
-    p22, cfg22 = bench.params, bench.plume
-    per_step = {"B1": 2, "B2": 2, "B3": p22.iterations // p22.effective_halo_lag,
-                "B7a": 1, "B7b": 1}
+def steps_from(topo, state: FieldState, params, cfg, k: int) -> FieldState:
+    """``k`` dependent plume steps from ``state``, eagerly."""
+    for _ in range(k):
+        state = plume.plume_step(topo, state, params, cfg)
+    return state
 
-    def counts_now() -> dict:
-        return {key: k["counter"].n for key, k in kernels.items()}
 
-    def differing(a, b) -> dict:
-        """Field -> max abs difference, for the fields of two states that are
-        not bitwise equal."""
-        pairs = [("velocity", a.velocity, b.velocity)] + [
-            (n_, a.scalars[n_], b.scalars[n_]) for n_ in sorted(a.scalars)]
-        return {n_: float((x - y).abs().max()) for n_, x, y in pairs if not torch.equal(x, y)}
+def clone_state(state: FieldState) -> FieldState:
+    """A copy of every field of ``state``."""
+    return FieldState(velocity=state.velocity.clone(),
+                      scalars={k: v.clone() for k, v in state.scalars.items()})
 
-    # the counters across each capture alone: read at capture_begin and
-    # capture_end of the graph make_chain captures (its warm-up runs before)
-    at_capture = []
-    graph_cls = torch.cuda.CUDAGraph
-    real_begin, real_end = graph_cls.capture_begin, graph_cls.capture_end
 
-    def spy_begin(self, *a, **kw):
-        at_capture.append(counts_now())
-        return real_begin(self, *a, **kw)
+def make_chain(card, topo, params, cfg, state: FieldState, k: int) -> tuple:
+    """``k`` plume steps from ``state`` in one ``torch.cuda.CUDAGraph``: the
+    state copied into static inputs, an eager warm-up on a side stream, then
+    the capture, which raises where it fails (a read back to the host).
+    Returns (replay, the launches counted across the capture alone);
+    ``replay()`` returns the outputs, which the next replay overwrites."""
+    static = clone_state(state)
+    side = torch.cuda.Stream(device=static.velocity.device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps_from(topo, static, params, cfg, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = card.counts()
+    with torch.cuda.graph(graph):
+        out = steps_from(topo, static, params, cfg, k)
+    across = {key: n - before[key] for key, n in card.counts().items()}
 
-    def spy_end(self, *a, **kw):
-        out = real_end(self, *a, **kw)
-        at_capture.append(counts_now())
+    def replay(reads=(topo, static)):  # held: the graph reads their memory
+        graph.replay()
         return out
 
+    return replay, across
+
+
+def differing(a, b) -> dict:
+    """Field -> max abs difference, for the fields of two states that are
+    not bitwise equal."""
+    pairs = [("velocity", a.velocity, b.velocity)] + [
+        (n_, a.scalars[n_], b.scalars[n_]) for n_ in sorted(a.scalars)]
+    return {n_: float((x - y).abs().max()) for n_, x, y in pairs if not torch.equal(x, y)}
+
+
+def phase_22_graph(card: Card) -> None:
+    """The bench step as one CUDA graph: the CHAINS-step chains captured
+    (:func:`make_chain`) with exact launches, each replay bitwise the eager
+    chain and the replay before, the replay's kernels by name; a capture
+    through a host read (the table sampler's window check) must raise."""
+    bench = CELLS["bench"]
+    p22, cfg22 = bench.params, bench.plume
+    topo22 = bench.topology(DEV)
+    s22 = steps_from(topo22, zeros_state(topo22), p22, cfg22, GRAPH_DEVELOP)
+    check_state("22", topo22, s22)
     chains = {}
-    for k_ in (bench_torch.K_LO, bench_torch.CHAIN):
-        at_capture.clear()
-        with mock.patch.object(graph_cls, "capture_begin", spy_begin), \
-                mock.patch.object(graph_cls, "capture_end", spy_end), \
-                main_path(f"22 make_chain k={k_}: warm-up and capture", per_step, 2 * k_):
-            chains[k_] = bench_torch.make_chain(topo22, p22, cfg22, s22, k_)
-        across = {key: at_capture[1][key] - at_capture[0][key] for key in KEYS}
-        want = {key: per_step.get(key, 0) * k_ for key in KEYS}
+    for k_ in CHAINS:
+        with main_path(card, f"22 make_chain k={k_}: warm-up and capture", RBGS50_STEP, 2 * k_):
+            chains[k_], across = make_chain(card, topo22, p22, cfg22, s22, k_)
+        want = {key: RBGS50_STEP.get(key, 0) * k_ for key in KEYS}
         print(f"[22] capture of the {k_}-chain: launches {across} (expected {want})", flush=True)
-        if len(at_capture) != 2 or across != want:
+        if across != want:
             raise AssertionError(f"phase 22: capture of the {k_}-chain launched {across}, "
                                  f"expected {want}")
     for k_, chain in chains.items():
-        before = counts_now()
-        first = bench_torch.clone_state(chain())
-        second = bench_torch.clone_state(chain())
+        before = card.counts()
+        first = clone_state(chain())
+        second = clone_state(chain())
         torch.cuda.synchronize()
-        moved = {key: n_ - before[key] for key, n_ in counts_now().items() if n_ != before[key]}
-        eager = bench_torch.steps_from(topo22, s22, p22, cfg22, k_)
+        moved = {key: n_ - before[key] for key, n_ in card.counts().items() if n_ != before[key]}
+        eager = steps_from(topo22, s22, p22, cfg22, k_)
         check_state("22", topo22, first)
         vs_eager, vs_first = differing(first, eager), differing(second, first)
         print(f"[22] {k_}-chain: replay bitwise the eager chain {not vs_eager}"
@@ -3324,12 +3187,13 @@ def main() -> int:
             raise AssertionError(f"phase 22: {k_}-chain replay vs eager {vs_eager}, second vs "
                                  f"first {vs_first}, counters moved {moved}")
     # the kernels of one replay of the long chain, by name, on the device
+    k_ = CHAINS[-1]
     names = {"B1": "bfecc_sample_kernel", "B2": "bfecc_tail_kernel",
              "B3": "rbsor_lagged_kernel", "B7a": "divergence_kernel",
              "B7b": "subtract_gradient_kernel"}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        chains[bench_torch.CHAIN]()
+        chains[k_]()
         torch.cuda.synchronize()
     seen, n_all, dev_us = collections.Counter(), 0, 0.0
     for e in prof.key_averages():
@@ -3340,37 +3204,20 @@ def main() -> int:
         for key, kname in names.items():
             if re.search(rf"\b{kname}\b", e.key):
                 seen[key] += e.count
-    want = {key: per_step[key] * bench_torch.CHAIN for key in names}
-    print(f"[22] one replay of the {bench_torch.CHAIN}-chain (torch.profiler): kernels by name "
-          f"{dict(seen)} (expected {want}); {n_all} device kernels, "
-          f"{n_all / bench_torch.CHAIN:.1f} a step, device "
-          f"{dev_us / 1e3 / bench_torch.CHAIN:.4f} ms a step | {card}", flush=True)
+    want = {key: RBGS50_STEP[key] * k_ for key in names}
+    print(f"[22] one replay of the {k_}-chain (torch.profiler): kernels by name "
+          f"{dict(seen)} (expected {want}); {n_all} device kernels, {n_all / k_:.1f} a step, "
+          f"device {dev_us / 1e3 / k_:.4f} ms a step | {card}", flush=True)
     if dict(seen) != want:
         raise AssertionError(f"phase 22: the replay ran {dict(seen)}, expected {want}")
     del chains, first, second, eager, prof
     torch.cuda.empty_cache()
-    # the bench itself, at its defaults
-    lines = []
-    line = bench_torch.measure(emit=lines.append)
-    print(f"[22] bench_torch.measure: {len(lines)} rounds | {card}", flush=True)
-    print(f"[22] bench_torch line: {lines[-1]}", flush=True)
-    print(f"[22] bench: graph {line['step_ms']:.4f} ms/step, {line['value']:.4e} voxel-updates/s;"
-          f" eager {line['eager_step_ms']:.4f} ms/step, "
-          f"{line['active_voxels'] / line['eager_step_ms'] * 1e3:.4e} voxel-updates/s "
-          f"({line['eager_step_ms'] / line['step_ms']:.3f}x the graph's) | {card}", flush=True)
-    got = {key: line[key] for key in ("active_voxels", "capacity_tiles", "develop_steps",
-                                      "pressure_iterations")}
-    want = {"active_voxels": topo22.num_voxels, "capacity_tiles": topo22.capacity,
-            "develop_steps": bench_torch.DEVELOP, "pressure_iterations": p22.iterations}
-    if got != want or not (0 < line["step_ms"] < math.inf and 0 < line["eager_step_ms"] < math.inf):
-        raise AssertionError(f"phase 22: bench line {got} (expected {want}), step_ms "
-                             f"{line['step_ms']}, eager_step_ms {line['eager_step_ms']}")
     # a capture that meets a host read raises, with nothing falling back to
     # eager steps: the table sampler's window check reads max|d| on the host
     planned = topology_mod.ensure_chunk_plans(topo22)
     with mock.patch.object(advection, "INTERP", "vmem"):
         try:
-            bench_torch.make_chain(planned, p22, cfg22, s22, 1)
+            make_chain(card, planned, p22, cfg22, s22, 1)
         except RuntimeError as e:
             first = e  # the host read's own error, under the capture's end
             while isinstance(first.__context__, RuntimeError):
@@ -3380,9 +3227,38 @@ def main() -> int:
                                        for x in dict.fromkeys((e, first))), flush=True)
         else:
             raise AssertionError("phase 22: a capture through a host read did not raise")
-    del topo22, s22, planned
-    done("22")
+    card.done("22")
 
+
+def main() -> int:
+    card = phase_1_device()
+    if card is None:
+        return 1
+    phase_2_build(card)
+    rng = np.random.default_rng(SEED)  # phases 3, 14 and 15 draw their inputs from it in turn
+    c5, c5_hier = phase_3_kernels(card, rng)
+    topo, state = phase_4_main_path(card)  # the developed bench state
+    phase_5_step_vs_plain(card, topo, state)
+    step_ms = phase_6_timing(card, topo, state)
+    phase_7_multigrid(card, topo, state, step_ms)
+    phase_8_parity(card, topo, state)
+    phase_9_config5(card, c5, c5_hier)
+    del c5, c5_hier
+    t4, st4 = phase_10_collider(card)
+    phase_11_rk(card, t4, st4)
+    del t4, st4
+    phase_12_config2(card)
+    phase_13_config3(card)
+    planned = phase_14_table_sampler(card, rng, topo, state)
+    phase_15_probes(card, rng, topo)
+    phase_16_cook(card, topo, state)
+    phase_17_viewer(card, topo, state)
+    phase_18_sliced_tables(card, topo, state, planned)
+    del planned, topo, state  # config 5's chunk plans: room for phases 19-20
+    phase_19_sharded(card)
+    phase_20_dense(card)
+    phase_21_repeat(card)
+    phase_22_graph(card)
     print(card)
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],
@@ -3390,7 +3266,7 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"]}
-        for k in kernels.values()]}))
+        for k in card.kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

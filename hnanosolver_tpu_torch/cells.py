@@ -1,5 +1,5 @@
-"""The configurations that ``chip_smoke.py`` and ``profile_step`` drive on
-the card, defined once: the bench plume (bench.py's domain and settings),
+"""The configurations that ``chip_smoke.py`` drives on the card, defined
+once: the bench plume (bench.py's domain and settings),
 BASELINE config 5 (the 1024^3 plume cone of tools/scale1024_r5.py), each
 with RBGS-50 and with multigrid pressure, and BASELINE config 4 (the bench
 plume with a moving SDF sphere).
