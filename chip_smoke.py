@@ -20,10 +20,10 @@ data (``RBGS50_STEP`` and the rest below).
 Launch counts come only from the main-path runs (phases 4, 7-14, 16-22), each
 with the counters set to 0 just before and read just after; launches made
 to compare or time a kernel are not counted. A kernel's times in the JSON
-line are per step of the path it serves (B1-B3, B7a, B7b the bench RBGS
-step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4 advection
-with the SDF of the config-4 state, CE the config-4 step's four enforce
-passes, B1d and B11 one table-path bench step in the narrow band with
+line are per step of the path it serves (B1-B3, B7a, B7b, EM the bench
+RBGS step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4
+advection with the SDF of the config-4 state, CE the config-4 step's four
+enforce passes, B1d and B11 one table-path bench step in the narrow band with
 COMBINE_TBL on, PG one row gather at the bench, PC one launch of
 probe_dmacost's L = 8, n = 512, 8 reps on one block per SM): per-launch
 medians over runs of 10 back-to-back calls at the inputs recorded from one
@@ -84,9 +84,9 @@ from hnanosolver_tpu_torch.io.state import load_npz
 from hnanosolver_tpu_torch.kernels import build
 from hnanosolver_tpu_torch.models import collider, fire, plume, solve
 from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
-                                       cuda_collision, cuda_pressure, cuda_probe, cuda_sample,
-                                       cuda_stencil, cuda_tables, cuda_tail, cuda_transfer,
-                                       multigrid, probe, stencil, tables)
+                                       cuda_collision, cuda_emit, cuda_pressure, cuda_probe,
+                                       cuda_sample, cuda_stencil, cuda_tables, cuda_tail,
+                                       cuda_transfer, multigrid, probe, stencil, tables)
 from hnanosolver_tpu_torch.ops import pressure as prs
 from hnanosolver_tpu_torch.parallel import boxes as pboxes
 from hnanosolver_tpu_torch.parallel import slab as pslab
@@ -129,8 +129,9 @@ F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
 KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC", "MR",
-        "MP", "CE")
-BITWISE = ("B5", "B6", "MR", "MP", "CE")  # kernels held to torch.equal with their plain versions
+        "MP", "CE", "EM")
+# kernels held to torch.equal with their plain versions
+BITWISE = ("B5", "B6", "MR", "MP", "CE", "EM")
 PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 # Records from before kernels were redesigned (PERF.md §5-6, NVIDIA H100 80GB
 # HBM3 at 700 W), printed beside this run's: ms a step of the bench and
@@ -187,11 +188,12 @@ CHAINS = (2, 12)
 
 # Launches a step of each main path that the phases hold exactly
 # (tests/test_torch_chip_smoke.py holds them to the program's dispatch on
-# the CPU). RBGS-50 at halo_lag 5 above MAX_FUSED_ROWS rows: 50 // 5 B3
-# blocks (the bench, config 5; phases 4, 9, 18 and 22).
-RBGS50_STEP = {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1}
+# the CPU). Each plume step emits once (EM, models/plume.emit). RBGS-50 at
+# halo_lag 5 above MAX_FUSED_ROWS rows: 50 // 5 B3 blocks (the bench,
+# config 5; phases 4, 9, 18 and 22).
+RBGS50_STEP = {"B1": 2, "B2": 2, "B3": 10, "B7a": 1, "B7b": 1, "EM": 1}
 # halo_lag 1, the "parity" tier (phase 8): two B4 colour sweeps an iteration
-PARITY_STEP = {"B1": 2, "B2": 2, "B4": 100, "B7a": 1, "B7b": 1}
+PARITY_STEP = {"B1": 2, "B2": 2, "B4": 100, "B7a": 1, "B7b": 1, "EM": 1}
 # Config 4 (phase 10): with the SDF, four CE (collide.enforces)
 C4_STEP = {**RBGS50_STEP, "CE": 4}
 # The bench MG step (phase 7; mg_levels 2, iterations = 2 V-cycles, FMG,
@@ -207,7 +209,7 @@ C4_STEP = {**RBGS50_STEP, "CE": 4}
 # each level once more and prolongs each solution up once: MR and MP 2 + (1
 # + 2) + 2 * 2 = 9 each.
 BENCH_MG_STEP = {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b": 1, "MR": 9,
-                 "MP": 9}
+                 "MP": 9, "EM": 1}
 # The config-5 MG step (phase 9; mg_levels 5): fine 269,312, L1 45,056 and
 # L2 6,144 rows smooth with one-pair B3 blocks (L1, L2 masked); L3 1,024, L4
 # 128, L5 32 rows with one B5 per solve. A V-cycle from level k visits
@@ -217,7 +219,7 @@ BENCH_MG_STEP = {"B1": 2, "B2": 2, "B3": 12, "B5": 13, "B6": 7, "B7a": 1, "B7b":
 # 1+2+3+4+5. With 2 V-cycles: B3 48, B5 34, B6 25 (B1 2, B2 2). MR and MP:
 # FMG 5 + (1+2+3+4+5), the V-cycles 2 x 5: 30 each (level k k + 3).
 C5_MG_STEP = {"B1": 2, "B2": 2, "B3": 48, "B5": 34, "B6": 25, "B7a": 1, "B7b": 1, "MR": 30,
-              "MP": 30}
+              "MP": 30, "EM": 1}
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -275,6 +277,8 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
         return 21.0 + (args[4] is not None) + (args[5] is not None)
     if key == "CE":  # the SDF's gradient, its length and normal, the blend, the projection
         return 40.0
+    if key == "EM":  # the squared distance 8, its compare, density 2, fuel 3, temperature 1
+        return 15.0
     return 9.0  # B6
 
 
@@ -369,6 +373,8 @@ def kernel_table() -> dict:
         ("CE", "enforce_collision", "collision.cu",
          xla + f"collision: {jax}collision.py enforce_collision)", cuda_collision.launches,
          cuda_collision, "enforce_collision"),
+        ("EM", "emit", "emit.cu", xla + "emit, hnanosolver_tpu/models/plume.py:72)",
+         cuda_emit.launches, cuda_emit, "emit"),
     )
     kernels = {key: dict(name=name, source="hnanosolver_tpu_torch/csrc/" + src, replaces=rep,
                          counter=counter, wrap=(mod, attr), route="cuda", launches=0,
@@ -422,7 +428,7 @@ def check(card, key, label, got, want, tol=TOL_B3, phase="3"):
           f" bitwise {bitwise}", flush=True)
     if not rel <= tol:
         raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
-    if key in ("MR", "MP", "CE") and not bitwise:
+    if key in ("MR", "MP", "CE", "EM") and not bitwise:
         raise AssertionError(f"phase {phase}: {key} {label} is not bitwise its plain version")
 
 
@@ -660,12 +666,18 @@ def in_domain(rng, rows, mask):
     return (torch.from_numpy(rng.random((rows, 512))).to(DEV) > 0.3).float() * mask
 
 
-def step_counts(cap: int, p_) -> dict:
+def emits(model) -> int:
+    """EM launches a step of ``model``: the plume's and the collider's
+    steps emit through ``models/plume.emit``, the others have their own."""
+    return 1 if model in (plume, collider) else 0
+
+
+def step_counts(cap: int, p_, em: int = 0) -> dict:
     """Launches of one step at capacity ``cap`` on the nbr path with at
     most 8 scalars: the pressure solve as ops/pressure.solve_pressure
-    dispatches it, and with ``p_.has_collision`` four CE (the step's
-    enforce passes)."""
-    c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0}
+    dispatches it, with ``p_.has_collision`` four CE (the step's enforce
+    passes), and ``em`` EM (:func:`emits`)."""
+    c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0, "EM": em}
     if cap <= cuda_pressure.MAX_FUSED_ROWS:
         c["B5"] = 1
     else:
@@ -675,13 +687,13 @@ def step_counts(cap: int, p_) -> dict:
     return c
 
 
-def totals(caps: list, p_):
+def totals(caps: list, p_, em: int = 0):
     """The launches of one step at each capacity of ``caps`` (filled while
     the run goes), summed: a callable for :func:`main_path`."""
     def want():
         out = {}
         for cap in caps:
-            for key, n in step_counts(cap, p_).items():
+            for key, n in step_counts(cap, p_, em).items():
                 out[key] = out.get(key, 0) + n
         return out
     return want
@@ -755,11 +767,98 @@ def transfer_cases(card, rng, names: tuple, maps: tuple, nbr, Tf: int, Tc: int):
                                      field(rng, 1.0, Tf, 512), in_domain(rng, Tf, 1.0)), names[1])
 
 
+def emit_args(gen, topo, cfg, dt: float, origins=None) -> tuple:
+    """EM's operands on ``topo`` (its origins, or ``origins``) with the
+    emitter ``cfg``, every field random on every row from the device
+    generator ``gen``: density in [0, 4), fuel in [0, 2) (above 1 outside
+    the sphere too), temperature in [0, 300) (about the target), the
+    velocity normal times 8."""
+    T = topo.capacity
+
+    def u(hi):
+        return torch.rand((T, 512), generator=gen, device=DEV) * hi
+
+    vel = torch.randn((3, T, 512), generator=gen, device=DEV) * 8.0
+    return (topo.origins if origins is None else origins, topo.n_active, u(4.0), u(2.0),
+            u(300.0), vel, cfg.center, cfg.radius, cfg.density_rate * dt, cfg.fuel_rate * dt,
+            cfg.temperature_target, cfg.velocity_jet)
+
+
+def emit_cases(card, c5) -> None:
+    """EM bitwise its plain version (every output) with its inputs left as
+    they were: at the bench (4196 tiles at capacity 4608) with its emitter
+    and with a sphere off the lattice, whose surface cuts tiles, at config 5
+    (269,104 tiles at capacity 269,312) with its emitter, and at the bench
+    with the null and padding rows' origins planted inside the sphere (the
+    row mask alone keeps them); fuel above 1 outside the sphere comes back
+    1; NaNs in fuel and temperature come back as the plain version's, bit
+    for bit. At config 5 its ms a launch beside its bound and the plain
+    version's."""
+    bench, dt = CELLS["bench"], CELLS["bench"].params.dt
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    tb = bench.topology(DEV)
+    off = plume.PlumeConfig(center=(131.3, 27.7, 125.1), radius=13.7, temperature_target=95.5,
+                            velocity_jet=-3.25)
+    planted = tb.origins.clone()
+    planted[0] = planted[tb.n_active + 1:] = torch.div(
+        torch.tensor(bench.plume.center, device=DEV), 8, rounding_mode="floor").int()
+    cases = (("bench", tb, bench.plume, None), ("bench, a sphere off the lattice", tb, off, None),
+             ("bench, null and padding rows planted in the sphere", tb, bench.plume, planted),
+             ("config 5", c5, CELLS["c5"].plume, None))
+    for name, topo_, cfg, org in cases:
+        a_ = emit_args(gen, topo_, cfg, dt, org)
+        kept = [x.clone() for x in a_ if isinstance(x, torch.Tensor)]
+        got, want = cuda_emit.emit(*a_), cuda_emit.emit_plain(*a_)
+        hot = got[3][1] != a_[5][1]  # u_y set to the jet: inside the sphere
+        rows_hot = hot.any(1)
+        cut = int((rows_hot & ~hot.all(1)).sum())  # tiles the sphere's surface cuts
+        over = (a_[3] > 1.0) & ~hot
+        label = (f"{name} T={topo_.capacity}: {int(hot.sum())} voxels inside the sphere in "
+                 f"{int(rows_hot.sum())} tiles, {cut} of them cut by its surface")
+        for part, g, w in zip(("density", "fuel", "temperature", "velocity"), got, want):
+            check(card, "EM", f"{label}; {part}", g, w, 0.0)
+        if not (int(hot.sum()) > 0 and cut > 0):
+            raise AssertionError(f"phase 3: EM at {name}: the sphere cuts no tile")
+        if bool(hot[0].any()) or bool(hot[topo_.n_active + 1:].any()):
+            raise AssertionError(f"phase 3: EM at {name} sourced the null or a padding row")
+        if not (bool(over.any()) and bool((got[1][over] == 1.0).all())):
+            raise AssertionError(f"phase 3: EM at {name}: fuel above 1 outside the sphere did "
+                                 "not come back 1")
+        if not all(torch.equal(x, y) for x, y in zip(kept, (x for x in a_ if
+                                                              isinstance(x, torch.Tensor)))):
+            raise AssertionError(f"phase 3: EM at {name} changed its inputs")
+        del got, want, kept, hot, over
+    # NaNs inside and outside the sphere, compared as bits (a NaN is not
+    # equal to itself)
+    a_ = emit_args(gen, tb, bench.plume, dt)
+    nan = torch.rand((tb.capacity, 512), generator=gen, device=DEV) < 0.01
+    for f in (a_[3], a_[4]):
+        f[nan] = float("nan")
+    got, want = cuda_emit.emit(*a_), cuda_emit.emit_plain(*a_)
+    same = [torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want)]
+    inside_nan = int((nan & (got[3][1] != a_[5][1])).sum())
+    print(f"[3] EM bench T={tb.capacity}, {int(nan.sum())} NaNs in fuel and temperature "
+          f"({inside_nan} inside the sphere): bits equal (density, fuel, temperature, "
+          f"velocity) {same}", flush=True)
+    if not (all(same) and inside_nan > 0):
+        raise AssertionError("phase 3: EM with NaNs is not bitwise its plain version")
+    a_ = emit_args(gen, c5, CELLS["c5"].plume, dt)
+    k_ms, p_ms = paired_ms(lambda: cuda_emit.emit(*a_), lambda: cuda_emit.emit_plain(*a_),
+                           batch=4)
+    b_ms, by, moved = bound_ms("EM", a_, {}, nbytes(a_[2:6]))
+    print(f"[3] EM emit at config 5 (T={c5.capacity}): {k_ms:.4f} ms a launch, bound "
+          f"{b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB; {b_ms / k_ms:.1%} of the kernel's "
+          f"time), plain {p_ms:.4f} ms | {card}", flush=True)
+    del a_, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_3_kernels(card: Card, rng) -> tuple:
     """Each kernel against its plain version on inputs from ``rng``, at the
     bench shapes, at 7 mod 8 rows, on config 5's levels (B5 in both forms,
-    MR and MP in every form, bitwise) and at collider1024 (CE, timed).
-    Returns config 5's topology and multigrid hierarchy."""
+    MR and MP in every form, bitwise), at collider1024 (CE, timed) and with
+    the emitter (EM, :func:`emit_cases`). Returns config 5's topology and
+    multigrid hierarchy."""
     bench = CELLS["bench"]
     topo, params = bench.topology(DEV), bench.params
     T, sdt, lag = topo.capacity, params.dt * params.inv_voxel_size, params.effective_halo_lag
@@ -979,6 +1078,7 @@ def phase_3_kernels(card: Card, rng) -> tuple:
                        maps, lv.topo.nbr, sh3.parent_global.shape[1], lv.topo.capacity)
         if ghosts <= 0:
             raise AssertionError(f"phase 3: slab {d}'s maps cover no ghost row")
+    emit_cases(card, c5)
     card.done("3")
     return c5, c5_hier
 
@@ -1016,7 +1116,7 @@ def phase_6_timing(card: Card, topo, state) -> float:
     plain, timed beside its bound. Returns the ms a step."""
     params, cfg = CELLS["bench"].params, CELLS["bench"].plume
     step_ms, _, res = path_timed(card, "6", lambda: plume.plume_step(topo, state, params, cfg),
-                                 15, ("B1", "B2", "B3", "B7a", "B7b"))
+                                 15, ("B1", "B2", "B3", "B7a", "B7b", "EM"))
     vups = topo.num_voxels / (step_ms * 1e-3)
     for key, r in res.items():
         card.kernels[key].update(r)
@@ -1168,7 +1268,7 @@ def phase_9_config5(card: Card, c5, c5_hier) -> None:
     # (the recorded inputs of all five and a plain version's temporaries
     # would not fit the card together)
     rb5 = {}
-    for key in ("B1", "B2", "B3", "B7a", "B7b"):
+    for key in ("B1", "B2", "B3", "B7a", "B7b", "EM"):
         torch.cuda.empty_cache()
         rb5.update(time_calls(card, "9 RBGS-50", record(card, c5_step(c5_rb, ()), (key,)),
                               plain=False))
@@ -1194,8 +1294,10 @@ def phase_10_collider(card: Card) -> tuple:
 
     def advection_input(st_in):
         """The scalars entering a frame's scalar advection: the frame's input
-        after emit and combustion (both pointwise, as in the step)."""
-        s_ = plume.emit(t4, st_in, cfg4, p4.dt).scalars
+        after emit and combustion (both pointwise, as in the step), by the
+        plain versions: no launch of this check is the path's."""
+        with plain_versions(card):
+            s_ = plume.emit(t4, st_in, cfg4, p4.dt).scalars
         cp = p4.combustion
         fuel, waste, temp, flame, _ = combustion.combustion_oxygen(
             s_["fuel"], s_["waste"], s_["temperature"], s_["flame"],
@@ -1374,7 +1476,8 @@ def grown(card, label: str, model, p_, run) -> tuple:
         torch.cuda.synchronize()
         clock["start"] = time.perf_counter()
 
-    with growth_checked(label, model, caps, clock), main_path(card, label, totals(caps, p_)):
+    with growth_checked(label, model, caps, clock), main_path(card, label,
+                                                              totals(caps, p_, emits(model))):
         topo, state = run(on_frame)
     st_, gr = clock["step"], clock["grow"]
     print(f"[{label}] seconds per frame, median (last 10 frames): step "
@@ -1436,7 +1539,7 @@ def table_counts(comb: bool, params):
     def want():
         b = advection.BANDS
         c = {"B2": 2, "B3": params.iterations // params.effective_halo_lag, "B7a": 1, "B7b": 1,
-             "B1": b["wide"], "B8": b["mixed fwd wide"],
+             "EM": 1, "B1": b["wide"], "B8": b["mixed fwd wide"],
              "B1d": b["narrow"] + b["mixed"] + b["mixed fwd narrow"]}
         if comb:
             c["B11"] = b["narrow"] + b["mixed"]
@@ -2154,7 +2257,7 @@ def stepped(card, label: str, model, p_, run, what: str = "") -> None:
     ``model`` it ran, from the capacity each ran at (renders launch none)."""
     caps = []
     t0 = time.perf_counter()
-    with step_caps(model, caps), main_path(card, label, totals(caps, p_)):
+    with step_caps(model, caps), main_path(card, label, totals(caps, p_, emits(model))):
         run()
     print(f"[{label}] {what}{len(caps)} steps at capacities {caps}, "
           f"{time.perf_counter() - t0:.2f} s wall | {card}", flush=True)
@@ -2329,8 +2432,8 @@ def phase_17_viewer(card: Card, topo, state) -> None:
     def report_counts():
         """Each phase body's launches times its applications (lo + hi
         chained runs, each run once to warm and ``repeats`` times timed), and
-        the full step's also the 2 warm-up plume steps, and one B7a for
-        the pressure phases' input divergence: the bodies launch
+        the full step's also the 2 warm-up plume steps (each one EM), and
+        one B7a for the pressure phases' input divergence: the bodies launch
         B1 + B2 (velocity), B7a, the pressure solve at halo lag 1 (one B5 at
         T <= 2048), B7b, B1 + B2 (scalars); vorticity is an exact no-op at
         factor_scale 0.5 and combustion plain torch."""
@@ -2343,6 +2446,7 @@ def phase_17_viewer(card: Card, topo, state) -> None:
         out = {k: body.get(k, 0) * apps + full.get(k, 0) * (apps + 2)
                for k in set(body) | set(full)}
         out["B7a"] += 1  # phase_functions' div0, once
+        out["EM"] = 2 * emits(plume)
         return out
 
     out_buf = io.StringIO()
@@ -2372,8 +2476,8 @@ def phase_17_viewer(card: Card, topo, state) -> None:
     # the viewer server: live plume at the view subcommand's default box, then the npz
     live = webapp.live_source("plume", shape=(256, 256, 256), params=SolverParams(), device=DEV)
     caps_live = []
-    with step_caps(plume, caps_live), main_path(card, "17 view --live", totals(caps_live,
-                                                                        SolverParams())):
+    with step_caps(plume, caps_live), main_path(card, "17 view --live", totals(
+            caps_live, SolverParams(), emits(plume))):
         serve_checks(card, "17 view --live", live, 2)
     moved = {k: card.kernels[k]["counter"].n for k in ("B1", "B3", "B5")}
     print(f"[17] live plume: steps at capacities {caps_live}, launches {moved}", flush=True)
@@ -2481,7 +2585,7 @@ def sliced_counts(tb_, passes, comb, budget, p_):
     """The launches of one table-path step with the budget ``budget``,
     from the passes :func:`table_passes` recorded (asked after the step)."""
     def want():
-        c = step_counts(tb_.capacity, p_)
+        c = step_counts(tb_.capacity, p_, emits(plume))
         del c["B1"]
         c.update(jax_dispatch(tb_, passes, comb, budget))
         return c
@@ -2603,15 +2707,16 @@ def fine_cycles(counts: collections.Counter):
         yield
 
 
-def sharded_counts(p_, n: int, cycles: collections.Counter):
-    """Launches of one textbook step on each of ``n`` devices: B4 2 a
+def sharded_counts(p_, n: int, cycles: collections.Counter, emit: bool = True):
+    """Launches of one textbook step on each of ``n`` devices, each with
+    its emit (EM) where ``emit`` (the sharded plume step's): B4 2 a
     fine iteration, or for multigrid (mg_levels 2: level 1 and 2 by B5)
     8 B4 a fine V-cycle, B5 3 and B6 2, FMG's extra B5 4 and B6 1, and
     with mg_tol one B6 a stop test (V-cycles read from ``cycles``); MR
     and MP 2 a V-cycle and FMG's 5 (every device runs the replicated
     coarse levels)."""
     def want():
-        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1}
+        c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "EM": int(emit)}
         if p_.pressure_solver != "mg":
             c["B4"] = 2 * p_.iterations
         else:
@@ -2706,7 +2811,7 @@ def phase_19_sharded(card: Card) -> None:
 
         one_cycles, shard_cycles = collections.Counter(), collections.Counter()
         with fine_cycles(one_cycles), main_path(card, f"{label} one device",
-                                                sharded_counts(p_, 1, one_cycles)):
+                                                sharded_counts(p_, 1, one_cycles, False)):
             want = one_device()
         blocks = pslab.scatter_state(t19, dec, s19, mesh)
         fn = pslab.sharded_plume_step(mesh, dec, p_, cfg, hierarchy=shier)
@@ -2749,10 +2854,10 @@ def phase_19_sharded(card: Card) -> None:
         label = f"19 chain {k_}"
         r_one, r_shard = [], []
         one_cycles, shard_cycles = collections.Counter(), collections.Counter()
+        emitted = plume.emit(t19, s_one, cfg, p_.dt)
         with mg_residuals(r_one), fine_cycles(one_cycles), main_path(
-                card, f"{label} one device", sharded_counts(p_, 1, one_cycles)):
-            s_one = solver.step_impl(t19, plume.emit(t19, s_one, cfg, p_.dt), p_, hier19,
-                                     refresh=textbook)
+                card, f"{label} one device", sharded_counts(p_, 1, one_cycles, False)):
+            s_one = solver.step_impl(t19, emitted, p_, hier19, refresh=textbook)
         with mg_residuals(r_shard), fine_cycles(shard_cycles), main_path(
                 card, label, sharded_counts(p_, SLABS, shard_cycles)):
             blocks = fn(slab19, blocks)
@@ -2770,14 +2875,15 @@ def phase_19_sharded(card: Card) -> None:
             raise AssertionError(f"phase {label}: max|r|/max|div| {max(r_shard + r_one)} > "
                                  f"{C5_RMAX_OVER_DIV0}")
         compare(label, t19, out, s_one)
-    del blocks, fn, out, s_one
+    del blocks, fn, out, s_one, emitted
 
     # config 5 over 4 slabs on one card, RBGS-50
     torch.cuda.empty_cache()
     c5t = CELLS["c5"].topology(DEV)
     c5t, st5 = plume.run_plume(CELLS["c5"].develop, c5_rb, cfg5, topo=c5t, grow_every=0)
     emitted = plume.emit(c5t, st5, cfg5, c5_rb.dt)
-    with main_path(card, "19 c5 one device", sharded_counts(c5_rb, 1, collections.Counter())):
+    with main_path(card, "19 c5 one device",
+                   sharded_counts(c5_rb, 1, collections.Counter(), False)):
         a_ = torch.cuda.Event(enable_timing=True)
         b_ = torch.cuda.Event(enable_timing=True)
         a_.record()
@@ -3190,11 +3296,17 @@ def phase_22_graph(card: Card) -> None:
     k_ = CHAINS[-1]
     names = {"B1": "bfecc_sample_kernel", "B2": "bfecc_tail_kernel",
              "B3": "rbsor_lagged_kernel", "B7a": "divergence_kernel",
-             "B7b": "subtract_gradient_kernel"}
+             "B7b": "subtract_gradient_kernel", "EM": "emit_kernel"}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        chains[k_]()
-        torch.cuda.synchronize()
+    # a replay in the profiler's warm-up step first: the device records at the
+    # head of a session's first replay go missing (the first step's kernels up
+    # to its first B3 were lost once the emit was one kernel)
+    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            chains[k_]()
+            torch.cuda.synchronize()
+            prof.step()
     seen, n_all, dev_us = collections.Counter(), 0, 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:

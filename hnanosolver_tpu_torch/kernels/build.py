@@ -66,6 +66,7 @@ SIGNATURES = {
     "hn_mg_restrict": (_P, _P, _P, _P, _P, _I, _P),
     "hn_mg_prolong": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "hn_enforce_collision": (_P, _P, _P, _P, _I, _F, _F, _F, _P),
+    "hn_emit": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 
@@ -104,6 +105,8 @@ BLOCK_THREADS = {
     "mg_prolong_kernel": 128,  # MP_WARPS * 32: a warp a fine tile
     # the collision's enforce pass CE (collision.cu): a block a tile
     "enforce_collision_kernel": 512,
+    # the plume's emit EM (emit.cu): a block a tile, four voxels a thread
+    "emit_kernel": 128,
 }
 
 

@@ -15,9 +15,9 @@ import torch
 from hnanosolver_tpu_torch.config import SolverParams
 from hnanosolver_tpu_torch.core import coords as C
 from hnanosolver_tpu_torch.core.activation import expand_for_state
-from hnanosolver_tpu_torch.core.layout import positions_flat
-from hnanosolver_tpu_torch.core.topology import Topology, active_mask, build_topology
+from hnanosolver_tpu_torch.core.topology import Topology, build_topology
 from hnanosolver_tpu_torch.fields import FieldState, zeros_state
+from hnanosolver_tpu_torch.ops import cuda_emit
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.solver import step
 from hnanosolver_tpu_torch.utils.profiling import frame, span
@@ -81,20 +81,14 @@ def initial_state(topo: Topology) -> FieldState:
 
 
 def emit(topo: Topology, state: FieldState, cfg: PlumeConfig, dt: float) -> FieldState:
-    """Additive sourcing inside the emitter sphere."""
-    px, py, pz = (p.to(torch.float32) for p in positions_flat(topo))
-    d2 = (px - cfg.center[0]) ** 2 + (py - cfg.center[1]) ** 2 + (pz - cfg.center[2]) ** 2
-    inside = (d2 < cfg.radius ** 2).to(torch.float32) * active_mask(topo)[:, None]
-    hot = inside > 0
-
+    """Additive sourcing inside the emitter sphere: one launch of the kernel
+    EM on the card (``ops/cuda_emit.py``). A new state; the other scalars
+    go through as they are."""
     s = dict(state.scalars)
-    s["density"] = s["density"] + inside * (cfg.density_rate * dt)
-    s["fuel"] = torch.clamp(s["fuel"] + inside * (cfg.fuel_rate * dt), max=1.0)
-    s["temperature"] = torch.where(
-        hot, torch.clamp(s["temperature"], min=cfg.temperature_target),
-        s["temperature"])
-    vel = state.velocity.clone()
-    vel[1] = torch.where(hot, cfg.velocity_jet, state.velocity[1])
+    s["density"], s["fuel"], s["temperature"], vel = cuda_emit.emit(
+        topo.origins, topo.n_active, s["density"].contiguous(), s["fuel"].contiguous(),
+        s["temperature"].contiguous(), state.velocity.contiguous(), cfg.center, cfg.radius,
+        cfg.density_rate * dt, cfg.fuel_rate * dt, cfg.temperature_target, cfg.velocity_jet)
     return FieldState(velocity=vel, scalars=s)
 
 

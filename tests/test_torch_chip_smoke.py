@@ -11,6 +11,7 @@
   ``benchmark/roofline.py``'s bound a frame (read here, not edited).
 - The launches a step that phases 4, 7, 8 and 10 hold exactly equal what one
   bench RBGS-50, multigrid and parity step and one config-4 collider step
+  launch, and ``step_counts`` what one plume, fire and collider step
   launch, with the kernel library faked on the CPU: a drift in the
   program's dispatch shows here before a chip run.
 """
@@ -29,7 +30,7 @@ from hnanosolver_tpu_torch.cells import CELLS
 from hnanosolver_tpu_torch.core.topology import build_topology
 from hnanosolver_tpu_torch.fields import zeros_state
 from hnanosolver_tpu_torch.kernels import build
-from hnanosolver_tpu_torch.models import collider, plume
+from hnanosolver_tpu_torch.models import collider, fire, plume
 from hnanosolver_tpu_torch.ops import cuda_tables, multigrid, tables
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -144,12 +145,17 @@ def _case(key: str, planned):
                 _b(parent, octant, _nbr(T // 8), coarse, p, mask, p), 21.0 + 1 + 1, T)
     if key == "CE":
         return (nbr, vel, sdf, 2.0, 0.1, 1.5), {}, _b(vel), _b(nbr, vel, sdf, vel), 40.0, T
+    if key == "EM":  # density, fuel, temperature and the velocity, and the origins
+        org, d, f, h = torch.zeros((T, 3), dtype=torch.int32), _f(T, V), _f(T, V), _f(T, V)
+        out = _b(d, f, h, vel)
+        return ((org, T - 2, d, f, h, vel, (1.0, 2.0, 3.0), 4.0, 0.1, 0.05, 150.0, 8.0), {}, out,
+                _b(org) + 2 * out, 15.0, T)
     raise KeyError(key)
 
 
 @pytest.mark.parametrize("key", ["B1", "B1 + SDF", "B1d both", "B1d back", "B1d fwd",
                                  "B1d both + SDF", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b",
-                                 "B8", "B11", "MR", "MP", "CE"])
+                                 "B8", "B11", "MR", "MP", "CE", "EM"])
 def test_bound_ms_counts_each_kernels_bytes_and_operations(key, planned):
     args, kwargs, out_bytes, moved, ops, rows = _case(key, planned)
     k = key.split()[0]
@@ -159,6 +165,21 @@ def test_bound_ms_counts_each_kernels_bytes_and_operations(key, planned):
     t_bytes = moved / chip_smoke.HBM_BYTES_PER_S * 1e3
     t_ops = ops * rows * V / chip_smoke.F32_OPS_PER_S * 1e3
     assert (ms, by) == ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def test_emit_bound_at_config_5_is_twelve_field_passes():
+    """EM at config 5 (269,312 rows) reads six fields and writes six, and
+    reads the 12-byte origin of each row: 1.9757 ms of fields at 3.35 TB/s."""
+    T5 = 269_312
+    fields = 12 * T5 * V * F32
+    assert fields == 12 * 551_550_976
+    vel, d = torch.empty((3, T5, V)), torch.empty((T5, V))
+    args = (torch.empty((T5, 3), dtype=torch.int32), T5 - 209, d, torch.empty_like(d),
+            torch.empty_like(d), vel, (512.0, 96.0, 512.0), 80.0, 1 / 12, 1 / 24, 150.0, 8.0)
+    ms, by, moved = chip_smoke.bound_ms("EM", args, {}, 6 * T5 * V * F32)
+    assert (moved, by) == (fields + T5 * 12, "bytes")
+    assert ms == pytest.approx(fields / chip_smoke.HBM_BYTES_PER_S * 1e3, rel=1e-3)
+    assert ms == pytest.approx(1.9757, rel=1e-3)
 
 
 @pytest.fixture(scope="module")
@@ -241,6 +262,36 @@ def _collider_step():
     topo = c4.topology("cpu")
     return lambda: collider.collider_step(topo, zeros_state(topo), c4.params, c4.plume,
                                           c4.collider, 0)
+
+
+def _grown_step(model: str):
+    """One step of ``model`` (the plume, the fire or the collider) on the
+    bench topology: (step, its parameters, the model's module)."""
+    bench = CELLS["bench"]
+    topo = bench.topology("cpu")
+    if model == "plume":
+        p_ = bench.params
+        return lambda: plume.plume_step(topo, zeros_state(topo), p_, bench.plume), p_, plume
+    if model == "fire":
+        p_, cfg = fire.default_params(), fire.FireConfig()
+        return lambda: fire.fire_step(topo, zeros_state(topo), p_, cfg), p_, fire
+    c4 = CELLS["c4"]
+    return (lambda: collider.collider_step(topo, zeros_state(topo), c4.params, c4.plume,
+                                           c4.collider, 0), c4.params, collider)
+
+
+@pytest.mark.parametrize("model", ["plume", "fire", "collider"])
+def test_step_counts_are_the_programs(model, faked_library):
+    """``step_counts`` with the model's EM launches (``emits``), as phases
+    12, 13, 16-18 and 20 hold the steps of a growing or CLI run, against one
+    step's dispatch."""
+    run, p_, mod = _grown_step(model)
+    for c in faked_library.values():
+        c.n = 0
+    run()
+    counts = {key: c.n for key, c in faked_library.items() if c.n}
+    want = chip_smoke.step_counts(4608, p_, chip_smoke.emits(mod))
+    assert counts == {key: n for key, n in want.items() if n}
 
 
 @pytest.mark.parametrize("phase, per_step, step", [

@@ -8,6 +8,8 @@ results may differ by an ulp: they are held to rtol 1e-6 (a few float32
 ulps) plus an atol of 1e-6 times the field's scale.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +23,11 @@ from hnanosolver_tpu.ops import pressure as jprs
 from hnanosolver_tpu.ops import shifts as jsh
 from hnanosolver_tpu.ops import stencil as jstn
 from hnanosolver_tpu_torch import convert
+from hnanosolver_tpu_torch.core.topology import build_topology
+from hnanosolver_tpu_torch.fields import COLLISION_FIELD, FieldState
 from hnanosolver_tpu_torch.models import plume as tplume
 from hnanosolver_tpu_torch.ops import combustion as tcomb
+from hnanosolver_tpu_torch.ops import cuda_emit
 from hnanosolver_tpu_torch.ops import pressure as tprs
 from hnanosolver_tpu_torch.ops import shifts as tsh
 from hnanosolver_tpu_torch.ops import stencil as tstn
@@ -154,3 +159,94 @@ def test_emit_matches():
         _close(tsc[k], np.asarray(js.scalars[k]), 200.0)
     np.testing.assert_array_equal(tplume.emitter_tiles(tplume.PlumeConfig(**cfg_kw)),
                                   jplume.emitter_tiles(jplume.PlumeConfig(**cfg_kw)))
+
+
+def _emit_case(pad_rows_inside: bool = False):
+    """A plume envelope whose capacity leaves padding rows, every field
+    random on every row (fuel in [0, 2), so above 1 outside the sphere
+    too), and the sphere's config; ``pad_rows_inside`` plants the null and
+    padding rows' origins on the sphere's centre tile and keeps their fuel
+    below 1, so that the row mask alone leaves them unchanged."""
+    cfg = tplume.PlumeConfig(center=(20.3, 12.7, 19.1), radius=9.4)
+    tt = build_topology(tplume.build_plume_envelope(24, 48, 20, 20), capacity=512,
+                        device="cpu")
+    assert tt.capacity > tt.n_active + 1
+    if pad_rows_inside:
+        org = tt.origins.clone()
+        org[0] = org[tt.n_active + 1:] = torch.tensor([2, 1, 2], dtype=torch.int32)
+        tt = dataclasses.replace(tt, origins=org)
+    g = torch.Generator().manual_seed(11)
+    T = tt.capacity
+    sc = {n: torch.rand((T, 512), generator=g) * 2.0
+          for n in ("density", "temperature", "fuel", "waste", "flame", COLLISION_FIELD)}
+    sc["temperature"] *= 150.0
+    if pad_rows_inside:
+        sc["fuel"][0] *= 0.5
+        sc["fuel"][tt.n_active + 1:] *= 0.5
+    vel = torch.randn((3, T, 512), generator=g) * 8.0
+    return tt, FieldState(velocity=vel, scalars=sc), cfg
+
+
+def test_emit_leaves_its_input_and_passes_the_other_scalars_through():
+    tt, st, cfg = _emit_case()
+    kept = {k: v.clone() for k, v in st.scalars.items()}
+    vel = st.velocity.clone()
+    out = tplume.emit(tt, st, cfg, 1 / 24)
+    assert torch.equal(st.velocity, vel)
+    assert all(torch.equal(st.scalars[k], v) for k, v in kept.items())
+    for k in ("waste", "flame", COLLISION_FIELD):
+        assert out.scalars[k] is st.scalars[k]
+    for k in ("density", "fuel", "temperature"):
+        assert out.scalars[k] is not st.scalars[k]
+    assert out.velocity is not st.velocity
+    inside = out.velocity[1] != st.velocity[1]
+    assert bool(inside.any()) and bool((out.velocity[1][inside] == cfg.velocity_jet).all())
+    assert torch.equal(out.velocity[0], vel[0]) and torch.equal(out.velocity[2], vel[2])
+
+
+def test_emit_clamps_fuel_above_one_outside_the_sphere():
+    tt, st, cfg = _emit_case()
+    out = tplume.emit(tt, st, cfg, 1 / 24)
+    inside = out.velocity[1] != st.velocity[1]
+    over = (st.scalars["fuel"] > 1.0) & ~inside
+    assert bool(over.any())
+    assert bool((out.scalars["fuel"][over] == 1.0).all())
+    assert float(out.scalars["fuel"].max()) == 1.0
+    below = (st.scalars["fuel"] <= 1.0) & ~inside
+    assert torch.equal(out.scalars["fuel"][below], st.scalars["fuel"][below])
+
+
+def test_emit_leaves_the_null_and_padding_rows():
+    tt, st, cfg = _emit_case(pad_rows_inside=True)
+    out = tplume.emit(tt, st, cfg, 1 / 24)
+    rows = torch.ones(tt.capacity, dtype=torch.bool)
+    rows[1:tt.n_active + 1] = False
+    assert int(rows.sum()) > 1
+    for k in ("density", "fuel", "temperature"):
+        assert torch.equal(out.scalars[k][rows], st.scalars[k][rows]), k
+    assert torch.equal(out.velocity[:, rows], st.velocity[:, rows])
+    # the same origins on an active row are sourced
+    assert bool((out.velocity[1][1:tt.n_active + 1] != st.velocity[1][1:tt.n_active + 1]).any())
+
+
+@pytest.mark.parametrize("bad", ["velocity shape", "density shape", "fuel dtype",
+                                 "origins dtype", "temperature device", "origins device",
+                                 "velocity not contiguous"])
+def test_emit_wrapper_checks_its_operands(bad):
+    tt, st, cfg = _emit_case()
+    a = dict(origins=tt.origins, n_active=tt.n_active, density=st.scalars["density"],
+             fuel=st.scalars["fuel"], temperature=st.scalars["temperature"],
+             velocity=st.velocity, center=cfg.center, radius=cfg.radius, density_step=0.1,
+             fuel_step=0.05, target=cfg.temperature_target, jet=cfg.velocity_jet)
+    name, what = bad.split(" ", 1)
+    x = a[name]
+    if what == "shape":
+        a[name] = x[..., :256]
+    elif what == "dtype":
+        a[name] = x.to(torch.float64 if x.is_floating_point() else torch.int64)
+    elif what == "device":
+        a[name] = torch.empty(x.shape, dtype=x.dtype, device="meta")
+    else:
+        a[name] = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match=name):
+        cuda_emit.emit(**a)
