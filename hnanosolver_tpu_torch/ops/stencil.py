@@ -5,6 +5,12 @@ Divergence and u - grad(p) are kernels B7a and B7b
 (``ops/cuda_stencil.py``); the curl and vorticity confinement are plain
 torch, as they were XLA in the JAX package. Out-of-domain reads are exact
 background 0 via the null tile.
+
+A :func:`vorticity_confinement` call that acts (offset >= 1) is the device
+span ``forces.vorticity`` (``utils/profiling``: on only while a profiler
+records; inside the step's ``step.forces``) and adds one to the always-on
+count :data:`applies` (``vorticity.applies``); a call at offset 0 is
+neither.
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ import torch
 
 from hnanosolver_tpu_torch.ops import cuda_stencil
 from hnanosolver_tpu_torch.ops.shifts import offset_view, shifted_view
+from hnanosolver_tpu_torch.utils import profiling
+
+applies = profiling.Count("vorticity.applies")  # vorticity_confinement calls that act
 
 
 def divergence(topo, vel: torch.Tensor, inv_dx: float) -> torch.Tensor:
@@ -76,6 +85,15 @@ def vorticity_confinement(
     s = int(factor_scale)
     if s == 0:
         return vel
+    applies.add()
+    with profiling.span("forces.vorticity", device=True):
+        return _confine(topo, vel, dt, inv_dx, confinement_scale, s)
+
+
+def _confine(topo, vel: torch.Tensor, dt: float, inv_dx: float, confinement_scale: float,
+             s: int) -> torch.Tensor:
+    """:func:`vorticity_confinement`'s force at the integer offset ``s`` >= 1,
+    added to ``vel``."""
     factor = 0.5 * inv_dx
     omega = curl(topo, vel, factor)
 

@@ -20,7 +20,7 @@ from hnanosolver_tpu_torch.core import activation
 from hnanosolver_tpu_torch.fields import COLLISION_FIELD
 from hnanosolver_tpu_torch.kernels import build
 from hnanosolver_tpu_torch.models import collider, plume
-from hnanosolver_tpu_torch.ops import collision, cuda_stencil
+from hnanosolver_tpu_torch.ops import collision, cuda_stencil, stencil
 from hnanosolver_tpu_torch.ops.multigrid import hierarchy_for
 from hnanosolver_tpu_torch.utils import profiling
 
@@ -295,6 +295,52 @@ def test_a_collider_frame_spans_its_collision(start):
     frames(1)
     assert collision.enforces.n - n0 == len(ENFORCE_PARENTS)
     assert profiling.records() == []
+
+
+def test_a_fire_frame_spans_its_confinement(start):
+    """``fire_step`` (confinement at offset 1): one ``forces.vorticity``
+    span inside ``step.forces`` and one more ``vorticity.applies``, traced
+    or not; a plume frame (offset 0) holds neither."""
+    from hnanosolver_tpu_torch.models import fire
+
+    topo, state = start
+    cfg = fire.FireConfig(center=(32.0, 8.0, 32.0), radius=6.0, height=3.0)
+    params = fire.default_params().replace(iterations=4)
+    assert int(params.combustion.factor_scale) == 1
+    n0 = stencil.applies.n
+    _, prof = _profiled(lambda: fire.fire_step(topo, state, params, cfg))
+    assert stencil.applies.n - n0 == 1
+    recs = profiling.records()
+    vort = [r for r in recs if r.name == "forces.vorticity"]
+    assert len(vort) == 1 and vort[0].parent.name == "step.forces"
+    assert vort[0].parent.parent.name == "fire.step" and vort[0].frame == vort[0].parent.frame
+    assert vort[0].host_ms >= 0 and vort[0].device_ms is None  # no card: a host span alone
+    assert vort[0].parent.start_ns <= vort[0].start_ns <= vort[0].end_ns <= vort[0].parent.end_ns
+    assert [r.name for r in recs if r.name.startswith("step.")] == [
+        p for p in PHASES if p != "step.collide"]
+    _check_clock(prof, recs)
+    profiling.clear()
+    fire.fire_step(topo, state, params, cfg)  # untraced: counted, not recorded
+    assert stencil.applies.n - n0 == 2 and profiling.records() == []
+    _profiled(lambda: plume.plume_step(topo, state, RBGS, CFG))
+    assert "forces.vorticity" not in {r.name for r in profiling.records()}
+    assert stencil.applies.n - n0 == 2
+
+
+def test_an_off_confinement_span_reaches_no_profiler_entry(start, monkeypatch):
+    """Off, the confinement's span reaches none of the profiler's entry
+    points and records nothing; the count still adds."""
+    def reached(*args, **kwargs):
+        raise AssertionError("an off span reached the profiler")
+
+    topo, state = start
+    for name in ("Span", "RANGE"):
+        monkeypatch.setattr(profiling, name, reached)
+    monkeypatch.setattr(torch.cuda, "Event", reached)
+    n0 = stencil.applies.n
+    out = stencil.vorticity_confinement(topo, state.velocity, 1 / 24, 2.0, 2.0, 1.0)
+    assert stencil.applies.n == n0 + 1 and profiling.records() == []
+    assert not torch.equal(out, state.velocity)
 
 
 def test_an_off_span_costs_under_a_microsecond_and_allocates_nothing(monkeypatch):
