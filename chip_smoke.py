@@ -25,7 +25,8 @@ RBGS step, B4 the parity step, B5-B6 the bench MG step, B8 one RK4
 advection with the SDF of the config-4 state, CE the config-4 step's four
 enforce passes, B1d and B11 one table-path bench step in the narrow band with
 COMBINE_TBL on, PG one row gather at the bench, PC one launch of
-probe_dmacost's L = 8, n = 512, 8 reps on one block per SM): per-launch
+probe_dmacost's L = 8, n = 512, 8 reps on one block per SM; VC one fire512
+frame's confinement, phase 3): per-launch
 medians over runs of 10 back-to-back calls at the inputs recorded from one
 such step, times that step's launches, beside the plain version's, a
 library call's where there is one, and ``bound_ms`` (the H100 SXM data
@@ -86,7 +87,8 @@ from hnanosolver_tpu_torch.models import collider, fire, plume, solve
 from hnanosolver_tpu_torch.ops import (advection, collision, combustion, cuda_bfecc,
                                        cuda_collision, cuda_emit, cuda_pressure, cuda_probe,
                                        cuda_sample, cuda_stencil, cuda_tables, cuda_tail,
-                                       cuda_transfer, multigrid, probe, stencil, tables)
+                                       cuda_transfer, cuda_vorticity, multigrid, probe, stencil,
+                                       tables)
 from hnanosolver_tpu_torch.ops import pressure as prs
 from hnanosolver_tpu_torch.parallel import boxes as pboxes
 from hnanosolver_tpu_torch.parallel import slab as pslab
@@ -129,9 +131,9 @@ F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2 cache
 C4_SHELL_VDOTN = 0.35  # median |u.n|/|u| on the shell (tests/test_collision.py)
 KEYS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b", "B8", "B1d", "B11", "PG", "PC", "MR",
-        "MP", "CE", "EM")
+        "MP", "CE", "EM", "VC")
 # kernels held to torch.equal with their plain versions
-BITWISE = ("B5", "B6", "MR", "MP", "CE", "EM")
+BITWISE = ("B5", "B6", "MR", "MP", "CE", "EM", "VC")
 PROBE_ROUNDS = 2  # timing rounds of each probe script in phase 15
 # Records from before kernels were redesigned (PERF.md §5-6, NVIDIA H100 80GB
 # HBM3 at 700 W), printed beside this run's: ms a step of the bench and
@@ -160,6 +162,12 @@ B5_LEVELS = (32, 128, 1024)  # the rows of every level B5 solves on the main pat
 COL1024 = dict(center0=(416.0, 384.0, 512.0), velocity=(192.0, 0.0, 0.0), radius=48.0)
 COL1024_FRAMES = 48
 COL1024_ROWS = (273_289, 273_408)
+# phase 3, VC at the benchmark's fire512 (benchmark/configs/fire512.json): the
+# envelope (radius, height, centre x and z, voxels), its (tiles, capacity),
+# and the offsets VC is held to its plain version at
+FIRE512 = (128, 512, 256, 256)
+FIRE512_ROWS = (33_656, 33_792)
+VC_OFFSETS = (1, 2, 7, -1)
 # phase 19: slabs on one card, the mg_tol run's tolerance and V-cycle cap,
 # and the one-device config-5 RBGS-50 step's peak (PERF.md section 5,
 # phase 18, NVIDIA H100 80GB HBM3 at 700 W)
@@ -279,6 +287,8 @@ def ops_per_voxel(key: str, args: tuple, kwargs: dict) -> float:
         return 40.0
     if key == "EM":  # the squared distance 8, its compare, density 2, fuel 3, temperature 1
         return 15.0
+    if key == "VC":  # benchmark/metrics/vorticity_roofline.py's count
+        return 154.0
     return 9.0  # B6
 
 
@@ -316,7 +326,8 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out_bytes: int) -> tuple[float
     """The least time the card could take for one launch: (ms, bound by,
     bytes moved). Each input is read once and each output (``out_bytes``)
     written once; B11's reads are the table values its dloc picks (the data
-    decides them): :func:`b11_read_bytes`."""
+    decides them): :func:`b11_read_bytes`; VC's the velocity alone (its nbr
+    left out, as ``benchmark/metrics/vorticity_roofline.py`` counts)."""
     seen, moved = set(), 0
     for a in list(args) + list(kwargs.values()):
         if isinstance(a, torch.Tensor) and a.data_ptr() not in seen:
@@ -326,6 +337,8 @@ def bound_ms(key: str, args: tuple, kwargs: dict, out_bytes: int) -> tuple[float
         moved = nbytes(args[1]) + b11_read_bytes(args[1], args[2])
     if key == "B1d":  # the dual rows its ldual names, the fields its mode samples
         moved += b1d_cost.read_bytes(args[0], args[1], *b1d_mode(args, kwargs)) - nbytes(args[0])
+    if key == "VC":  # the velocity alone, as vorticity_roofline.py counts it
+        moved = nbytes(args[1])
     moved += out_bytes
     ops = ops_per_voxel(key, args, kwargs) * rows(key, args) * 512
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -375,6 +388,9 @@ def kernel_table() -> dict:
          cuda_collision, "enforce_collision"),
         ("EM", "emit", "emit.cu", xla + "emit, hnanosolver_tpu/models/plume.py:72)",
          cuda_emit.launches, cuda_emit, "emit"),
+        ("VC", "vorticity_confinement", "vorticity.cu",
+         xla + "confinement, hnanosolver_tpu/ops/stencil.py:153)", cuda_vorticity.launches,
+         cuda_vorticity, "vorticity_confinement"),
     )
     kernels = {key: dict(name=name, source="hnanosolver_tpu_torch/csrc/" + src, replaces=rep,
                          counter=counter, wrap=(mod, attr), route="cuda", launches=0,
@@ -428,7 +444,7 @@ def check(card, key, label, got, want, tol=TOL_B3, phase="3"):
           f" bitwise {bitwise}", flush=True)
     if not rel <= tol:
         raise AssertionError(f"phase {phase}: {key} {label} rel err {rel} > {tol}")
-    if key in ("MR", "MP", "CE", "EM") and not bitwise:
+    if key in ("MR", "MP", "CE", "EM", "VC") and not bitwise:
         raise AssertionError(f"phase {phase}: {key} {label} is not bitwise its plain version")
 
 
@@ -672,12 +688,20 @@ def emits(model) -> int:
     return 1 if model in (plume, collider) else 0
 
 
+def confines(p_) -> int:
+    """VC launches a step at ``p_``: one where the confinement acts, at an
+    offset ``int(factor_scale)`` other than 0 (ops/stencil.py)."""
+    return int(int(p_.combustion.factor_scale) != 0)
+
+
 def step_counts(cap: int, p_, em: int = 0) -> dict:
     """Launches of one step at capacity ``cap`` on the nbr path with at
     most 8 scalars: the pressure solve as ops/pressure.solve_pressure
     dispatches it, with ``p_.has_collision`` four CE (the step's enforce
-    passes), and ``em`` EM (:func:`emits`)."""
-    c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0, "EM": em}
+    passes), ``em`` EM (:func:`emits`) and one VC where the confinement acts
+    (:func:`confines`)."""
+    c = {"B1": 2, "B2": 2, "B7a": 1, "B7b": 1, "CE": 4 if p_.has_collision else 0, "EM": em,
+         "VC": confines(p_)}
     if cap <= cuda_pressure.MAX_FUSED_ROWS:
         c["B5"] = 1
     else:
@@ -717,7 +741,9 @@ def phase_1_device() -> Card | None:
 
 def phase_2_build(card: Card) -> None:
     """Build the kernels; print ptxas's resources of every kernel instance
-    with its resident warps, and B5's launch shape at each T it solves."""
+    with its resident warps (with the dynamic shared memory of the probe
+    kernels at phase 15's shapes and of VC at each offset), and B5's launch
+    shape at each T it solves."""
     info = build.build()
     build.library()
     res = build.parse_ptxas(info.log)
@@ -728,6 +754,9 @@ def phase_2_build(card: Card) -> None:
     probe_smem = {"take_slab_kernel": cuda_probe.slab_smem_bytes(probe_dmacost.T),
                   "take_chain_kernel": cuda_probe.chain_smem_bytes(),
                   "row_copy_kernel": probe.copy_smem_bytes(0, probe_dmacost.N_ROWS)}
+    # VC's at each offset it is built for (vorticity_kernel<|s|>)
+    probe_smem.update({f"vorticity_kernel<{s_}>": cuda_vorticity.smem_bytes(s_)
+                       for s_ in range(1, cuda_vorticity.MAX_OFFSET + 1)})
     for r in res:  # every kernel instance: its resources and resident warps
         if r.threads is not None:
             print(f"[2] {r.line(probe_smem.get(r.name, 0))}", flush=True)
@@ -853,11 +882,79 @@ def emit_cases(card, c5) -> None:
     torch.cuda.empty_cache()
 
 
+def sparse_toy(gen) -> topology_mod.Topology:
+    """A toy sparse topology: about half the tiles of a 6 x 5 x 6 block, so
+    that face, edge and corner neighbours are absent here and there, at a
+    capacity with 9 padding rows."""
+    keep = torch.rand((6, 5, 6), generator=gen, device=DEV) < 0.5
+    tiles = keep.nonzero().to(torch.int32).cpu().numpy()
+    return build_topology(tiles, capacity=len(tiles) + 10, device=DEV)
+
+
+def vorticity_cases(card) -> None:
+    """VC bitwise its plain version on every row, with its input left as it
+    was: at fire512 (33,656 tiles at capacity 33,792) and on a toy sparse
+    topology (:func:`sparse_toy`), at each of VC_OFFSETS, the velocity
+    random on every row (the null and padding rows too) and 0 on every
+    seventh row (|grad|omega|| = 0 inside those tiles: N is 0 / 1e-5);
+    s = 8, -8 and 0 raise.
+    Then its ms a launch at fire512, s = 1, beside its bound and the plain
+    version's: one fire512-rbgs50 frame's confinement."""
+    p3 = fire.default_params()
+    dt, inv_dx, scale = p3.dt, p3.inv_voxel_size, p3.combustion.vorticity_scale
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    tf = build_topology(plume.build_plume_envelope(*FIRE512), capacity=FIRE512_ROWS[1],
+                        device=DEV)
+    if (tf.n_active, tf.capacity) != FIRE512_ROWS:
+        raise AssertionError(f"phase 3: fire512 has {tf.n_active} tiles at capacity "
+                             f"{tf.capacity}, not {FIRE512_ROWS}")
+    toy = sparse_toy(gen)
+    absent = int((toy.nbr[1:toy.n_active + 1] == 0).sum())
+    for name, topo_ in (("fire512", tf), (f"a toy of {toy.n_active} tiles ({absent} absent "
+                                          "neighbours)", toy)):
+        T_ = topo_.capacity
+        vel = torch.randn((3, T_, 512), generator=gen, device=DEV) * 8.0
+        vel[:, ::7] = 0.0
+        kept = vel.clone()
+        for s_ in VC_OFFSETS:
+            a_ = (topo_.nbr, vel, dt, inv_dx, scale, s_)
+            check(card, "VC", f"{name} T={T_}, s={s_}", cuda_vorticity.vorticity_confinement(*a_),
+                  cuda_vorticity.vorticity_confinement_plain(*a_), 0.0)
+            if not torch.equal(vel, kept):
+                raise AssertionError(f"phase 3: VC at {name}, s={s_} changed its input")
+        for s_ in (8, -8, 0):
+            try:
+                cuda_vorticity.vorticity_confinement(topo_.nbr, vel, dt, inv_dx, scale, s_)
+            except ValueError:
+                continue
+            raise AssertionError(f"phase 3: VC at s={s_} did not raise")
+    print("[3] VC at s = 8, -8 and 0 raised ValueError", flush=True)
+    # the order in which the plain version's torch.sum adds its three squares
+    sq = torch.randn((3, tf.capacity, 512), generator=gen, device=DEV) ** 2
+    total = torch.sum(sq, dim=0)
+    orders = {"(a + b) + c": (sq[0] + sq[1]) + sq[2], "a + (b + c)": sq[0] + (sq[1] + sq[2]),
+              "(a + c) + b": (sq[0] + sq[2]) + sq[1]}
+    print(f"[3] torch.sum over three stacked squares on the card adds as "
+          f"{[k for k, v in orders.items() if torch.equal(total, v)]}", flush=True)
+    vel = torch.randn((3, tf.capacity, 512), generator=gen, device=DEV) * 8.0
+    a_ = (tf.nbr, vel, dt, inv_dx, scale, 1)
+    k_ms, p_ms = paired_ms(lambda: cuda_vorticity.vorticity_confinement(*a_),
+                           lambda: cuda_vorticity.vorticity_confinement_plain(*a_), batch=4)
+    b_ms, by, moved = bound_ms("VC", a_, {}, nbytes(vel))
+    card.kernels["VC"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+    print(f"[3] VC vorticity_confinement at fire512 (T={tf.capacity}, s=1): {k_ms:.4f} ms a "
+          f"launch, bound {b_ms:.4f} ms ({by}, {moved / 1e6:.1f} MB; {b_ms / k_ms:.1%} of the "
+          f"kernel's time), plain {p_ms:.4f} ms | {card}", flush=True)
+    del tf, toy, vel, kept, sq, total, orders, a_
+    torch.cuda.empty_cache()
+
+
 def phase_3_kernels(card: Card, rng) -> tuple:
     """Each kernel against its plain version on inputs from ``rng``, at the
     bench shapes, at 7 mod 8 rows, on config 5's levels (B5 in both forms,
-    MR and MP in every form, bitwise), at collider1024 (CE, timed) and with
-    the emitter (EM, :func:`emit_cases`). Returns config 5's topology and
+    MR and MP in every form, bitwise), at collider1024 (CE, timed), with
+    the emitter (EM, :func:`emit_cases`) and at fire512 (VC,
+    :func:`vorticity_cases`). Returns config 5's topology and
     multigrid hierarchy."""
     bench = CELLS["bench"]
     topo, params = bench.topology(DEV), bench.params
@@ -1079,6 +1176,7 @@ def phase_3_kernels(card: Card, rng) -> tuple:
         if ghosts <= 0:
             raise AssertionError(f"phase 3: slab {d}'s maps cover no ghost row")
     emit_cases(card, c5)
+    vorticity_cases(card)
     card.done("3")
     return c5, c5_hier
 
@@ -1504,11 +1602,19 @@ def phase_12_config2(card: Card) -> None:
 
 
 def phase_13_config3(card: Card) -> None:
-    """BASELINE config 3: C3_FRAMES growing fire frames (:func:`grown`) and
+    """BASELINE config 3: C3_FRAMES growing fire frames (:func:`grown`), one
+    VC launch each (as many as ``vorticity.applies`` counts), and
     tests/test_fire.py's checks; one step kernels vs plain."""
     p3, cfg3 = fire.default_params(), fire.FireConfig()
+    applied = stencil.applies.n
     t3, st3, wall = grown(card, "13", fire, p3, lambda on_frame: fire.run_fire(
         C3_FRAMES, p3, cfg3, device=DEV, on_frame=on_frame))
+    applied = stencil.applies.n - applied
+    vc = card.kernels["VC"]["counter"].n  # the grown run's, read after it
+    print(f"[13] the confinement acted {applied} times, {vc} VC launches", flush=True)
+    if not applied == vc == C3_FRAMES:
+        raise AssertionError(f"phase 13: {applied} confinements, {vc} VC launches in "
+                             f"{C3_FRAMES} frames")
     sc3 = st3.scalars
     hot = torch.where(sc3["temperature"] > 50.0, positions_flat(t3)[1].to(torch.float32), -1e9)
     facts = dict(flame=float(sc3["flame"].max()), waste=float(sc3["waste"].sum()),
@@ -3035,7 +3141,7 @@ def phase_20_dense(card: Card) -> None:
                 clamped_in = int(advection.cfl_clamped_count(t20, vel_t, p20.dt,
                                                              p20.inv_voxel_size))
                 with main_path(card, label, {"B1": 2, "B2": 2, "B4": 2 * p20.iterations, "B7a": 1,
-                                       "B7b": 1}):
+                                             "B7b": 1, "VC": confines(p20)}):
                     out = solver.step(t20, state, p20)
                 clamped_out = int(advection.cfl_clamped_count(t20, out.velocity, p20.dt,
                                                               p20.inv_voxel_size))
@@ -3049,7 +3155,7 @@ def phase_20_dense(card: Card) -> None:
                 # versions: the whole step, then each distinct call
                 out_p = step_vs_plain(card, label, lambda: solver.step(t20, state, p20), out)
                 for key, a, kw, _, _ in record(card, lambda: solver.step(t20, state, p20),
-                                               ("B1", "B2", "B4", "B7a", "B7b")):
+                                               ("B1", "B2", "B4", "B7a", "B7b", "VC")):
                     vs_plain(card, label, key, a, kw)
                 # the oracle in float64: its own f32 rounding grows with the
                 # box (absolute trace positions, an ulp of 2^-24 * n) and the
@@ -3194,7 +3300,8 @@ def phase_21_repeat(card: Card) -> None:
     passes = []
     for i in (1, 2):
         with main_path(card, f"21 {REPEAT_N}^3 stages, pass {i}",
-                       {"B1": 1, "B2": 1, "B4": 2 * p21.iterations, "B7a": 1}):
+                       {"B1": 1, "B2": 1, "B4": 2 * p21.iterations, "B7a": 1,
+                        "VC": confines(p21)}):
             passes.append(repeat_check.stages(t21, s21, p21))
     diffs = repeat_check.differing(*passes, threads=1)
     for name in passes[0]:

@@ -67,6 +67,7 @@ SIGNATURES = {
     "hn_mg_prolong": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "hn_enforce_collision": (_P, _P, _P, _P, _I, _F, _F, _F, _P),
     "hn_emit": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "hn_vorticity_confinement": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
 }
 
 
@@ -107,6 +108,8 @@ BLOCK_THREADS = {
     "enforce_collision_kernel": 512,
     # the plume's emit EM (emit.cu): a block a tile, four voxels a thread
     "emit_kernel": 128,
+    # the vorticity confinement VC (vorticity.cu): a block a tile, two voxels a thread
+    "vorticity_kernel": 256,
 }
 
 

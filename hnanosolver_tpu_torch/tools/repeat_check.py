@@ -12,7 +12,7 @@ where it lies; the last line is one JSON object ``{"n", "threads",
 "differing": {stage: count}}``.
 
 ``--narrow R`` instead advects once and repeats only the first offset
-magnitude (``stencil._curl_mag_at_offset`` at (1, 0, 0)) R times on that
+magnitude (``cuda_vorticity.curl_mag_at_offset`` at (1, 0, 0)) R times on that
 one velocity, keeping every intermediate: its 12 ``offset_view`` gathers,
 the ``wx``, ``wy`` and ``wz`` terms, the sum of squares and the ``sqrt``.
 Each repeat is held to the first; the first repeat's outputs are also
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from hnanosolver_tpu_torch.core.topology import build_topology_dense, resolve_device
-from hnanosolver_tpu_torch.ops import advection, stencil
+from hnanosolver_tpu_torch.ops import advection, cuda_vorticity, stencil
 from hnanosolver_tpu_torch.ops import pressure as prs
 from hnanosolver_tpu_torch.ops.shifts import offset_view
 from hnanosolver_tpu_torch.tools import dense_spread as spread
@@ -66,7 +66,8 @@ def stages(topo, state, p) -> dict:
         for sign in (1, -1):
             off = [0, 0, 0]
             off[ax] = sign
-            out[f"curl magnitude at {tuple(off)}"] = stencil._curl_mag_at_offset(topo, u, off, f)
+            mag = cuda_vorticity.curl_mag_at_offset(topo, u, off, f)
+            out[f"curl magnitude at {tuple(off)}"] = mag
     out["confinement"] = stencil.vorticity_confinement(topo, u, p.dt, p.inv_voxel_size,
                                                        c.vorticity_scale, c.factor_scale)
     out["divergence"] = stencil.divergence(topo, out["confinement"], p.inv_voxel_size)
@@ -77,7 +78,7 @@ def stages(topo, state, p) -> dict:
 
 def curl_mag_parts(topo, vel: torch.Tensor, off, factor: float,
                    held: Optional[dict] = None) -> dict:
-    """``stencil._curl_mag_at_offset(topo, vel, off, factor)`` in its op
+    """``cuda_vorticity.curl_mag_at_offset(topo, vel, off, factor)`` in its op
     order with every intermediate kept, in the order it makes them: the
     gathers ``g0``-``g3``, ``wx``, ``g4``-``g7``, ``wy``, ``g8``-``g11``,
     ``wz``, ``sum of squares`` and ``sqrt`` (bitwise its result). ``held``

@@ -150,12 +150,14 @@ def _case(key: str, planned):
         out = _b(d, f, h, vel)
         return ((org, T - 2, d, f, h, vel, (1.0, 2.0, 3.0), 4.0, 0.1, 0.05, 150.0, 8.0), {}, out,
                 _b(org) + 2 * out, 15.0, T)
+    if key == "VC":  # the velocity read and written once; nbr not counted
+        return (nbr, vel, 1 / 24, 2.0, 2.0, 1), {}, _b(vel), 2 * _b(vel), 154.0, T
     raise KeyError(key)
 
 
 @pytest.mark.parametrize("key", ["B1", "B1 + SDF", "B1d both", "B1d back", "B1d fwd",
                                  "B1d both + SDF", "B2", "B3", "B4", "B5", "B6", "B7a", "B7b",
-                                 "B8", "B11", "MR", "MP", "CE", "EM"])
+                                 "B8", "B11", "MR", "MP", "CE", "EM", "VC"])
 def test_bound_ms_counts_each_kernels_bytes_and_operations(key, planned):
     args, kwargs, out_bytes, moved, ops, rows = _case(key, planned)
     k = key.split()[0]
@@ -180,6 +182,33 @@ def test_emit_bound_at_config_5_is_twelve_field_passes():
     assert (moved, by) == (fields + T5 * 12, "bytes")
     assert ms == pytest.approx(fields / chip_smoke.HBM_BYTES_PER_S * 1e3, rel=1e-3)
     assert ms == pytest.approx(1.9757, rel=1e-3)
+
+
+def test_vorticity_bound_at_fire512_is_the_benchmarks(metrics):
+    """VC's bound at fire512 (33,792 rows, s = 1) is
+    ``benchmark/metrics/vorticity_roofline.py``'s a frame: 415.2 MB, 0.12395
+    ms at 3.35 TB/s."""
+    T5 = chip_smoke.FIRE512_ROWS[1]
+    vel = torch.empty((3, T5, V))
+    ms, by, moved = chip_smoke.bound_ms("VC", (_nbr(T5), vel, 1 / 24, 2.0, 2.0, 1), {},
+                                        _b(vel))
+    assert (moved, by) == (6 * T5 * V * F32, "bytes")
+    theirs = importlib.import_module("vorticity_roofline").bound_ms({"T": T5})
+    assert ms == pytest.approx(theirs, rel=1e-3)
+    assert ms == pytest.approx(0.12395, rel=1e-3)
+
+
+@pytest.fixture(scope="module")
+def metrics():
+    """``benchmark/`` and ``benchmark/metrics/`` on the path, as the
+    benchmark imports its readers."""
+    paths = [str(ROOT / "benchmark"), str(ROOT / "benchmark" / "metrics")]
+    sys.path[:0] = paths
+    try:
+        yield
+    finally:
+        for p in paths:
+            sys.path.remove(p)
 
 
 @pytest.fixture(scope="module")

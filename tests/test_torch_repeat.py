@@ -4,7 +4,7 @@ CPU's one differing op (``tools/first_sqrt.py``), on the CPU in one thread.
 - Both modes of the repeat tool at a 16^3 box print their JSON line with no
   differing stage or repeat, and no stored output changed.
 - The narrowed mode's magnitude is the step's: ``curl_mag_parts``'s
-  ``sqrt`` is bitwise ``stencil._curl_mag_at_offset`` at each of the six
+  ``sqrt`` is bitwise ``cuda_vorticity.curl_mag_at_offset`` at each of the six
   offsets, and the clones it keeps equal what it returns.
 - The narrowed mode tells the two faults apart when they are made on
   purpose: a ``torch.sqrt`` whose first call computes another answer (the
@@ -22,7 +22,7 @@ import json
 import pytest
 import torch
 
-from hnanosolver_tpu_torch.ops import stencil
+from hnanosolver_tpu_torch.ops import cuda_vorticity
 from hnanosolver_tpu_torch.tools import first_sqrt, repeat_check
 
 # one thread: at more, this CPU's torch can compute a process's first
@@ -66,7 +66,7 @@ def test_curl_mag_parts_is_the_confinement_magnitude(case, off):
     held = {}
     parts = repeat_check.curl_mag_parts(topo, u, off, f, held)
     assert list(parts) == PARTS == list(held)
-    assert torch.equal(parts["sqrt"], stencil._curl_mag_at_offset(topo, u, off, f))
+    assert torch.equal(parts["sqrt"], cuda_vorticity.curl_mag_at_offset(topo, u, off, f))
     assert all(torch.equal(parts[k], held[k]) for k in PARTS)
     assert float(parts["sqrt"].max()) > 0
 
